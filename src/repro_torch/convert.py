@@ -1,0 +1,52 @@
+"""Convert the JAX package's parameters into the port's parameter dict.
+
+The JAX side hands them over as a nested dict of numpy arrays (its
+``StepBundle`` leaves unflattened with ``StepBundle.treedef``: stacked
+``blocks`` leaves, the same key names). bf16 arrays cross through a
+``uint16`` view, so values arrive bit for bit. Only numpy is needed
+here; the caller does the JAX side.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, SystemConfig
+from repro_torch.core.partition import tree_items, tree_map_with_path
+from repro_torch.models.lm import LM
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def params_from_jax(tree, cfg: ModelConfig,
+                    dtype: Optional[torch.dtype] = None, device=None):
+    """The port's parameter dict for ``cfg`` from the JAX package's
+    nested dict of numpy arrays, on ``device`` (None means ``cuda``, and
+    raises without one). Every leaf of the port's defs must be present
+    with its shape, and no other leaf; ``dtype`` casts (None keeps the
+    source type)."""
+    device = resolve_device(device)
+    defs = LM(cfg, SystemConfig()).defs
+    want = dict(tree_items(defs))
+    have = dict(tree_items(tree))
+    if set(want) != set(have):
+        raise ValueError(
+            f"parameter trees differ: missing {sorted(set(want) - set(have))}"
+            f", extra {sorted(set(have) - set(want))}")
+
+    def one(path, d):
+        a = have[path]
+        if tuple(a.shape) != d.shape:
+            raise ValueError(f"{path}: shape {tuple(a.shape)} != {d.shape}")
+        t = _tensor(a)
+        return (t if dtype is None else t.to(dtype)).to(device)
+    return tree_map_with_path(one, defs)

@@ -1,0 +1,73 @@
+"""Paged serve-step builders for one rank: the chunked-prefill step, the
+paged decode step and the greedy pick, plus the paged-plan gate and the
+default pool sizing, as the JAX package's ``core/engine/serve.py``
+builds them. The steps are plain functions run eagerly; they update the
+paged pools in place and return them."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ShapeCell
+from repro_torch.core.kv_cache import PagedKVConfig
+
+
+def check_paged_plan(model) -> None:
+    """The paged path is gated to attention-only mixer stacks."""
+    bad = sorted({k for kinds in model.plan for k in kinds
+                  if k not in ("attn", "mlp")})
+    if bad:
+        raise ValueError(
+            f"paged serving supports (attn, mlp) stacks only, plan has "
+            f"{bad}")
+
+
+def paged_replicas(bundle, cell: ShapeCell) -> int:
+    """Data replicas the paged pool's page dim is split over: one rank
+    holds one replica."""
+    return 1
+
+
+def default_paged_kv(bundle, cell: ShapeCell) -> PagedKVConfig:
+    """A pool sized so every batch slot can hold one max-length
+    (cell.seq_len) sequence, plus the scratch page."""
+    ps = 16 if cell.seq_len % 16 == 0 else 8
+    mpps = -(-cell.seq_len // ps)
+    slots = cell.global_batch // paged_replicas(bundle, cell)
+    return PagedKVConfig(page_size=ps, pages_per_replica=1 + slots * mpps,
+                         max_pages_per_seq=mpps)
+
+
+def build_paged_decode_step(bundle, kv: PagedKVConfig):
+    """(params, tok [B,1], table [B,max_pages], lengths [B], pools) ->
+    (logits [B,V], pools)."""
+    model = bundle.model
+    check_paged_plan(model)
+
+    @torch.no_grad()
+    def step(params, tok, table, lengths, state):
+        return model.paged_decode_fn(params, tok, state, table, lengths)
+    return step
+
+
+def build_prefill_chunk_step(bundle, kv: PagedKVConfig):
+    """(params, ids [B,C], table, pos0 [B], last_idx [B], pools) ->
+    (last-prompt-token logits [B,V], pools). Rows not prefilling this
+    call must carry a scratch (all-zero) table row."""
+    model = bundle.model
+    check_paged_plan(model)
+
+    @torch.no_grad()
+    def step(params, ids, table, pos0, last_idx, state):
+        return model.paged_prefill_fn(params, ids, state, table, pos0,
+                                      last_idx)
+    return step
+
+
+def build_greedy_pick(bundle):
+    """Greedy sampler: int32 argmax over the vocab per row. Ties go to
+    the lowest index (``torch.argmax`` returns the first maximum), as
+    ``jnp.argmax`` does."""
+    @torch.no_grad()
+    def pick(logits):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return pick

@@ -1,0 +1,100 @@
+"""Parameter definitions: ParamDef trees and their initialization.
+
+Every parameter is a ParamDef whose ``dims`` tag each dimension with a
+logical role, as in the JAX package:
+
+  'stack' - layer-group dimension (never sharded)
+  'fsdp'  - ZeRO-3 sharding dimension
+  'tp'    - tensor-parallel dimension
+  None    - unsharded
+
+On one rank every tag is inert: the parameter dict holds full tensors.
+The multi-rank slice reads the tags to shard. Trees are nested dicts,
+walked in sorted-key order -- the leaf order of the JAX package's
+treedef, so the two packages enumerate the same leaves in the same
+order.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Iterator, Optional, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    dims: Tuple[Optional[str], ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"          # normal | zeros | ones | embed
+    init_scale: float = 1.0
+    frozen: bool = False          # FCDP-Comm classification
+    label: str = ""               # dotted path, filled by label_tree
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.dims):
+            raise ValueError(f"shape {self.shape} and dims {self.dims} "
+                             "differ in rank")
+
+
+def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) pairs of a nested dict in sorted-key order."""
+    for k in sorted(tree):
+        path = f"{prefix}.{k}" if prefix else k
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from tree_items(v, path)
+        else:
+            yield path, v
+
+
+def tree_map(fn: Callable, tree):
+    """Map ``fn`` over the leaves of a nested dict."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_map_with_path(fn: Callable, tree, prefix: str = ""):
+    """Map ``fn(dotted_path, leaf)`` over a nested dict, visiting the
+    leaves in sorted-key order (the order ``tree_items`` yields)."""
+    out = {}
+    for k in sorted(tree):
+        path = f"{prefix}.{k}" if prefix else k
+        v = tree[k]
+        out[k] = (tree_map_with_path(fn, v, path) if isinstance(v, dict)
+                  else fn(path, v))
+    return out
+
+
+def label_tree(tree):
+    """Attach dotted-path labels to every ParamDef in the tree."""
+    return tree_map_with_path(lambda path, d: replace(d, label=path), tree)
+
+
+def _init_one(gen: torch.Generator, pdef: ParamDef, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    if pdef.init == "zeros":
+        return torch.zeros(pdef.shape, dtype=dtype, device=device)
+    if pdef.init == "ones":
+        return torch.ones(pdef.shape, dtype=dtype, device=device)
+    fan_in = pdef.shape[-2] if len(pdef.shape) >= 2 else pdef.shape[-1]
+    scale = pdef.init_scale / math.sqrt(max(fan_in, 1))
+    if pdef.init == "embed":
+        scale = pdef.init_scale * 0.02
+    x = torch.randn(pdef.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return x.mul_(scale).to(dtype)
+
+
+def init_params(defs, seed: int, device: torch.device,
+                dtype: Optional[torch.dtype] = None):
+    """Materialize parameters from one ``torch.Generator`` on ``device``,
+    drawing leaves in tree order. ``dtype`` overrides each def's type.
+    The JAX package draws from ``jax.random``: the same seed gives other
+    numbers, so parity tests convert one package's weights
+    (``repro_torch.convert``) instead."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tree_map_with_path(
+        lambda _, d: _init_one(gen, d, dtype or d.dtype, device), defs)

@@ -1,0 +1,78 @@
+"""Wrapper of the hand-written flash-attention kernel
+(``csrc/flash_attention.cu``; replaces the JAX package's Pallas
+``kernels/flash_attention.py:_flash_fwd_kernel``).
+
+It checks what the kernel takes, allocates the output and launches on
+PyTorch's current stream. It never falls back: a tensor the kernel does
+not take raises. ``kernels.ref.attention_plain`` is its plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.load("flash_attention").flash_attention_fwd_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_offset: Optional[torch.Tensor] = None,
+                        causal: bool = True,
+                        softmax_scale: Optional[float] = None
+                        ) -> torch.Tensor:
+    """q: [B,Sq,H,hd], k/v: [B,Skv,Hk,hd] bf16 CUDA tensors, contiguous;
+    q_offset: int32 [B] (None = zeros). Returns [B,Sq,H,hd] bf16."""
+    B, Sq, H, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    Skv, Hk = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if Hk == 0 or H % Hk:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {Hk}")
+    if min(B, Sq, Skv) == 0:
+        raise ValueError("empty attention input")
+    if q_offset is None:
+        q_offset = torch.zeros(B, dtype=torch.int32, device=q.device)
+    for name, t, dt in (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
+                        ("v", v, torch.bfloat16),
+                        ("q_offset", q_offset, torch.int32)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must lie on {q.device}, is on "
+                             f"{t.device}")
+        if t.dtype != dt:
+            raise ValueError(f"{name} must be {dt}, is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q_offset.shape != (B,):
+        raise ValueError(f"q_offset must be [{B}], is "
+                         f"{tuple(q_offset.shape)}")
+    scale = softmax_scale or (1.0 / math.sqrt(hd))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        q_offset.data_ptr(), out.data_ptr(), B, Sq, Skv, H,
+                        Hk, hd, int(causal), scale, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd_bf16 launch failed: CUDA "
+                           f"error {err}")
+    return out

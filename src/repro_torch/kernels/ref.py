@@ -1,0 +1,58 @@
+"""Plain PyTorch versions of the port's kernels: the ground truth each
+hand-written kernel is held against, and what the wrappers run on CPU
+tensors."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def expand_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B,S,KVH,hd] -> [B,S,KVH*n_rep,hd] by repeating each kv head
+    (q head h reads kv head h // n_rep)."""
+    if n_rep == 1:
+        return k
+    return k.repeat_interleave(n_rep, dim=2)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: Optional[torch.Tensor] = None,
+                    causal: bool = True,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Full-materialization attention with per-row causal offsets.
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, Hk, hd] with H % Hk == 0 (GQA:
+    q head h reads kv head h // (H // Hk)). q_offset: int [B], the
+    absolute position of q[b, 0] (None = all zeros). Key j is visible
+    to query i of row b iff j < Skv and (not causal or
+    j <= q_offset[b] + i). fp32 throughout; the output is
+    ``acc / max(l, 1e-20)`` cast to q's dtype -- the function of the
+    JAX package's ``flash_attention_fwd`` (q_offset = 0) and of its
+    ``chunked_causal_attention`` with a [B] ``q_offset``.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, Hk = k.shape[1], k.shape[2]
+    if H % Hk:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {Hk}")
+    scale = softmax_scale or (1.0 / math.sqrt(hd))
+    kf = expand_kv(k, H // Hk).float()
+    vf = expand_kv(v, H // Hk).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    if causal:
+        off = (torch.zeros(B, dtype=torch.int64, device=q.device)
+               if q_offset is None else q_offset.to(torch.int64))
+        qpos = off[:, None] + torch.arange(Sq, device=q.device)[None, :]
+        kpos = torch.arange(Skv, device=q.device)
+        mask = kpos[None, None, :] <= qpos[:, :, None]           # [B,Sq,Skv]
+        s = torch.where(mask[:, None], s, torch.full((), NEG_INF,
+                                                     device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)                                            # [B,H,Sq]
+    acc = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    out = acc / torch.clamp(l, min=1e-20).permute(0, 2, 1)[..., None]
+    return out.to(q.dtype)

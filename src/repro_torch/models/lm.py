@@ -1,0 +1,83 @@
+"""Decoder-only language model of the dense family: parameter defs and
+the paged serve steps (chunked prefill and decode over the paged KV
+cache), as the JAX package's ``models/lm.py`` computes them."""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, SystemConfig
+from repro_torch.core.partition import ParamDef, label_tree
+from repro_torch.models import stack as stk
+from repro_torch.models.layers import embed_lookup, rms_norm
+
+
+def layer_plan(cfg: ModelConfig) -> Tuple[List[Tuple[str, ...]], int]:
+    """Returns (plan, n_groups). plan[i] = sublayer kinds at position i."""
+    if cfg.family == "dense":
+        return [("attn", "mlp")], cfg.num_layers
+    raise ValueError(f"layer_plan: family {cfg.family!r} is not ported yet")
+
+
+class LM:
+    """Defs + serve-step bodies for one decoder-only architecture."""
+
+    def __init__(self, cfg: ModelConfig, sys: SystemConfig):
+        self.cfg, self.sys = cfg, sys
+        self.plan, self.n_groups = layer_plan(cfg)
+        self.defs = label_tree(self._build_defs())
+
+    def _build_defs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {
+            "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("tp", "fsdp"),
+                              init="embed"),
+            "final_norm": ParamDef((cfg.d_model,), ("fsdp",), init="ones"),
+            "blocks": stk.stack_defs(stk.group_defs(cfg, self.plan),
+                                     self.n_groups),
+            "head": ParamDef((cfg.d_model, cfg.vocab_size), ("fsdp", "tp")),
+        }
+
+    # -- shared forward pieces ----------------------------------------------
+    def _embed(self, params, ids: torch.Tensor) -> torch.Tensor:
+        return embed_lookup(params["embed"], ids).to(self.sys.torch_dtype)
+
+    def _final(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and logits of x [B, D] -> [B, V]."""
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return x @ params["head"]
+
+    # -- paged serving (continuous batching) ---------------------------------
+    def init_paged_state(self, n_pages: int, page_size: int, device):
+        """Paged KV pools, stacked over the layer groups."""
+        return stk.init_paged_group_state(self.cfg, self.plan, n_pages,
+                                          page_size, self.n_groups, device)
+
+    def paged_decode_fn(self, params, tok, state, table, lengths):
+        """One decode step over the paged cache. tok: [B, 1]; table:
+        [B, max_pages] page ids; lengths: [B] current written length per
+        row (the incoming token's absolute position). The pools in
+        ``state`` are updated in place. Returns (logits [B, V], state)."""
+        x = self._embed(params, tok)
+        ctx = {"paged": True, "positions": lengths[:, None],
+               "page_table": table}
+        x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
+                                   params["blocks"], x, ctx, state)
+        return self._final(params, x[:, 0]), state
+
+    def paged_prefill_fn(self, params, ids, state, table, pos0, last_idx):
+        """One prefill CHUNK over the paged cache. ids: [B, C] (rows not
+        prefilling this call carry padding and a scratch table row);
+        pos0: [B] absolute position of each row's chunk start; last_idx:
+        [B] position within the chunk of the row's last prompt token
+        (logits are taken there). Returns (logits [B, V], state)."""
+        S = ids.shape[1]
+        x = self._embed(params, ids)
+        positions = pos0[:, None] + torch.arange(
+            S, dtype=pos0.dtype, device=pos0.device)[None, :]
+        ctx = {"paged": True, "positions": positions, "page_table": table}
+        x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
+                                   params["blocks"], x, ctx, state)
+        x_last = x[torch.arange(x.shape[0], device=x.device), last_idx.long()]
+        return self._final(params, x_last), state

@@ -1,0 +1,134 @@
+"""The port's attention core against the JAX package.
+
+``repro_torch.kernels.ref.attention_plain`` (fp32, torch) is held
+against the JAX package's oracle ``ref.attention_ref``, its Pallas
+flash kernel in interpret mode, and ``chunked_causal_attention`` with a
+per-row ``q_offset`` -- at ``atol=rtol=2e-5``, the fp32 tolerance of
+``tests/test_kernels.py``. The hand-written CUDA kernel itself runs
+only on the card: ``chip_smoke.py`` holds it against
+``attention_plain`` there. Here the dispatch is checked: a CPU tensor
+goes to the plain version and never counts a launch."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.attention import chunked_causal_attention
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+SWEEP = [(1, 128, 1, 64), (2, 256, 4, 64), (1, 192, 2, 128), (2, 64, 2, 32),
+         (2, 200, 2, 16)]
+
+
+def _qkv(rng, shape, kv_heads=None):
+    B, S, H, hd = shape
+    kvs = (B, S, kv_heads or H, hd)
+    return (rng.normal(0, 1, shape).astype(np.float32),
+            rng.normal(0, 1, kvs).astype(np.float32),
+            rng.normal(0, 1, kvs).astype(np.float32))
+
+
+def _plain(q, k, v, q_offset=None, causal=True):
+    t = torch.from_numpy
+    off = None if q_offset is None else t(np.asarray(q_offset, np.int32))
+    return ref.attention_plain(t(q), t(k), t(v), off, causal).numpy()
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_attention_ref(shape, causal, rng):
+    q, k, v = _qkv(rng, shape)
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal)
+    np.testing.assert_allclose(_plain(q, k, v, causal=causal),
+                               np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_flash_interpret(shape, causal, rng):
+    """The TPU kernel's own function (q_offset 0, kv pre-expanded), run
+    as the JAX package runs it on the CPU."""
+    q, k, v = _qkv(rng, shape)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal,
+                                impl="pallas_interpret", block_q=64,
+                                block_k=64)
+    np.testing.assert_allclose(_plain(q, k, v, causal=causal),
+                               np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hk,hd", [
+    (4, 16, 128, 4, 2, 16),     # prefill chunk over a paged window
+    (4, 1, 128, 4, 2, 16),      # decode
+    (3, 24, 96, 8, 1, 32),      # MQA, ragged chunk
+    (2, 64, 64, 2, 2, 64),
+])
+def test_plain_matches_chunked_causal_with_row_offsets(B, Sq, Skv, H, Hk, hd,
+                                                       rng):
+    """Per-row offsets as the paged serve path passes them; the port
+    reads the Hk kv heads by index, the JAX function takes them
+    expanded."""
+    q, k, v = _qkv(rng, (B, Sq, H, hd), kv_heads=Hk)
+    if Skv != Sq:
+        k = rng.normal(0, 1, (B, Skv, Hk, hd)).astype(np.float32)
+        v = rng.normal(0, 1, (B, Skv, Hk, hd)).astype(np.float32)
+    off = rng.integers(0, Skv - Sq + 1, size=B).astype(np.int32)
+    off[0] = 0
+    rep = H // Hk
+    want = chunked_causal_attention(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, rep, axis=2)),
+        jnp.asarray(np.repeat(v, rep, axis=2)), q_chunk=8, kv_chunk=32,
+        q_offset=jnp.asarray(off))
+    np.testing.assert_allclose(_plain(q, k, v, off), np.asarray(want), **TOL)
+
+
+def test_dispatch_cpu_goes_to_plain_without_a_launch(rng):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, (2, 32, 4, 16), 2))
+    off = torch.tensor([0, 5], dtype=torch.int32)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, off, causal=True)
+    assert ops.flash_attention.launches == before
+    torch.testing.assert_close(got, ref.attention_plain(q, k, v, off, True),
+                               rtol=0, atol=0)
+
+
+def test_dispatch_bf16_cpu_matches_fp32_plain(rng):
+    """bf16 inputs are upcast to fp32 inside, and the output rounds once
+    to bf16: within the bf16 tolerance of tests/test_kernels.py."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, (2, 48, 4, 32), 1))
+    got = ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    want = ref.attention_plain(q.bfloat16().float(), k.bfloat16().float(),
+                               v.bfloat16().float())
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors(rng):
+    """The kernel wrapper never falls back: a tensor it cannot take
+    raises before anything is built or launched."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(rng, (1, 16, 2, 16)))
+    with pytest.raises(ValueError, match="must lie on"):
+        flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                            v[..., :8].contiguous())
+
+
+def test_dispatch_rejects_other_devices():
+    q = torch.empty((1, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        ops.flash_attention(q, q, q)
+
+
+def test_expand_kv_maps_q_head_to_kv_head():
+    k = torch.arange(2 * 3 * 2 * 1, dtype=torch.float32).reshape(2, 3, 2, 1)
+    e = ref.expand_kv(k, 3)
+    assert e.shape == (2, 3, 6, 1)
+    for h in range(6):
+        torch.testing.assert_close(e[:, :, h], k[:, :, h // 3])
