@@ -23,9 +23,23 @@ non-zero:
                 on the card (kernel) and on the CPU (plain version):
                 first-token logits within tolerance, greedy tokens
                 equal.
+  5. train   -- the train path: ``repro_torch.launch.train.spawn``
+                runs 4 ranks on the one card (mesh pod 2 x data 2 x
+                model 1; the ranks share the card, so the wire is gloo
+                over host memory), qwen2.5-3b at full width and depth 2
+                (random weights from seed 0), seq 512, global batch 8:
+                one step each of zero3, zeropp and fcdp, then 3 steps
+                of fcdp with int8 qwZ/qgZ. Checks the losses agree,
+                the int8 kernels ran as often as the plans predict,
+                fcdp's pod all-gather bytes undercut zero3's and its
+                peak device memory undercuts zeropp's.
+  6. train_parity -- the smoke-width model, the same 4-rank fcdp+int8
+                step on the card (kernels) and on the CPU (plain
+                versions): loss and grad norm within tolerance.
 
-Then the card's name and power limit, the kernels' JSON line, and the
-result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
+plain versions at the train phase's shapes. Then the card's name and
+power limit, the kernels' JSON line, and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it exits non-zero and prints no
 result.
 """
@@ -42,6 +56,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:25"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+QUANT_SOURCE = "src/repro_torch/kernels/csrc/quant.cu"
+QUANT_TPU_KERNELS = {"quantize": "src/repro/kernels/quant.py:48",
+                     "dequantize": "src/repro/kernels/quant.py:74",
+                     "dequant_accumulate": "src/repro/kernels/quant.py:95"}
+QUANT_NAMES = {"quantize": "int8_quantize_blocks",
+               "dequantize": "int8_dequantize_blocks",
+               "dequant_accumulate": "int8_dequant_accumulate"}
+TRAIN_DEPTH = 2            # qwen2.5-3b's 36 layers cut to 2 for the train phase
+TRAIN_SEQ, TRAIN_BATCH = 512, 8
+# train phase tolerances: tests/test_system.py's across modes (fp32
+# reductions in another order); the int8 drift bound of test_quant.py
+LOSS_RTOL, GNORM_RTOL, INT8_DRIFT = 1e-4, 1e-3, 1e-2
 # H100 SXM published peaks (dense): bf16 tensor-core rate, HBM rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -204,6 +230,101 @@ def phase_kernels():
     return prefill, decode
 
 
+def int8_bound(kind, nb, n=1, in_elt=4):
+    """Least time: the bytes the function must move (each input read
+    once, each output written once) over the HBM rate; a few flops per
+    byte, so bytes bind. Returns (ms, bound_by)."""
+    if kind == "quantize":
+        nbytes = nb * 256 * in_elt + nb * 256 + nb * 4
+    elif kind == "dequantize":
+        nbytes = nb * 256 + nb * 4 + nb * 256 * 4
+    else:
+        nbytes = n * (nb * 256 + nb * 4) + nb * 256 * 4
+    return nbytes / PEAK_HBM_BYTES * 1e3, "bytes"
+
+
+def int8_case(kind, name, nb, gen, n=2, dtype="float32", timed=False):
+    """One int8 kernel against its plain version on the card, bit for
+    bit (``torch.equal``)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    dt = getattr(torch, dtype)
+    if kind == "quantize":
+        x = (torch.randn(nb, 256, generator=gen, device="cuda")
+             * 0.02).to(dt)
+        args, plain = (x,), ref.int8_quantize_blocks_plain
+        fn = ops.int8_quantize_blocks
+    else:
+        lead = (nb,) if kind == "dequantize" else (n, nb)
+        q = torch.randint(-127, 128, lead + (256,), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        s = torch.rand(lead + (1,), generator=gen, device="cuda") * 1e-3
+        args = (q, s)
+        fn, plain = ((ops.int8_dequantize_blocks,
+                      ref.int8_dequantize_blocks_plain)
+                     if kind == "dequantize" else
+                     (ops.int8_dequant_accumulate, ref.int8_dequant_acc_plain))
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = want if isinstance(want, tuple) else (want,)
+    equal = all(torch.equal(a, b) for a, b in zip(got_t, want_t))
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got_t, want_t))
+    out = {"kernel": QUANT_NAMES[kind], "case": name, "nb": nb,
+           "n": n if kind == "dequant_accumulate" else None,
+           "dtype": dtype if kind == "quantize" else None,
+           "bit_exact": equal, "max_abs_err": err}
+    check(equal, f"{QUANT_NAMES[kind]} {name}: kernel differs from its "
+          f"plain version (max |diff| {err})")
+    if timed:
+        out["ms"] = cuda_ms(lambda: fn(*args), 50)
+        out["plain_ms"] = cuda_ms(lambda: plain(*args), 10)
+        # no single PyTorch call computes any of the three functions
+        out["library_ms"] = None
+        out["bound_ms"], out["bound_by"] = int8_bound(
+            kind, nb, n, torch.finfo(dt).bits // 8 if kind == "quantize"
+            else 4)
+    return out
+
+
+def phase_int8_kernels():
+    """The int8 kernels at the train phase's shapes (qwen2.5-3b, mesh
+    pod 2 x data 2): one rank's shard of an MLP weight (2048 x 11008 / 4
+    = 22,016 blocks; bf16, as qwZ quantizes it), its pod-gathered
+    stage-1 view (2 x 22,016 blocks: qwZ's dequantize on arrival, qgZ's
+    quantize and n = 2 dequant-accumulate), the embedding shard
+    (151,936 x 2048 / 4 = 303,872 blocks), and a ragged block count.
+    Returns {kind: timed main-shape case}."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w_nb, e_nb = 2048 * 11008 // 4 // 256, 151936 * 2048 // 4 // 256
+    main = {
+        "quantize": int8_case("quantize", "mlp_shard_bf16", w_nb, gen,
+                              dtype="bfloat16", timed=True),
+        "dequantize": int8_case("dequantize", "mlp_stage1", 2 * w_nb, gen,
+                                timed=True),
+        "dequant_accumulate": int8_case("dequant_accumulate",
+                                        "mlp_stage1_grad", w_nb, gen,
+                                        timed=True)}
+    extra = [
+        int8_case("quantize", "mlp_stage1_grad_f32", 2 * w_nb, gen),
+        int8_case("quantize", "embed_shard_bf16", e_nb, gen, dtype="bfloat16",
+                  timed=True),
+        int8_case("dequantize", "embed_stage1", 2 * e_nb, gen, timed=True),
+        int8_case("dequant_accumulate", "embed_stage1_grad", e_nb, gen,
+                  timed=True),
+        int8_case("quantize", "ragged_f32", 4099, gen),
+        int8_case("dequantize", "ragged", 4099, gen),
+        int8_case("dequant_accumulate", "ragged_n3", 4099, gen, n=3)]
+    for c in list(main.values()) + extra:
+        emit("kernels", **c)
+    return main, {c["kernel"] + "/" + c["case"]: c for c in extra
+                  if "ms" in c}
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def phase_serve():
@@ -341,6 +462,136 @@ def phase_parity():
          near_tie_divergences=diverged, cpu_s=t_c, gpu_s=t_g)
 
 
+# -- phases 5 and 6 ------------------------------------------------------------
+
+def _train_job(cfg, seq, batch, runs, dtype="bfloat16", **kw):
+    from repro_torch.configs.base import (OptimizerConfig, RunConfig,
+                                          ShapeCell, SystemConfig)
+    from repro_torch.launch.mesh import train_mesh_shape
+    from repro_torch.launch.train import TrainJob
+    run = RunConfig(model=cfg, shape=ShapeCell("train", "train", seq, batch),
+                    system=SystemConfig(dtype=dtype),
+                    optimizer=OptimizerConfig(lr=3e-4, total_steps=100,
+                                              warmup_steps=10))
+    return TrainJob(run=run, mesh=train_mesh_shape(4, True), runs=runs,
+                    seed=0, **kw)
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def phase_train():
+    """The train path at full width, depth 2, 4 ranks on the card."""
+    import math
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import ModeRun, spawn
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=TRAIN_DEPTH)
+    runs = [ModeRun("zero3"), ModeRun("zeropp"), ModeRun("fcdp"),
+            ModeRun("fcdp", "int8_pod", "int8_pod", steps=3)]
+    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs)
+    t0 = time.perf_counter()
+    ranks = spawn(job, timeout_s=600)
+    wall = time.perf_counter() - t0
+    by = {("int8" if r["run"]["param_compress"] != "none"
+           else r["run"]["mode"]): [rk["runs"][i] for rk in ranks]
+          for i, r in enumerate(ranks[0]["runs"])}
+    check(all(rk["backend"] == "gloo" for rk in ranks),
+          "4 ranks on one card must talk through gloo")
+    summary = {}
+    for name, rs in by.items():
+        r0 = rs[0]
+        losses = [m["loss"] for m in r0["metrics"]]
+        check(all(math.isfinite(v) for v in losses),
+              f"{name}: a loss is not finite: {losses}")
+        check(all(r["metrics"] == r0["metrics"] for r in rs),
+              f"{name}: the ranks disagree on the metrics")
+        for r in rs:
+            for s, launched in enumerate(r["launches"]):
+                check(launched == r["int8_plan"],
+                      f"{name} step {s}: int8 launches {launched} != the "
+                      f"plans' {r['int8_plan']}")
+        summary[name] = {
+            "loss": losses, "grad_norm": [m["grad_norm"]
+                                          for m in r0["metrics"]],
+            "tokens": r0["metrics"][0]["tokens"],
+            "bytes_per_step": r0["bytes"][0],
+            "int8_launches_per_rank_step": r0["launches"][0],
+            "int8_plan": r0["int8_plan"],
+            "cached_bytes": r0["cached"][0],
+            "cache_places": r0["cache_places"][0],
+            "peak_mem_gib": [r["peak_mem_bytes"] / 2**30 for r in rs],
+            "step_s": [r["step_s"] for r in rs]}
+    z3, zp, fc, q8 = (summary[k] for k in ("zero3", "zeropp", "fcdp",
+                                           "int8"))
+    for name, m in (("zeropp", zp), ("fcdp", fc)):
+        check(_rel(m["loss"][0], z3["loss"][0]) <= LOSS_RTOL,
+              f"{name} loss {m['loss'][0]} != zero3 {z3['loss'][0]}")
+        check(_rel(m["grad_norm"][0], z3["grad_norm"][0]) <= GNORM_RTOL,
+              f"{name} grad norm {m['grad_norm'][0]} != zero3 "
+              f"{z3['grad_norm'][0]}")
+    check(_rel(q8["loss"][0], fc["loss"][0]) <= INT8_DRIFT,
+          f"int8 step-0 loss {q8['loss'][0]} drifts from fcdp "
+          f"{fc['loss'][0]}")
+    check(all(v > 0 for v in q8["int8_launches_per_rank_step"].values()),
+          "the int8 run launched an int8 kernel no time")
+    ag = {k: m["bytes_per_step"]["all_gather/pod"]
+          for k, m in (("zero3", z3), ("zeropp", zp), ("fcdp", fc))}
+    check(ag["fcdp"] < ag["zero3"] and ag["fcdp"] == ag["zeropp"],
+          f"pod all-gather bytes {ag}")
+    check(fc["cache_places"] == {"host": [("cpu", True)]},
+          f"fcdp caches must lie in pinned host memory: "
+          f"{fc['cache_places']}")
+    check(all(f < z for f, z in zip(fc["peak_mem_gib"], zp["peak_mem_gib"])),
+          f"fcdp peak memory {fc['peak_mem_gib']} GiB not below zeropp "
+          f"{zp['peak_mem_gib']} GiB")
+    launches = {k: sum(sum(step[k] for step in r["launches"])
+                       for rs in by.values() for r in rs)
+                for k in QUANT_NAMES}
+    emit("train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
+         layers_full=get_config("qwen2.5-3b").num_layers,
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
+         backend=ranks[0]["backend"], wall_s=wall,
+         int8_launches_total=launches, modes=summary)
+    return launches
+
+
+def phase_train_parity():
+    """fcdp + int8 at smoke width, the same 4-rank step on the card and
+    on the CPU, from the same weights (drawn on the CPU). fp32 weights
+    and activations: in bf16 the dequantized weights put matmul outputs
+    on rounding ties that the card's and the CPU's matmuls break apart
+    (tests/test_torch_train.py measures the same against JAX)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.train import ModeRun, spawn
+
+    runs = [ModeRun("fcdp", "int8_pod", "int8_pod", dtype="float32")]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        job = _train_job(get_smoke_config("qwen2.5-3b"), 64, 8, runs,
+                         dtype="float32", device=dev, draw_device="cpu")
+        t0 = time.perf_counter()
+        r = spawn(job, timeout_s=300)[0]["runs"][0]
+        out[dev] = (r, time.perf_counter() - t0)
+    (g, t_g), (c, t_c) = out["cuda"], out["cpu"]
+    mg, mc = g["metrics"][0], c["metrics"][0]
+    check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
+          f"card loss {mg['loss']} != CPU {mc['loss']}")
+    check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
+          f"card grad norm {mg['grad_norm']} != CPU {mc['grad_norm']}")
+    check(g["bytes"] == c["bytes"], "card and CPU moved different bytes")
+    check(g["launches"][0] == g["int8_plan"] and not any(
+        c["launches"][0].values()), "int8 launches: card must launch the "
+          "plans' count, the CPU none")
+    emit("train_parity", model="qwen2.5-smoke", dtype="float32",
+         loss={"cuda": mg["loss"], "cpu": mc["loss"]},
+         grad_norm={"cuda": mg["grad_norm"], "cpu": mc["grad_norm"]},
+         int8_launches_cuda=g["launches"][0], wall_s={"cuda": t_g,
+                                                      "cpu": t_c})
+
+
 def main() -> int:
     try:
         import torch
@@ -369,9 +620,12 @@ def main() -> int:
                 for n in _build.SOURCES})
 
     prefill, decode = phase_kernels()
+    int8_main, int8_extra = phase_int8_kernels()
     launches = phase_serve()
     phase_profile()
     phase_parity()
+    int8_launches = phase_train()
+    phase_train_parity()
 
     def entry(c):
         return {k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -380,7 +634,13 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL, "launches": launches,
         **entry(prefill), "shape": "prefill_chunk",
-        "decode": entry(decode)}]}
+        "decode": entry(decode)}] + [{
+            "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
+            "replaces": QUANT_TPU_KERNELS[k], "launches": int8_launches[k],
+            **entry(c), "shape": c["case"],
+            "other_shapes": {n: entry(e) for n, e in int8_extra.items()
+                             if e["kernel"] == QUANT_NAMES[k]}}
+            for k, c in int8_main.items()]}
     print(gpu)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Configuration dataclasses: the fields of the JAX package's
-``configs/base.py`` that the one-card serve slice reads."""
+``configs/base.py`` that the ported paths read (the one-card serve
+path and the sequential FCDP train step)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -43,14 +44,39 @@ class SystemConfig:
     """dtype: one type for weights and activations (the JAX package's
     param_dtype and compute_dtype; the port's matmuls take both operands
     in one type). serve_frozen: serving classifies every weight frozen,
-    as the JAX bundle does."""
+    as the JAX bundle does.
+
+    Train fields, as in the JAX package: ``mode`` names the sharding
+    strategy (``core/strategy.py``; an unknown one raises where the
+    train bundle resolves it); leaves smaller than
+    ``min_shard_size`` elements stay replicated; ``param_compress`` /
+    ``grad_compress`` = "int8_pod" carry the stage-1 (pod-axis) weight
+    gather (qwZ) / gradient reduce-scatter (qgZ) in int8 blocks;
+    ``loss_chunk`` > 0 computes logits and cross entropy in sequence
+    chunks; ``master_dtype`` / ``opt_state_dtype`` type the AdamW
+    master weights and moments. There is no ``quant_impl``: the device
+    of a tensor picks the int8 kernel or its plain version
+    (``kernels/ops.py``)."""
     dtype: str = "bfloat16"
     serve_frozen: bool = True
+    mode: str = "fcdp"
+    min_shard_size: int = 2048
+    param_compress: str = "none"       # none | int8_pod
+    grad_compress: str = "none"        # none | int8_pod
+    loss_chunk: int = 0                # 0 -> unchunked
+    master_dtype: str = "float32"
+    opt_state_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.dtype not in DTYPES:
-            raise ValueError(f"unknown dtype {self.dtype!r}; "
-                             f"known: {sorted(DTYPES)}")
+        for knob in ("dtype", "master_dtype", "opt_state_dtype"):
+            if getattr(self, knob) not in DTYPES:
+                raise ValueError(f"unknown {knob} {getattr(self, knob)!r}; "
+                                 f"known: {sorted(DTYPES)}")
+        for knob in ("grad_compress", "param_compress"):
+            if getattr(self, knob) not in ("none", "int8_pod"):
+                raise ValueError(
+                    f"unknown {knob} {getattr(self, knob)!r}; "
+                    "known: none, int8_pod")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -58,7 +84,28 @@ class SystemConfig:
 
 
 @dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW with linear warmup and a cosine decay (the JAX package's
+    default schedule, the one the port implements)."""
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+
+
+@dataclass(frozen=True)
 class RunConfig:
     model: ModelConfig
     shape: ShapeCell
     system: SystemConfig = field(default_factory=SystemConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    microbatch: int = 0          # 0 -> no gradient accumulation
+
+    def __post_init__(self):
+        if self.microbatch < 0:
+            raise ValueError(f"microbatch must be >= 0, got "
+                             f"{self.microbatch}")

@@ -1,10 +1,13 @@
-"""Convert the JAX package's parameters into the port's parameter dict.
+"""Convert the JAX package's parameters into the port's: the whole
+parameter dict (serving, one rank) or this rank's shards of it
+(training).
 
 The JAX side hands them over as a nested dict of numpy arrays (its
 ``StepBundle`` leaves unflattened with ``StepBundle.treedef``: stacked
-``blocks`` leaves, the same key names). bf16 arrays cross through a
-``uint16`` view, so values arrive bit for bit. Only numpy is needed
-here; the caller does the JAX side.
+``blocks`` leaves, the same key names; the serve and train bundles'
+trees have the same leaves). bf16 arrays cross through a ``uint16``
+view, so values arrive bit for bit. Only numpy is needed here; the
+caller does the JAX side.
 """
 from __future__ import annotations
 
@@ -36,6 +39,28 @@ def params_from_jax(tree, cfg: ModelConfig,
     source type)."""
     device = resolve_device(device)
     defs = LM(cfg, SystemConfig()).defs
+    full = _checked(tree, defs)
+
+    def one(path, d):
+        t = full(path, d)
+        return (t if dtype is None else t.to(dtype)).to(device)
+    return tree_map_with_path(one, defs)
+
+
+def shards_from_jax(tree, bundle):
+    """This rank's shards of the JAX package's full parameters, for a
+    train ``bundle`` on a live mesh: each leaf cut by its storage spec,
+    in the system's dtype, on the bundle's device, requiring grad."""
+    full = _checked(tree, bundle.defs)
+    dtype = bundle.run.system.torch_dtype
+    return tree_map_with_path(
+        lambda path, d: bundle.shard(path, full(path, d).to(dtype)),
+        bundle.defs)
+
+
+def _checked(tree, defs):
+    """A reader of the tree's leaves as tensors, after checking that the
+    tree has exactly the defs' leaves."""
     want = dict(tree_items(defs))
     have = dict(tree_items(tree))
     if set(want) != set(have):
@@ -43,10 +68,9 @@ def params_from_jax(tree, cfg: ModelConfig,
             f"parameter trees differ: missing {sorted(set(want) - set(have))}"
             f", extra {sorted(set(have) - set(want))}")
 
-    def one(path, d):
+    def read(path, d):
         a = have[path]
         if tuple(a.shape) != d.shape:
             raise ValueError(f"{path}: shape {tuple(a.shape)} != {d.shape}")
-        t = _tensor(a)
-        return (t if dtype is None else t.to(dtype)).to(device)
-    return tree_map_with_path(one, defs)
+        return _tensor(a)
+    return read

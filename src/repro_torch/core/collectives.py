@@ -1,0 +1,132 @@
+"""Collectives per mesh axis, with a byte count per (op, axis).
+
+The four operations the train step needs, each over named mesh axes and
+tiled like the JAX package's collectives inside ``shard_map``:
+
+  all_gather(x, axis, dim)      blocks of every rank concatenated on dim
+  reduce_scatter(x, axis, dim)  sum over ranks, this rank's block of dim
+  all_to_all(x, axis)           block j of dim 0 goes to rank j
+  all_reduce(x, axes)           sum over ranks
+
+``counts`` adds up the bytes each call moves per device, keyed
+``"<op>/<axis>"`` with the JAX package's op names (all_gather,
+psum_scatter, all_to_all, psum), under the convention of its
+``launch/roofline.py:collect_collectives``: the payload is the output
+bytes of an all-gather and the input bytes of the others; on an axis of
+size n it moves (n-1)/n of the payload ((2(n-1)/n for psum); on the
+'pod' axis of a call that also spans intra axes, the payload is first
+divided by the intra axes' product (a hierarchical collective reduces
+inside the pod before it crosses). So these counts compare one for one
+with the JAX package's.
+
+Backend, from the topology (``pick_backend``): NCCL when every rank has
+a card of its own, that is when no host runs more ranks than it has
+cards; gloo otherwise. NCCL refuses two ranks on one card,
+so ranks that share a card (or run on the CPU) talk through gloo, and
+this wrapper stages a CUDA tensor through host memory explicitly: copy
+to the host, run the collective there, copy the result back. That is
+the wire of this topology, not a fallback: the compute and every kernel
+stay on the card.
+"""
+from __future__ import annotations
+
+import math
+from collections import defaultdict
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+
+
+def pick_backend(device: torch.device, local_world: int) -> str:
+    """``nccl`` when each of the ``local_world`` ranks on this host can
+    own a card of it (``launch.mesh.device_for_rank`` gives local rank i
+    card i), else ``gloo``. The ranks of other hosts do not count: a job
+    over two 8-card hosts, one rank per card, has 8 local ranks."""
+    if device.type == "cuda" and torch.cuda.device_count() >= local_world:
+        return "nccl"
+    return "gloo"
+
+
+def _as_axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class Collectives:
+    """Collectives of one rank over a ``launch.mesh.RankMesh``."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.stage = mesh.backend == "gloo"
+        self.counts = defaultdict(float)
+
+    # -- accounting --------------------------------------------------------
+    def _count(self, op: str, axes: Tuple[str, ...], payload: float) -> None:
+        size = self.mesh.mesh_shape.size
+        ici = [a for a in axes if a != "pod"]
+        ici_n = math.prod(size(a) for a in ici) or 1
+        for a in axes:
+            n = size(a)
+            if n <= 1:
+                continue
+            factor = 2 * (n - 1) / n if op == "psum" else (n - 1) / n
+            self.counts[f"{op}/{a}"] += factor * payload / (
+                ici_n if a == "pod" else 1)
+
+    def snapshot(self) -> dict:
+        return dict(self.counts)
+
+    def _live(self, axes: Tuple[str, ...]) -> bool:
+        return math.prod(self.mesh.mesh_shape.size(a) for a in axes) > 1
+
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        return t.cpu() if self.stage and t.device.type != "cpu" else t
+
+    # -- operations ----------------------------------------------------------
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        axes = _as_axes(axis)
+        if not self._live(axes):
+            return x
+        n = math.prod(self.mesh.mesh_shape.size(a) for a in axes)
+        src = self._wire(x.movedim(dim, 0).contiguous())
+        out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src, group=self.mesh.group(axes))
+        self._count("all_gather", axes, out.numel() * out.element_size())
+        return out.to(x.device).movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        axes = _as_axes(axis)
+        if not self._live(axes):
+            return x
+        n = math.prod(self.mesh.mesh_shape.size(a) for a in axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {n} ranks")
+        src = self._wire(x.movedim(dim, 0).contiguous())
+        out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=self.mesh.group(axes))
+        self._count("psum_scatter", axes, src.numel() * src.element_size())
+        return out.to(x.device).movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        axes = _as_axes(axis)
+        if not self._live(axes):
+            return x
+        src = self._wire(x.contiguous())
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.mesh.group(axes))
+        self._count("all_to_all", axes, src.numel() * src.element_size())
+        return out.to(x.device)
+
+    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = _as_axes(axes)
+        if not self._live(axes):
+            return x
+        buf = self._wire(x.contiguous())
+        buf = buf.clone() if buf is x else buf
+        dist.all_reduce(buf, group=self.mesh.group(axes))
+        self._count("psum", axes, buf.numel() * buf.element_size())
+        return buf.to(x.device)

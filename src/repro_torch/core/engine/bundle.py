@@ -1,26 +1,42 @@
-"""StepBundle for one rank: the model, its ParamDefs and the serve-step
-builders of one (arch x shape x system) cell.
+"""StepBundle: the model, its ParamDefs and the step builders of one
+(arch x shape x system) cell.
 
-On one rank the FCDP gather and the strategy/residency decisions of
-the JAX bundle are the identity for every leaf, so the parameter dict
-holds full tensors and the steps consume it directly. Steps run
+Serving runs on one rank with whole weights: the FCDP gather and the
+strategy decisions are the identity there, and the steps consume the
+full parameter dict directly.
+
+Training runs on a (pod, data, model) mesh, one process per rank. Given
+a mesh, the bundle resolves the strategy once and derives, per leaf in
+tree order, its gather plan, storage and optimizer specs and
+replication factor, as the JAX bundle does. Given a live ``RankMesh`` it
+also knows this rank's coordinates: ``init_all_params`` and
+``shard_batch`` hand out this rank's shards and batch rows. Steps run
 eagerly; there is nothing to compile.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
+
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig
-from repro_torch.core.partition import init_params, tree_map
+from repro_torch.core.partition import (block_index, init_leaf, init_params,
+                                        shard_of, tree_items, tree_map,
+                                        tree_map_with_path)
+from repro_torch.core.residency import split_train_indices
+from repro_torch.core.strategy import resolve_strategy, spec_axes
+from repro_torch.launch.mesh import MeshShape, fsdp_axes
 from repro_torch.models.lm import LM
 
 
 class StepBundle:
-    """Everything needed to run one (arch x shape x system) cell on one
-    device: ``device=None`` means ``cuda``, and raises without one."""
+    """Everything needed to run one cell: ``device=None`` means
+    ``cuda``, and raises without one. ``mesh`` (a ``MeshShape``, or this
+    rank's live ``RankMesh``) makes it a train bundle."""
 
-    def __init__(self, run: RunConfig, device=None):
+    def __init__(self, run: RunConfig, device=None, mesh=None):
         self.run = run
         self.device = resolve_device(device)
         self.model = LM(run.model, run.system)
@@ -30,13 +46,99 @@ class StepBundle:
             defs = tree_map(lambda d: dataclasses.replace(d, frozen=True),
                             defs)
         self.defs = defs
+        self.mesh = mesh
+        if mesh is not None:
+            self._derive_layout(mesh)
 
-    def init_all_params(self, seed: int = 0):
-        """Parameter dict (nested like ``defs``) drawn on this bundle's
-        device from ``torch.Generator(device).manual_seed(seed)``, in the
-        system's parameter dtype."""
-        return init_params(self.defs, seed, self.device,
-                           dtype=self.run.system.torch_dtype)
+    def _derive_layout(self, mesh) -> None:
+        sys = self.run.system
+        ms = mesh if isinstance(mesh, MeshShape) else mesh.mesh_shape
+        self.mesh_shape = ms
+        self.coords = None if isinstance(mesh, MeshShape) else mesh.coords
+        self.strategy = resolve_strategy(sys.mode)
+        self.plans = self.strategy.plan_tree(
+            self.defs, ms, sys.min_shard_size,
+            compress_bwd=(sys.grad_compress == "int8_pod"),
+            param_compress=(sys.param_compress == "int8_pod"))
+        items = list(tree_items(self.defs))
+        self.paths = [p for p, _ in items]
+        self.def_leaves = [d for _, d in items]
+        self.plan_leaves = [p for _, p in tree_items(self.plans)]
+        self.train_idx, self.frozen_idx = split_train_indices(
+            self.plan_leaves)
+        self.leaf_specs = [self.strategy.storage_spec(d, ms,
+                                                      sys.min_shard_size)
+                           for d in self.def_leaves]
+        self.full_specs = [self.strategy.opt_spec(d, ms, sys.min_shard_size)
+                           for d in self.def_leaves]
+        self.rep_factors = [self._replication(s) for s in self.full_specs]
+
+    def _replication(self, spec) -> float:
+        used = spec_axes(spec)
+        rep = 1
+        for a in self.mesh_shape.axis_names:
+            if a not in used:
+                rep *= self.mesh_shape.size(a)
+        return float(rep)
+
+    # -- parameters -------------------------------------------------------------
+    def init_all_params(self, seed: int = 0,
+                        draw_device: Optional[torch.device] = None):
+        """Parameter dict (nested like ``defs``) in the system's dtype,
+        drawn from ``torch.Generator(draw_device).manual_seed(seed)``
+        (``draw_device`` defaults to this bundle's device) in tree order.
+        A train bundle draws each full leaf and keeps this rank's shard,
+        on its device, as a leaf tensor that requires grad; every rank
+        draws the same full weights."""
+        dtype = self.run.system.torch_dtype
+        if self.mesh is None:
+            return init_params(self.defs, seed, self.device, dtype=dtype)
+        gen_dev = torch.device(draw_device or self.device)
+        gen = torch.Generator(device=gen_dev).manual_seed(seed)
+        specs = dict(zip(self.paths, self.leaf_specs))
+
+        def one(path, d):
+            full = init_leaf(gen, d, dtype, gen_dev)
+            return self.shard(path, full, specs[path])
+        return tree_map_with_path(one, self.defs)
+
+    def shard(self, path: str, full: torch.Tensor, spec=None) -> torch.Tensor:
+        """This rank's shard of the full leaf ``path``, on the bundle's
+        device, as a leaf tensor that requires grad."""
+        if spec is None:
+            spec = self.leaf_specs[self.paths.index(path)]
+        block = shard_of(full, spec, self.mesh_shape, self.coords)
+        return block.to(self.device, copy=True).contiguous() \
+            .requires_grad_(True)
+
+    def split(self, params):
+        """Flat (train leaves, frozen leaves) in tree order."""
+        leaves = [t for _, t in tree_items(params)]
+        return ([leaves[i] for i in self.train_idx],
+                [leaves[i] for i in self.frozen_idx])
+
+    # -- batch --------------------------------------------------------------------
+    def shard_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch (numpy or torch, [B, ...]),
+        as tensors on the bundle's device: the rows split over the fsdp
+        axes in the JAX package's order (data-major, pod minor), or all
+        rows when the batch does not split evenly."""
+        ms = self.mesh_shape
+        axes = fsdp_axes(ms)
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            idx, count = block_index(axes, ms, self.coords)
+            if t.shape[0] % count == 0:
+                step = t.shape[0] // count
+                t = t[idx * step:(idx + 1) * step]
+            out[k] = t.to(self.device)
+        return out
+
+    # -- step builders --------------------------------------------------------
+    def make_train_step(self, coll):
+        from repro_torch.core.engine.train import build_train_step
+        return build_train_step(self, coll)
 
     def init_paged_state(self, kv):
         from repro_torch.core.engine.serve import paged_replicas
@@ -55,4 +157,3 @@ class StepBundle:
     def make_greedy_pick(self):
         from repro_torch.core.engine.serve import build_greedy_pick
         return build_greedy_pick(self)
-

@@ -1,0 +1,238 @@
+"""FCDP-Sched: the two-stage parameter gather and where its product waits
+for the backward, as the JAX package's ``core/fcdp.py`` schedules it.
+
+  stage 1 (inter):  w_cache = all_gather(w_shard, 'pod')
+  stage 2 (intra):  w_full  = all_gather(w_cache, 'data')
+
+The gather's backward is the gradient reduce-scatter: over 'data', then
+over 'pod' (int8 on the 'pod' step under qgZ). A leaf stored replicated
+over some axes (MiCS's pod axis, the small biases everywhere) has its
+gradient summed over them (``SumOver``), where the JAX package's
+varying-axes type system puts that sum: after any cast the consumer
+applies, so a norm scale read in fp32 is summed in fp32.
+
+Inside a layer (``ParamGather.layer()``) no full weight is kept for the
+backward. A ``torch.autograd.graph.saved_tensors_hooks`` pair stands in
+for the JAX package's remat policy: when an op saves a gathered weight,
+the pack hook stores a handle to its cache instead, and the first unpack
+in the backward rebuilds the weight from it (once per layer, shared by
+every op that saved it, dropped after the last). A saved tensor is
+recognised by its storage, offset, shape, stride, dtype and device; the
+scope holds each gathered weight until it ends, so no activation can
+take a weight's address meanwhile and be mistaken for it. Where the
+cache lives is the strategy's placement:
+
+  zero3   'regather': the handle holds the storage shard; the backward
+          re-runs both stages (two inter gathers per step)
+  zeropp  'device':   the stage-1 result stays on the device; the
+          backward re-runs stage 2 only
+  fcdp    'host':     the stage-1 result is copied to pinned host memory
+          (a plain CPU tensor on the CPU); the backward copies it back
+          and re-runs stage 2 only (the paper)
+  mics    no stage 1; the single intra stage is re-run ('regather')
+
+With no 'pod' axis (one pod) the cache boundary moves after stage 2
+(``cache_after == 2``): zeropp/fcdp keep the full weight on the device /
+host. The embedding, final norm and head are used outside the layers;
+as in the JAX package, autograd keeps their gathered weights.
+
+The copy to the host is a synchronous ``non_blocking`` copy on the
+current stream; overlapping it on a side stream is later work.
+"""
+from __future__ import annotations
+
+import contextlib
+from collections import defaultdict
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.grad_compress import (CompressedStage1Gather,
+                                            QuantizedStage1Gather,
+                                            quantized_gather)
+from repro_torch.core.strategy import GatherPlan
+
+
+class AllGather(torch.autograd.Function):
+    """Tiled all-gather over one axis; its backward is the matching
+    reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, w, coll, axis, dim):
+        ctx.coll, ctx.axis, ctx.dim = coll, axis, dim
+        return coll.all_gather(w, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.reduce_scatter(g, ctx.axis, ctx.dim), None, None, \
+            None
+
+
+class SumOver(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``axes``
+    (the axes a leaf's storage is replicated over)."""
+
+    @staticmethod
+    def forward(ctx, w, coll, axes):
+        ctx.coll, ctx.axes = coll, axes
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_reduce(g, ctx.axes), None, None
+
+
+def _one_axis(axes) -> str:
+    if len(axes) != 1:
+        raise ValueError(f"a gather stage over several axes {axes} needs "
+                         "tensor parallelism, which is not ported yet")
+    return axes[0]
+
+
+def gather_stage1(w: torch.Tensor, plan: GatherPlan, coll) -> torch.Tensor:
+    """Stage 1 (inter) all-gather: shard -> cached shard; qwZ / qgZ when
+    the residency says so. The identity without inter axes."""
+    if not plan.is_gathered or not plan.inter_axes:
+        return w
+    res = plan.residency
+    axis = _one_axis(plan.inter_axes)
+    if res.quantized_gather:
+        return QuantizedStage1Gather.apply(w, coll, axis, plan.fsdp_dim,
+                                           res.quantized_reduce)
+    if res.quantized_reduce:
+        return CompressedStage1Gather.apply(w, coll, axis, plan.fsdp_dim)
+    return AllGather.apply(w, coll, axis, plan.fsdp_dim)
+
+
+def gather_stage2(w: torch.Tensor, plan: GatherPlan, coll) -> torch.Tensor:
+    """Stage 2 (intra) all-gather: cached shard -> full weight."""
+    if not plan.is_gathered or not plan.intra_axes:
+        return w
+    return AllGather.apply(w, coll, _one_axis(plan.intra_axes), plan.fsdp_dim)
+
+
+def _stage1_value(w, plan, coll):
+    """Stage 1 outside autograd (the backward's regather)."""
+    if not plan.inter_axes:
+        return w
+    axis = _one_axis(plan.inter_axes)
+    if plan.residency.quantized_gather:
+        return quantized_gather(w, coll, axis, plan.fsdp_dim)
+    return coll.all_gather(w, axis, plan.fsdp_dim)
+
+
+def _stage2_value(w, plan, coll):
+    if not plan.intra_axes:
+        return w
+    return coll.all_gather(w, _one_axis(plan.intra_axes), plan.fsdp_dim)
+
+
+class _Saved:
+    """What the backward holds in place of one gathered weight."""
+    __slots__ = ("rebuild", "uses", "value")
+
+    def __init__(self, rebuild: Callable[[], torch.Tensor]):
+        self.rebuild, self.uses, self.value = rebuild, 0, None
+
+    def take(self) -> torch.Tensor:
+        if self.value is None:
+            with torch.no_grad():
+                self.value = self.rebuild()
+        v = self.value
+        self.uses -= 1
+        if self.uses <= 0:
+            self.value = None
+        return v
+
+
+def _key(t: torch.Tensor):
+    return (t.untyped_storage().data_ptr(), t.storage_offset(),
+            tuple(t.shape), tuple(t.stride()), t.dtype, t.device)
+
+
+class ParamGather:
+    """Gathers this rank's shards into full weights through their plans
+    (``plans``: the nested dict of GatherPlans, like the parameters): a
+    call is the JAX package's ``gather_param`` (both stages, sequential)
+    with the cache placement of the leaf's strategy.
+
+    ``cached`` counts, per step, the bytes of the caches kept for the
+    backward by tier ('device' | 'host') and where those tensors lie
+    (``cache_places``: (device type, pinned) pairs)."""
+
+    def __init__(self, coll, plans):
+        self.coll, self.plans = coll, plans
+        self._entries: Optional[dict] = None
+        self.cached = defaultdict(int)
+        self.cache_places = defaultdict(set)
+
+    def __call__(self, w: torch.Tensor, plan: GatherPlan,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The full weight of shard ``w`` in ``dtype`` (None keeps w's),
+        with its gradient summed over the plan's replicated axes."""
+        def cast(t):
+            return t if dtype is None else t.to(dtype)
+        stage1 = gather_stage1(w, plan, self.coll)
+        full = cast(gather_stage2(stage1, plan, self.coll))
+        if self._entries is not None and plan.is_gathered:
+            # the entry holds the weight until the layer scope ends, so
+            # no other tensor can take its address and be mistaken for it
+            self._entries[_key(full)] = (full, _Saved(
+                self._rebuilder(w.detach(), stage1.detach(), full.detach(),
+                                plan, cast)))
+        if plan.sync_axes:
+            full = SumOver.apply(full, self.coll, plan.sync_axes)
+        return full
+
+    def _rebuilder(self, w, stage1, full, plan, cast):
+        coll, placement = self.coll, plan.residency.cache
+        if placement == "regather":
+            def rebuild():
+                return cast(_stage2_value(_stage1_value(w, plan, coll),
+                                          plan, coll))
+            return rebuild
+        if plan.cache_after == 1:
+            cache = self._park(stage1, placement)
+
+            def rebuild():
+                return cast(_stage2_value(cache.to(w.device), plan, coll))
+            return rebuild
+        cache = self._park(full, placement)
+        return lambda: cache.to(w.device)
+
+    def _park(self, t: torch.Tensor, placement: str) -> torch.Tensor:
+        """The cache of ``t`` on its tier: ``t`` itself on the device,
+        a pinned host copy on the host (``t`` itself on the CPU)."""
+        if placement == "host" and t.device.type != "cpu":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            t = host
+        self.cached[placement] += t.numel() * t.element_size()
+        self.cache_places[placement].add((t.device.type, t.is_pinned()))
+        return t
+
+    # -- the layer scope ---------------------------------------------------
+    def _pack(self, t: torch.Tensor):
+        hit = self._entries.get(_key(t)) if self._entries else None
+        if hit is None:
+            return t
+        hit[1].uses += 1
+        return hit[1]
+
+    @staticmethod
+    def _unpack(obj):
+        return obj.take() if isinstance(obj, _Saved) else obj
+
+    @contextlib.contextmanager
+    def layer(self):
+        """Scope of one layer's forward: weights gathered inside it are
+        rebuilt for the backward from their caches, never kept."""
+        if self._entries is not None:
+            raise RuntimeError("layer scopes do not nest")
+        self._entries = {}
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                          self._unpack):
+                yield
+        finally:
+            self._entries = None

@@ -8,17 +8,22 @@ logical role, as in the JAX package:
   'tp'    - tensor-parallel dimension
   None    - unsharded
 
-On one rank every tag is inert: the parameter dict holds full tensors.
-The multi-rank slice reads the tags to shard. Trees are nested dicts,
-walked in sorted-key order -- the leaf order of the JAX package's
-treedef, so the two packages enumerate the same leaves in the same
-order.
+On one rank (serving) every tag is inert: the parameter dict holds full
+tensors. In training, WHICH mesh axes the fsdp dim shards over is the
+strategy's decision (``core/strategy.py``); a storage spec is a tuple
+with one entry per dimension -- None, one axis name, or a tuple of axis
+names tiled first-major -- the entries of the JAX package's
+``PartitionSpec``. ``shard_of`` cuts one rank's block out of a full
+tensor.
+Trees are nested dicts, walked in sorted-key order -- the leaf order of
+the JAX package's treedef, so the two packages enumerate the same
+leaves in the same order.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -37,6 +42,17 @@ class ParamDef:
         if len(self.shape) != len(self.dims):
             raise ValueError(f"shape {self.shape} and dims {self.dims} "
                              "differ in rank")
+
+    @property
+    def fsdp_dim(self) -> Optional[int]:
+        return self.dims.index("fsdp") if "fsdp" in self.dims else None
+
+    @property
+    def tp_dim(self) -> Optional[int]:
+        return self.dims.index("tp") if "tp" in self.dims else None
+
+    def size(self) -> int:
+        return math.prod(self.shape)
 
 
 def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -73,7 +89,7 @@ def label_tree(tree):
     return tree_map_with_path(lambda path, d: replace(d, label=path), tree)
 
 
-def _init_one(gen: torch.Generator, pdef: ParamDef, dtype: torch.dtype,
+def init_leaf(gen: torch.Generator, pdef: ParamDef, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     if pdef.init == "zeros":
         return torch.zeros(pdef.shape, dtype=dtype, device=device)
@@ -97,4 +113,42 @@ def init_params(defs, seed: int, device: torch.device,
     (``repro_torch.convert``) instead."""
     gen = torch.Generator(device=device).manual_seed(seed)
     return tree_map_with_path(
-        lambda _, d: _init_one(gen, d, dtype or d.dtype, device), defs)
+        lambda _, d: init_leaf(gen, d, dtype or d.dtype, device), defs)
+
+
+# ---------------------------------------------------------------------------
+# Shards (the layout decisions live on the strategy; see core/strategy.py)
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def block_index(axes: Tuple[str, ...], mesh, coords: Dict[str, int]):
+    """(block index, block count) of a rank along one spec entry: the
+    entry's axes tile first-major."""
+    idx, count = 0, 1
+    for a in axes:
+        n = mesh.shape[a]
+        idx, count = idx * n + coords[a], count * n
+    return idx, count
+
+
+def shard_of(full: torch.Tensor, spec: Tuple, mesh,
+             coords: Dict[str, int]) -> torch.Tensor:
+    """The block of ``full`` that the rank at mesh ``coords`` stores
+    under ``spec`` (a view)."""
+    out = full
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        idx, count = block_index(axes, mesh, coords)
+        if out.shape[dim] % count:
+            raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
+                             f"split into {count} blocks")
+        step = out.shape[dim] // count
+        out = out.narrow(dim, idx * step, step)
+    return out

@@ -1,0 +1,117 @@
+"""Parameter residency: one explicit lifecycle object per parameter, as
+the JAX package's ``core/residency.py`` defines it.
+
+  storage tier     where the authoritative bytes live between steps:
+                     'dcn_sharded'     fsdp over ('data', 'pod') -- the
+                                       leaf crosses the slow links to
+                                       be rebuilt
+                     'pod_replicated'  fsdp over the intra axes only
+                                       (MiCS storage) -- stage 1 is
+                                       structurally empty
+                     'replicated'      not fsdp-sharded at all (too
+                                       small, indivisible, or no fsdp
+                                       dim)
+  reconstruction   ``stage1_axes`` (inter), ``stage2_axes`` (intra),
+                   the ``cache_after`` boundary, and the int8 stage-1
+                   transports: qwZ (``quantized_gather``) and qgZ
+                   (``quantized_reduce``)
+  cache+backward   where the cached gather product waits between forward
+                   and backward ('regather' | 'device' | 'host') and
+                   hence what the backward reads (``backward_source``)
+  update class     'trainable'. Frozen classes (PEFT, FCDP-Comm) are
+                   not ported yet; the strategies refuse a frozen leaf.
+
+``core/strategy.py`` emits residencies; ``GatherPlan`` is derived from
+one and carries it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+STORAGE_TIERS = ("dcn_sharded", "pod_replicated", "replicated")
+CACHE_TIERS = ("regather", "device", "host")
+UPDATE_CLASSES = ("trainable",)
+
+
+@dataclass(frozen=True)
+class ParamResidency:
+    """The lifecycle of one parameter leaf, as resolved by its strategy."""
+    tier: str                          # STORAGE_TIERS
+    cache: str                         # CACHE_TIERS
+    update: str                        # UPDATE_CLASSES
+    fsdp_dim: Optional[int] = None     # dim index in the per-layer view
+    stage1_axes: Tuple[str, ...] = ()  # inter-pod gather axes
+    stage2_axes: Tuple[str, ...] = ()  # intra-pod gather axes
+    cache_after: int = 2               # 1 | 2: which stage's product caches
+    quantized_gather: bool = False     # qwZ int8 stage-1 transport
+    quantized_reduce: bool = False     # qgZ int8 stage-1 grad reduce
+
+    def __post_init__(self):
+        if self.tier not in STORAGE_TIERS:
+            raise ValueError(
+                f"unknown storage tier {self.tier!r}; one of {STORAGE_TIERS}")
+        if self.cache not in CACHE_TIERS:
+            raise ValueError(
+                f"unknown cache tier {self.cache!r}; one of {CACHE_TIERS}")
+        if self.update not in UPDATE_CLASSES:
+            raise ValueError(
+                f"unknown update class {self.update!r}; one of "
+                f"{UPDATE_CLASSES}")
+        if self.cache_after not in (1, 2):
+            raise ValueError(
+                f"cache_after must be 1 or 2, got {self.cache_after!r}")
+        if self.stage1_axes and self.tier != "dcn_sharded":
+            raise ValueError(
+                f"tier {self.tier!r} cannot carry stage-1 axes "
+                f"{self.stage1_axes!r}")
+        if self.tier == "dcn_sharded" and not self.stage1_axes:
+            raise ValueError(
+                "tier 'dcn_sharded' requires non-empty stage1_axes")
+        if self.tier == "pod_replicated" and not self.stage2_axes:
+            raise ValueError(
+                "tier 'pod_replicated' requires non-empty stage2_axes")
+        if (self.quantized_gather or self.quantized_reduce) \
+                and not self.stage1_axes:
+            raise ValueError("an int8 stage-1 transport needs a stage 1")
+
+    @property
+    def trainable(self) -> bool:
+        return self.update == "trainable"
+
+    @property
+    def is_gathered(self) -> bool:
+        return self.fsdp_dim is not None and (bool(self.stage1_axes)
+                                              or bool(self.stage2_axes))
+
+    @property
+    def backward_source(self) -> str:
+        """What the backward reads to rebuild the weight: 'resident'
+        (never gathered), 'regather' (re-run both stages),
+        'device_cache' / 'host_cache' (re-run stage 2 from the cached
+        stage-1 shard, or read the cached full weight when
+        cache_after == 2)."""
+        if not self.is_gathered:
+            return "resident"
+        if self.cache == "regather":
+            return "regather"
+        return f"{self.cache}_cache"
+
+
+def split_train_indices(residencies) -> Tuple[List[int], List[int]]:
+    """Flat indices of (trainable, frozen) leaves from a residency (or
+    residency-carrying plan) sequence."""
+    train, frozen = [], []
+    for i, r in enumerate(residencies):
+        (train if residency_of(r).trainable else frozen).append(i)
+    return train, frozen
+
+
+def residency_of(obj) -> ParamResidency:
+    """Accept a ParamResidency or anything carrying one (a GatherPlan)."""
+    if isinstance(obj, ParamResidency):
+        return obj
+    res = getattr(obj, "residency", None)
+    if res is None:
+        raise TypeError(f"{type(obj).__name__} carries no ParamResidency")
+    return res

@@ -1,0 +1,261 @@
+"""Sharding strategies: each system mode as one object, as the JAX
+package's ``core/strategy.py`` defines them.
+
+A ``ShardingStrategy`` owns every decision a mode makes about a leaf:
+
+  storage layout   which mesh axes the fsdp dim shards over
+  gather plan      the two-stage reconstruction (stage 1 over the inter
+                   'pod' axis, stage 2 over the intra axes) and the
+                   cache boundary
+  cache placement  where the stage-1 result waits for the backward:
+                   'regather' | 'device' | 'host'
+  opt layout       the optimizer state's sharding
+
+The built-ins are the paper's comparison set:
+
+  zero3   full ('data', 'pod') sharding, regather fwd + bwd   (baseline)
+  zeropp  full sharding, stage-1 result cached on the device  (ZeRO++)
+  fcdp    full sharding, stage-1 result cached in pinned host
+          memory                                              (the paper)
+  mics    pod-replicated ('data',) sharding; no stage 1       (MiCS)
+
+Plans are derived from the mesh's axis names and sizes
+(``launch.mesh.MeshShape``), never from a process group. Every leaf is
+trainable in this port so far: a frozen leaf (PEFT, FCDP-Comm's cached
+layout) raises. Per-tensor overrides (composites), hier, the
+prefetch/async/cross-step streams and the fused matmul come later.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Type, Union
+
+from repro_torch.core.residency import ParamResidency
+from repro_torch.launch.mesh import fsdp_axes, intra_fsdp_axes
+
+INTER_AXIS = "pod"     # the slow mesh axis name
+
+# Minimum per-slice shard elements for the int8 stage-1 transports
+# (qwZ/qgZ): below one quant block (kernels/quant.py BLOCK) the padding
+# and the fp32 scale cost more wire bytes than bf16, so such leaves keep
+# the exact path.
+QUANT_MIN_SHARD_ELEMS = 256
+
+
+@dataclass(frozen=True)
+class GatherPlan:
+    """The two-stage gather of one leaf: a view of its ParamResidency
+    (the one source of its stages, cache tier and qwZ/qgZ gates), plus
+    ``sync_axes``, the mesh axes of size > 1 the leaf's storage is
+    replicated over. Its gradient is summed over them, where the JAX
+    package's varying-axes type system inserts that sum."""
+    residency: ParamResidency
+    sync_axes: Tuple[str, ...] = ()
+
+    @property
+    def fsdp_dim(self) -> Optional[int]:
+        """Dim index in the per-layer view."""
+        return self.residency.fsdp_dim
+
+    @property
+    def inter_axes(self) -> Tuple[str, ...]:
+        """Stage-1 axes."""
+        return self.residency.stage1_axes
+
+    @property
+    def intra_axes(self) -> Tuple[str, ...]:
+        """Stage-2 axes."""
+        return self.residency.stage2_axes
+
+    @property
+    def cache_after(self) -> int:
+        """1 or 2: where the cache boundary sits."""
+        return self.residency.cache_after
+
+    @property
+    def is_gathered(self) -> bool:
+        return self.residency.is_gathered
+
+
+def spec_axes(spec: Tuple) -> set:
+    """Set of mesh axis names a spec shards over."""
+    used: set = set()
+    for e in spec:
+        if e is not None:
+            used.update((e,) if isinstance(e, str) else e)
+    return used
+
+
+class ShardingStrategy:
+    """Base class owning everything a system mode decides. Subclasses
+    override the class attributes (and, rarely, the layout methods)."""
+
+    name: str = "base"
+    # where the stage-1 result waits for the backward:
+    # 'regather' (recompute both stages), 'device', 'host' (pinned)
+    cache_placement: str = "regather"
+    # whether the stage-1 gather may carry int8 (qwZ); strategies with no
+    # stage 1 decline structurally
+    supports_quantized_gather: bool = True
+
+    # -- storage layout -----------------------------------------------------
+    def storage_fsdp_axes(self, mesh) -> Tuple[str, ...]:
+        """Mesh axes the fsdp dim shards over in storage: full ZeRO-3
+        sharding."""
+        return fsdp_axes(mesh)
+
+    def effective_fsdp_axes(self, pdef, mesh) -> Tuple[str, ...]:
+        if pdef.frozen:
+            raise ValueError(
+                f"{pdef.label or pdef.shape}: frozen leaves (PEFT / "
+                "FCDP-Comm) are not ported to the train path yet")
+        return self.storage_fsdp_axes(mesh)
+
+    def _spec_with_axes(self, pdef, mesh, axes: Tuple[str, ...],
+                        min_shard_size: int = 0) -> Tuple:
+        entries: list = [None] * len(pdef.shape)
+        small = pdef.size() < min_shard_size
+        if pdef.tp_dim is not None:
+            entries[pdef.tp_dim] = "model"
+        if pdef.fsdp_dim is not None and not small and axes:
+            degree = math.prod(mesh.shape[a] for a in axes)
+            if pdef.shape[pdef.fsdp_dim] % degree == 0:
+                entries[pdef.fsdp_dim] = axes if len(axes) > 1 else axes[0]
+        return tuple(entries)
+
+    def storage_spec(self, pdef, mesh, min_shard_size: int = 0) -> Tuple:
+        return self._spec_with_axes(
+            pdef, mesh, self.effective_fsdp_axes(pdef, mesh), min_shard_size)
+
+    def opt_spec(self, pdef, mesh, min_shard_size: int = 0) -> Tuple:
+        """Layout of the optimizer state and master weights: the leaf's
+        own storage layout (no strategy ported so far shards its
+        optimizer state wider than its parameters)."""
+        return self.storage_spec(pdef, mesh, min_shard_size)
+
+    # -- residency / gather schedule ----------------------------------------
+    def residency(self, pdef, mesh, min_shard_size: int = 0,
+                  compress_bwd: bool = False,
+                  param_compress: bool = False) -> ParamResidency:
+        """The full lifecycle matching ``storage_spec``. A def with a
+        'stack' dim gets the fsdp dim index of its per-layer view."""
+        d = pdef.fsdp_dim
+        axes = self.effective_fsdp_axes(pdef, mesh)
+        if d is None or pdef.size() < min_shard_size:
+            return ParamResidency("replicated", self.cache_placement,
+                                  "trainable")
+        degree = math.prod(mesh.shape[a] for a in axes) if axes else 1
+        if not axes or pdef.shape[d] % degree != 0:
+            return ParamResidency("replicated", self.cache_placement,
+                                  "trainable")
+        inter = tuple(a for a in axes if a == INTER_AXIS)
+        intra = tuple(a for a in axes if a != INTER_AXIS)
+        tier = "dcn_sharded" if inter else "pod_replicated"
+        # cache boundary: after the inter stage if one exists, else after
+        # the full gather (single-pod / pod-replicated storage)
+        cache_after = 1 if inter else 2
+        body_dim = d - 1 if ("stack" in pdef.dims and
+                             pdef.dims.index("stack") < d) else d
+        # leaves whose per-slice shard is smaller than one quant block
+        # stay exact: the padded block and scale would cost more wire
+        # bytes than bf16
+        stack = (pdef.shape[pdef.dims.index("stack")]
+                 if "stack" in pdef.dims else 1)
+        quantizable = (bool(inter) and pdef.size() // (degree * stack)
+                       >= QUANT_MIN_SHARD_ELEMS)
+        return ParamResidency(
+            tier, self.cache_placement, "trainable",
+            fsdp_dim=body_dim, stage1_axes=inter, stage2_axes=intra,
+            cache_after=cache_after,
+            quantized_gather=(param_compress and quantizable
+                              and self.supports_quantized_gather),
+            quantized_reduce=(compress_bwd and quantizable))
+
+    def gather_plan(self, pdef, mesh, min_shard_size: int = 0,
+                    compress_bwd: bool = False,
+                    param_compress: bool = False) -> GatherPlan:
+        res = self.residency(pdef, mesh, min_shard_size, compress_bwd,
+                             param_compress)
+        used = spec_axes(self.storage_spec(pdef, mesh, min_shard_size))
+        sync = tuple(a for a in mesh.axis_names
+                     if a not in used and mesh.shape[a] > 1)
+        return GatherPlan(res, sync)
+
+    def plan_tree(self, defs, mesh, min_shard_size: int = 0,
+                  compress_bwd: bool = False, param_compress: bool = False):
+        from repro_torch.core.partition import tree_map
+        return tree_map(
+            lambda d: self.gather_plan(d, mesh, min_shard_size, compress_bwd,
+                                       param_compress), defs)
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} {self.name!r}>"
+
+
+class Zero3(ShardingStrategy):
+    """Full sharding, re-gather forward AND backward (paper baseline)."""
+    name = "zero3"
+    cache_placement = "regather"
+
+
+class ZeroPP(ShardingStrategy):
+    """Full sharding; stage-1 result cached on the device, backward
+    re-runs stage 2 only (ZeRO++ analog)."""
+    name = "zeropp"
+    cache_placement = "device"
+
+
+class FCDP(ShardingStrategy):
+    """Full sharding; stage-1 result cached in pinned host memory,
+    backward re-runs stage 2 only (the paper)."""
+    name = "fcdp"
+    cache_placement = "host"
+
+
+class MiCS(ShardingStrategy):
+    """Pod-local sharding: storage is pod-replicated, stage 1 is
+    structurally empty and the single intra stage recomputes (forward
+    and backward intra gathers, no inter gather). Gradients are summed
+    across pods."""
+    name = "mics"
+    cache_placement = "regather"
+    supports_quantized_gather = False
+
+    def storage_fsdp_axes(self, mesh) -> Tuple[str, ...]:
+        return intra_fsdp_axes(mesh)
+
+
+_REGISTRY: Dict[str, ShardingStrategy] = {}
+
+
+def register_strategy(cls: Type[ShardingStrategy]) -> Type[ShardingStrategy]:
+    """Register a strategy class under its ``name`` (singleton instance)."""
+    if not cls.name or cls.name == "base":
+        raise ValueError(f"strategy {cls.__name__} needs a unique name")
+    _REGISTRY[cls.name] = cls()
+    return cls
+
+
+for _cls in (Zero3, ZeroPP, FCDP, MiCS):
+    register_strategy(_cls)
+
+
+def strategy_names() -> Tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+def get_strategy(name: str) -> ShardingStrategy:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown system mode {name!r}; registered: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def resolve_strategy(mode: Union[str, ShardingStrategy]) -> ShardingStrategy:
+    """Accept a mode name or an already-resolved strategy object."""
+    if isinstance(mode, ShardingStrategy):
+        return mode
+    return get_strategy(mode)

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import quant, ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 
@@ -33,3 +33,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def _kernel_device(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (take the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for {t.device}")
+    return True
+
+
+def int8_quantize_blocks(x: torch.Tensor):
+    """x: [nb, BLOCK] float32/bfloat16 -> (q int8 [nb, BLOCK], scale
+    float32 [nb, 1])."""
+    int8_quantize_blocks.calls += 1
+    if not _kernel_device(x, "int8 quantize"):
+        return ref.int8_quantize_blocks_plain(x)
+    out = quant.quantize_blocks(x)
+    int8_quantize_blocks.launches += 1
+    return out
+
+
+def int8_dequantize_blocks(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(q int8 [nb, BLOCK], s float32 [nb, 1]) -> float32 [nb, BLOCK]."""
+    int8_dequantize_blocks.calls += 1
+    if not _kernel_device(q, "int8 dequantize"):
+        return ref.int8_dequantize_blocks_plain(q, s)
+    out = quant.dequantize_blocks(q, s)
+    int8_dequantize_blocks.launches += 1
+    return out
+
+
+def int8_dequant_accumulate(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(q int8 [n, nb, BLOCK], s float32 [n, nb, 1]) -> float32 [nb,
+    BLOCK], the n sources folded in order."""
+    int8_dequant_accumulate.calls += 1
+    if not _kernel_device(q, "int8 dequant-accumulate"):
+        return ref.int8_dequant_acc_plain(q, s)
+    out = quant.dequant_accumulate(q, s)
+    int8_dequant_accumulate.launches += 1
+    return out
+
+
+# the int8 dispatchers by the names of core/engine/train.int8_launch_plan
+INT8_KERNELS = {"quantize": int8_quantize_blocks,
+                "dequantize": int8_dequantize_blocks,
+                "dequant_accumulate": int8_dequant_accumulate}
+for _fn in INT8_KERNELS.values():
+    _fn.launches = _fn.calls = 0

@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.quant import INV_QMAX, SCALE_EPS
+
 NEG_INF = -1e30
 
 
@@ -56,3 +58,33 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     out = acc / torch.clamp(l, min=1e-20).permute(0, 2, 1)[..., None]
     return out.to(q.dtype)
+
+
+def int8_quantize_blocks_plain(x: torch.Tensor):
+    """Symmetric per-block int8 quantization. x: [nb, BLOCK] float.
+    Returns (q int8 [nb, BLOCK], scale float32 [nb, 1]) with scale =
+    max(max|x| * INV_QMAX, SCALE_EPS) and q = clip(round_half_even(x /
+    scale), -127, 127) -- ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    blocks = x.float()
+    scale = torch.clamp_min(blocks.abs().amax(dim=1, keepdim=True)
+                            * INV_QMAX, SCALE_EPS)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_dequantize_blocks_plain(q: torch.Tensor,
+                                 s: torch.Tensor) -> torch.Tensor:
+    """(q int8 [nb, BLOCK], s float32 [nb, 1]) -> float32 [nb, BLOCK]."""
+    return q.float() * s
+
+
+def int8_dequant_acc_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The reduce-scatter inner loop: the n dequantized source chunks
+    summed in source order, each product and each sum rounded on its own
+    (two PyTorch ops, never contracted into an FMA).
+    q: [n, nb, BLOCK] int8, s: [n, nb, 1] float32 -> float32 [nb, BLOCK]."""
+    acc = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
+    for i in range(q.shape[0]):
+        acc = acc + q[i].float() * s[i]
+    return acc

@@ -1,0 +1,300 @@
+"""Training launcher: the sequential FCDP train step on a (pod, data,
+model) mesh, one process per rank (the JAX package's
+``launch/train.py`` without checkpointing, failure injection and the
+heartbeat, which come later).
+
+Under torchrun (world size and rank from its environment)::
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen2.5-3b --smoke --multi-pod --device cpu
+
+or spawned by a caller (``spawn``), which gives the ranks a
+``FileStore`` rendezvous in a directory of its own and collects one
+result per rank. The wire is NCCL when every rank has a card of its
+own (no host runs more ranks than it has cards), gloo otherwise (``core.collectives.pick_backend``). Weights are
+random, drawn from ``--seed``; batches are ``SyntheticPackedLM``'s.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import queue as queue_mod
+import tempfile
+import time
+import traceback
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import (OptimizerConfig, RunConfig, ShapeCell,
+                                      SystemConfig)
+from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.collectives import Collectives, pick_backend
+from repro_torch.core.engine import StepBundle
+from repro_torch.core.engine.train import int8_launch_plan
+from repro_torch.core.partition import tree_items
+from repro_torch.core.strategy import strategy_names
+from repro_torch.data.pipeline import DataConfig, ShardedLoader, SyntheticPackedLM
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import (MeshShape, RankMesh, device_for_rank,
+                                     train_mesh_shape)
+from repro_torch.optim.adamw import init_opt_state
+
+TIMEOUT = timedelta(seconds=900)
+
+
+@dataclass(frozen=True)
+class ModeRun:
+    """One run of the job: the strategy, int8, dtype and loss-chunk
+    knobs of the system, the microbatch count, and its steps."""
+    mode: str
+    param_compress: str = "none"
+    grad_compress: str = "none"
+    steps: int = 1
+    dtype: str = "bfloat16"
+    microbatch: int = 0
+    loss_chunk: int = 0
+    master_dtype: str = "float32"
+    opt_state_dtype: str = "float32"
+
+
+@dataclass
+class TrainJob:
+    """What every rank of a spawned job runs: each ``ModeRun`` in turn,
+    from the same initial weights (``params``, the JAX package's full
+    numpy tree, or drawn from ``seed`` on ``draw_device``) and the same
+    batches (``batches``, global numpy batches per step, or
+    ``SyntheticPackedLM``'s). ``return_params`` returns each rank's
+    shards after the first step."""
+    run: RunConfig
+    mesh: MeshShape
+    runs: List[ModeRun]
+    device: Optional[str] = None          # None -> cuda
+    seed: int = 0
+    draw_device: Optional[str] = None
+    params: Optional[dict] = None
+    batches: Optional[list] = None
+    return_params: bool = False
+
+
+def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
+              device: torch.device) -> dict:
+    sysc = dataclasses.replace(job.run.system, mode=mr.mode,
+                               param_compress=mr.param_compress,
+                               grad_compress=mr.grad_compress,
+                               dtype=mr.dtype, loss_chunk=mr.loss_chunk,
+                               master_dtype=mr.master_dtype,
+                               opt_state_dtype=mr.opt_state_dtype)
+    run = dataclasses.replace(job.run, system=sysc,
+                              microbatch=mr.microbatch)
+    bundle = StepBundle(run, device=device, mesh=mesh)
+    if job.params is not None:
+        from repro_torch.convert import shards_from_jax
+        params = shards_from_jax(job.params, bundle)
+    else:
+        params = bundle.init_all_params(job.seed, job.draw_device)
+    train, _ = bundle.split(params)
+    opt = init_opt_state(train, sysc)
+    step = bundle.make_train_step(coll)
+    loader = ShardedLoader(SyntheticPackedLM(run.model, run.shape,
+                                             DataConfig(job.seed)), bundle)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    for f in ops.INT8_KERNELS.values():     # counts start at 0 per run
+        f.launches = f.calls = 0
+    out = {"run": dataclasses.asdict(mr), "metrics": [], "bytes": [],
+           "launches": [], "calls": [], "step_s": [], "cached": [],
+           "cache_places": [], "int8_plan": int8_launch_plan(bundle)}
+    for s in range(mr.steps):
+        batch = (bundle.shard_batch(job.batches[s]) if job.batches
+                 else loader.get(s))
+        before = coll.snapshot()
+        launches = {k: f.launches for k, f in ops.INT8_KERNELS.items()}
+        calls = {k: f.calls for k, f in ops.INT8_KERNELS.items()}
+        dist.barrier()
+        t0 = time.perf_counter()
+        m = step(params, opt, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["metrics"].append(m)
+        after = coll.snapshot()
+        out["bytes"].append({k: v - before.get(k, 0.0)
+                             for k, v in after.items()
+                             if v != before.get(k, 0.0)})
+        out["launches"].append({k: f.launches - launches[k]
+                                for k, f in ops.INT8_KERNELS.items()})
+        out["calls"].append({k: f.calls - calls[k]
+                             for k, f in ops.INT8_KERNELS.items()})
+        out["cached"].append(dict(step.gather.cached))
+        out["cache_places"].append({k: sorted(v) for k, v in
+                                    step.gather.cache_places.items()})
+        if job.return_params and s == 0:
+            out["params"] = {path: t.detach().cpu().float().numpy()
+                             for path, t in tree_items(params)}
+            out["specs"] = dict(zip(bundle.paths, bundle.leaf_specs))
+            out["opt_dtypes"] = {k: str(opt[k][0].dtype).split(".")[-1]
+                                 for k in ("m", "v", "master")}
+    if device.type == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+    del params, opt, step
+    return out
+
+
+def _init_group(rank: int, world: int, local_world: int,
+                init_method: str, device: torch.device) -> str:
+    backend = pick_backend(device, local_world)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world, timeout=TIMEOUT)
+    return backend
+
+
+def run_job(job: TrainJob, rank: int, world: int, local_world: int,
+            init_method: str) -> dict:
+    """Run ``job`` as ``rank`` of ``world``, one of ``local_world`` ranks
+    on this host (joins the process group at ``init_method`` and leaves
+    it at the end)."""
+    device = device_for_rank(job.device, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = _init_group(rank, world, local_world, init_method, device)
+    try:
+        mesh = RankMesh(job.mesh, backend)
+        coll = Collectives(mesh)
+        results = [_run_mode(job, mr, mesh, coll, device)
+                   for mr in job.runs]
+        dist.barrier()
+        return {"rank": rank, "coords": mesh.coords, "backend": backend,
+                "device": str(device), "runs": results}
+    finally:
+        dist.destroy_process_group()
+
+
+def _worker(rank: int, world: int, init_method: str, job: TrainJob,
+            results) -> None:
+    try:
+        # every spawned rank runs on this host
+        results.put((rank, run_job(job, rank, world, world, init_method),
+                     None))
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def spawn(job: TrainJob, rdzv_dir: Optional[str] = None,
+          timeout_s: float = 1200.0) -> List[dict]:
+    """Run ``job`` on ``job.mesh.world`` spawned ranks of this machine,
+    rendezvous through a ``FileStore`` in a fresh temporary directory
+    (under ``rdzv_dir`` when given). Returns the ranks' results in rank
+    order; raises with the first failing rank's traceback."""
+    import torch.multiprocessing as mp
+    world = job.mesh.world
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_rdzv_",
+                                     dir=rdzv_dir) as tmp:
+        init_method = f"file://{os.path.join(tmp, 'store')}"
+        procs = [ctx.Process(target=_worker,
+                             args=(r, world, init_method, job, results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got: Dict[int, dict] = {}
+        deadline = time.monotonic() + timeout_s
+        try:
+            while len(got) < world:
+                try:
+                    rank, res, err = results.get(timeout=5.0)
+                except queue_mod.Empty:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"train ranks did not finish in "
+                                           f"{timeout_s} s") from None
+                    dead = [p.exitcode for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead and results.empty():
+                        raise RuntimeError(f"a train rank died (exit codes "
+                                           f"{dead}) without a result")
+                    continue
+                if err is not None:
+                    raise RuntimeError(f"train rank {rank} failed:\n{err}")
+                got[rank] = res
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    return [got[r] for r in range(world)]
+
+
+# -- the command line -----------------------------------------------------------
+
+def build_run(args) -> RunConfig:
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cell = ShapeCell("train", "train", args.seq_len, args.batch)
+    sysc = SystemConfig(mode=args.mode, param_compress=args.param_compress,
+                        grad_compress=args.grad_compress,
+                        min_shard_size=8 if args.smoke else 2048)
+    return RunConfig(model=cfg, shape=cell, system=sysc,
+                     optimizer=OptimizerConfig(
+                         lr=args.lr, total_steps=args.steps,
+                         warmup_steps=max(args.steps // 20, 1)))
+
+
+def main(argv=None):
+    """Train under torchrun (``RANK``/``WORLD_SIZE``/``LOCAL_WORLD_SIZE``/
+    ``MASTER_ADDR``/``MASTER_PORT`` from its environment). Rank 0 prints one line per
+    step and a JSON summary; returns this rank's result."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="a (pod 2, data world/2, model 1) mesh")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--mode", default="fcdp", choices=strategy_names())
+    ap.add_argument("--param-compress", default="none",
+                    choices=["none", "int8_pod"])
+    ap.add_argument("--grad-compress", default="none",
+                    choices=["none", "int8_pod"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without one)")
+    args = ap.parse_args(argv)
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    job = TrainJob(run=build_run(args),
+                   mesh=train_mesh_shape(world, args.multi_pod),
+                   runs=[ModeRun(args.mode, args.param_compress,
+                                 args.grad_compress, args.steps,
+                                 microbatch=args.microbatch)],
+                   device=args.device, seed=args.seed)
+    t0 = time.perf_counter()
+    res = run_job(job, rank, world, local_world, "env://")
+    if rank == 0:
+        r = res["runs"][0]
+        for s, m in enumerate(r["metrics"]):
+            print(f"step {s:5d} loss {m['loss']:.4f} "
+                  f"gnorm {m['grad_norm']:.3f} ({r['step_s'][s]:.2f}s)")
+        print(json.dumps({
+            "mode": args.mode, "mesh": job.mesh.shape,
+            "backend": res["backend"], "device": res["device"],
+            "final_loss": r["metrics"][-1]["loss"],
+            "bytes_per_step": r["bytes"][-1],
+            "int8_calls_per_step": r["calls"][-1],
+            "wall_s": time.perf_counter() - t0}))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,23 @@
 """Attention sublayer: GQA with qkv bias and RoPE, over the paged KV
-cache (continuous batching) or without a cache.
+cache (continuous batching), without a cache, or in training.
 
-Both branches hand their core to ``kernels.ops.flash_attention`` (the
-hand-written kernel on CUDA tensors, its plain version on CPU tensors)
-with the per-row absolute position of q[:, 0] as ``q_offset``: the
-function the JAX package's ``attention_block`` computes with
+The serving branches hand their core to ``kernels.ops.flash_attention``
+(the hand-written kernel on CUDA tensors, its plain version on CPU
+tensors) with the per-row absolute position of q[:, 0] as ``q_offset``:
+the function the JAX package's ``attention_block`` computes with
 ``chunked_causal_attention``. The kernel reads kv heads by index, so
 K/V are never expanded to the q heads.
+
+The train branch (``attention_train``) differentiates
+``chunked_causal_attention``, plain PyTorch under autograd, as the JAX
+package's train path does: the flash kernel is forward-only in both
+packages (its Pallas version has no VJP). That function is the
+counterpart of a jnp function, not the plain version of a kernel, so
+``kernels/ref.attention_plain`` is not used for it.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +59,88 @@ def _gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return pool.view(n_pages * page_size, n_kv, hd)[idx]
 
 
+NEG_INF = -1e30
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_chunk: int = 1024,
+                             kv_chunk: int = 1024, causal: bool = True,
+                             softmax_scale: Optional[float] = None,
+                             q_offset: int = 0) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch, fp32 inside: online
+    softmax over kv chunks, O(chunk^2) live memory per q chunk.
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, H, hd] (kv already head-expanded).
+    q_offset: absolute position of q[0] relative to k[0]; causal masking
+    uses absolute positions. Output in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    scale = softmax_scale or (1.0 / math.sqrt(hd))
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
+    nq, nk = -(-Sq // q_chunk), -(-Skv // kv_chunk)
+    kv_pos = torch.arange(nk * kv_chunk, device=q.device)
+    kt = k.float().transpose(1, 2)                         # [B,H,Skv,hd]
+    vt = v.float().transpose(1, 2)
+    outs = []
+    for qi in range(nq):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk].float().transpose(1, 2)
+        nqc = qc.shape[2]
+        q_pos = q_offset + qi * q_chunk + torch.arange(nqc, device=q.device)
+        m = torch.full((B, H, nqc), NEG_INF, device=q.device)
+        l = torch.zeros((B, H, nqc), device=q.device)
+        acc = torch.zeros((B, H, nqc, hd), device=q.device)
+        for ki in range(nk):
+            lo, hi = ki * kv_chunk, min((ki + 1) * kv_chunk, Skv)
+            s = torch.einsum("bhqd,bhkd->bhqk", qc, kt[:, :, lo:hi]) * scale
+            if causal:
+                mask = kv_pos[lo:hi][None, :] <= q_pos[:, None]
+                s = torch.where(mask, s, torch.full((), NEG_INF,
+                                                    device=q.device))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p, vt[:, :, lo:hi])
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-20)[..., None])
+    out = torch.cat(outs, dim=2).transpose(1, 2)            # [B,Sq,H,hd]
+    return out.to(q.dtype)
+
+
+def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions):
+    """q [B,S,H,hd], k and v [B,S,KVH,hd], RoPE applied to q and k."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    q = x @ wq
+    k = x @ wk
+    v = x @ wv
+    if bq is not None:
+        q = q + bq
+    if bk is not None:
+        k = k + bk
+    if bv is not None:
+        v = v + bv
+    q = apply_rope(q.reshape(B, S, cfg.num_heads, hd), positions,
+                   cfg.rope_theta)
+    k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions,
+                   cfg.rope_theta)
+    return q, k, v.reshape(B, S, cfg.num_kv_heads, hd)
+
+
+def attention_train(x, wq, wk, wv, wo, bq, bk, bv, cfg,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention sublayer of the train step, under autograd.
+    x: [B, S, D]; positions: [1, S]. K/V are expanded to the q heads
+    (q head h reads kv head h // n_rep), as the JAX package does."""
+    B, S, _ = x.shape
+    q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions)
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    out = chunked_causal_attention(q, k.repeat_interleave(n_rep, dim=2),
+                                   v.repeat_interleave(n_rep, dim=2))
+    return matmul(out.reshape(B, S, -1), wo)
+
+
 def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
                     positions: torch.Tensor,
                     paged_kv: Optional[Tuple] = None, causal: bool = True):
@@ -66,21 +156,7 @@ def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
     ([B, S, D], (pool_k, pool_v) or None).
     """
     B, S, D = x.shape
-    hd = cfg.resolved_head_dim()
-    n_heads, n_kv = cfg.num_heads, cfg.num_kv_heads
-
-    q = x @ wq
-    k = x @ wk
-    v = x @ wv
-    if bq is not None:
-        q = q + bq
-    if bk is not None:
-        k = k + bk
-    if bv is not None:
-        v = v + bv
-    q = apply_rope(q.reshape(B, S, n_heads, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, n_kv, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, S, n_kv, hd)
+    q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions)
 
     new_cache = None
     if paged_kv is not None:
@@ -94,4 +170,4 @@ def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
     else:
         q_offset = torch.zeros(B, dtype=torch.int32, device=x.device)
     out = ops.flash_attention(q, k, v, q_offset, causal)
-    return matmul(out.reshape(B, S, n_heads * hd), wo), new_cache
+    return matmul(out.reshape(B, S, -1), wo), new_cache

@@ -1,10 +1,14 @@
 """Core layers: norms, rotary embeddings, activations, the embedding
-lookup and the output-projection matmul seam. Same arithmetic as the
-JAX package's ``models/layers.py`` (fp32 upcasts at the same places)."""
+lookup, the output-projection matmul seam and the cross entropy. Same
+arithmetic as the JAX package's ``models/layers.py`` (fp32 upcasts at
+the same places), at tensor-parallel degree 1."""
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -58,3 +62,49 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     x = table[ids.clamp(0, vocab - 1)]
     return torch.where(valid[..., None], x,
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                 mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross entropy over logits [..., V] in fp32 (the JAX package's
+    ``tp_softmax_xent`` at tp 1). Returns (sum of losses, count) over the
+    unmasked positions; labels outside [0, vocab_size) count as
+    masked."""
+    v = logits.shape[-1]
+    lf = logits.float()
+    gmax = lf.amax(dim=-1).detach()          # stability only: exact
+    lse = gmax + torch.log(torch.exp(lf - gmax[..., None]).sum(dim=-1))
+    valid = (labels >= 0) & (labels < v)
+    picked = torch.gather(lf, -1, labels.clamp(0, v - 1)[..., None].long()
+                          )[..., 0]
+    nll = lse - torch.where(valid, picked, torch.zeros_like(picked))
+    keep = labels < vocab_size
+    if mask is not None:
+        keep = keep & mask
+    nll = torch.where(keep, nll, torch.zeros_like(nll))
+    return nll.sum(), keep.float().sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, head_w: torch.Tensor,
+                         labels: torch.Tensor, vocab_size: int, chunk: int,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Logits ``x @ head_w`` and their cross entropy in sequence chunks,
+    each recomputed in the backward, so the [B, S, V] logits never
+    exist at once (the JAX package's ``chunked_tp_softmax_xent`` at tp
+    1). Unchunked when ``chunk`` does not split S into several chunks."""
+    B, S, _ = x.shape
+    if chunk <= 0 or S % chunk or S == chunk:
+        return softmax_xent(x @ head_w, labels, vocab_size, mask)
+
+    def f(xc, lc, mc):
+        return softmax_xent(xc @ head_w, lc, vocab_size, mc)
+    tot = cnt = x.new_zeros((), dtype=torch.float32)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        s, n = checkpoint(f, x[:, sl], labels[:, sl],
+                          None if mask is None else mask[:, sl],
+                          use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return tot, cnt

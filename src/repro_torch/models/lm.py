@@ -1,6 +1,7 @@
-"""Decoder-only language model of the dense family: parameter defs and
-the paged serve steps (chunked prefill and decode over the paged KV
-cache), as the JAX package's ``models/lm.py`` computes them."""
+"""Decoder-only language model of the dense family: parameter defs, the
+training loss over this rank's shards, and the paged serve steps
+(chunked prefill and decode over the paged KV cache), as the JAX
+package's ``models/lm.py`` computes them."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
@@ -10,7 +11,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, SystemConfig
 from repro_torch.core.partition import ParamDef, label_tree
 from repro_torch.models import stack as stk
-from repro_torch.models.layers import embed_lookup, rms_norm
+from repro_torch.models.layers import (chunked_softmax_xent, embed_lookup,
+                                       rms_norm)
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[List[Tuple[str, ...]], int]:
@@ -47,6 +49,30 @@ class LM:
         """Final norm and logits of x [B, D] -> [B, V]."""
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x @ params["head"]
+
+    # -- training loss -------------------------------------------------------
+    def loss_fn(self, params, batch, gather):
+        """This rank's loss over its batch rows: ``params`` are its
+        shards, ``gather`` a ``core.fcdp.ParamGather`` holding their
+        plans. batch: ids / labels / mask [B_local, S]. Returns
+        (loss_sum, token_count, aux_sum); the caller sums them over the
+        ranks."""
+        cfg, plans = self.cfg, gather.plans
+        ids, labels = batch["ids"], batch["labels"]
+        S = ids.shape[1]
+        x = embed_lookup(gather(params["embed"], plans["embed"]), ids)
+        x = x.to(self.sys.torch_dtype)
+        positions = torch.arange(S, device=ids.device)[None, :]
+        x = stk.apply_stack_train(cfg, self.plan, self.n_groups,
+                                  params["blocks"], plans["blocks"], x,
+                                  positions, gather)
+        x = rms_norm(x, gather(params["final_norm"], plans["final_norm"],
+                               torch.float32), cfg.norm_eps)
+        head = gather(params["head"], plans["head"])
+        loss_sum, cnt = chunked_softmax_xent(
+            x, head, labels, cfg.vocab_size, self.sys.loss_chunk,
+            batch.get("mask"))
+        return loss_sum, cnt, torch.zeros((), device=x.device)
 
     # -- paged serving (continuous batching) ---------------------------------
     def init_paged_state(self, n_pages: int, page_size: int, device):

@@ -1,13 +1,17 @@
 """Layer-stack machinery: stacked ParamDefs for a repeating group of
 sublayers, the paged state stacked the same way, and the stack applied
 as a Python loop over the leading ``[L, ...]`` dim (the JAX package's
-layer scan). On one rank every weight is whole, so the loop indexes the
-stacked leaves directly; the per-layer gather schedule comes with the
-multi-rank slice."""
+layer scan). Serving runs on one rank with whole weights, so its loop
+indexes the stacked leaves directly. Training (``apply_stack_train``)
+holds each rank's shards: every layer gathers its weights through the
+plans inside a ``ParamGather.layer()`` scope, the sequential schedule of
+the JAX package's ``GatherScheduler`` at depth 0."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partition import ParamDef, tree_map
@@ -92,3 +96,30 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                           for n, t in stacked_state[key][kind].items()}
                 x, _ = apply_sublayer(kind, cfg, p, x, ctx, st)
     return x, stacked_state
+
+
+def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
+                      n_groups: int, stacked_params, stacked_plans, x,
+                      positions, gather):
+    """The train forward of the stack: layer l gathers the shards
+    ``leaf[l]`` through their plans (norm scales straight to fp32,
+    where ``rms_norm`` reads them) and applies the group. Returns x."""
+    import torch
+    for layer in range(n_groups):
+        with gather.layer():
+            for i, kinds in enumerate(plan):
+                key = f"pos{i}"
+                for kind in kinds:
+                    shards = stacked_params[key][kind]
+                    plans = stacked_plans[key][kind]
+                    p = {n: gather(t[layer], plans[n],
+                                   torch.float32 if n == "norm" else None)
+                         for n, t in shards.items()}
+                    if kind == "attn":
+                        x = sl.attn_train(cfg, p, x, positions)
+                    elif kind == "mlp":
+                        x = sl.mlp_apply(cfg, p, x)
+                    else:
+                        raise ValueError(f"sublayer kind {kind!r} is not "
+                                         "ported to training yet")
+    return x

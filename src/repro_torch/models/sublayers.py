@@ -1,8 +1,9 @@
-"""Sublayer library for the dense serve slice: ParamDefs and apply
-functions of the attention and GLU-MLP sublayers, and the paged
-attention state. The defs carry the JAX package's tensor-parallel tags
-(q/o head-parallel, k/v replicated; mlp in/gate column-, out
-row-parallel); on one rank nothing is sharded by them."""
+"""Sublayer library of the dense family: ParamDefs and apply functions
+of the attention and GLU-MLP sublayers (serving over the paged cache,
+and training), and the paged attention state. The defs carry the JAX
+package's tensor-parallel tags (q/o head-parallel, k/v replicated; mlp
+in/gate column-, out row-parallel); at tp 1 nothing is sharded by
+them."""
 from __future__ import annotations
 
 from typing import Dict
@@ -56,6 +57,15 @@ def attn_paged(cfg, p, x, state, positions, table):
         p.get("bq"), p.get("bk"), p.get("bv"), cfg, positions,
         paged_kv=(state["k"], state["v"], table))
     return x + y, {"k": pk, "v": pv}
+
+
+def attn_train(cfg, p, x, positions):
+    """Causal self-attention sublayer of the train step (under
+    autograd)."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    return x + attn_mod.attention_train(
+        h, p["wq"], p["wk"], p["wv"], p["wo"], p.get("bq"), p.get("bk"),
+        p.get("bv"), cfg, positions)
 
 
 def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:

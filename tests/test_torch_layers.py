@@ -198,3 +198,90 @@ def test_attention_block_paged(S, pos0, mesh1, rng):
         np.testing.assert_allclose(got.float().numpy()[1:],
                                    np.asarray(want, np.float32)[1:],
                                    rtol=1e-2, atol=1e-2)
+
+
+# -- the train branch ----------------------------------------------------------
+
+@pytest.mark.parametrize("shape,chunk,causal", [
+    ((2, 12, 4, 16), 1024, True),      # one chunk, as the train path runs
+    ((2, 20, 2, 16), 8, True),         # 3 q x 3 kv chunks, ragged edges
+    ((1, 16, 2, 32), 4, False),
+], ids=["one_chunk", "ragged_chunks", "full"])
+def test_chunked_causal_attention_and_its_grad(shape, chunk, causal, rng):
+    """``chunked_causal_attention`` against the JAX function and its
+    gradient (the port differentiates it under autograd, as the JAX
+    train path does)."""
+    q, k, v, r = (rng.normal(0, 1, shape).astype(np.float32)
+                  for _ in range(4))
+
+    def jloss(q_, k_, v_):
+        out = jattn.chunked_causal_attention(q_, k_, v_, q_chunk=chunk,
+                                             kv_chunk=chunk, causal=causal)
+        return (out * r).sum(), out
+    (_, want), jgrads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
+    got = attention.chunked_causal_attention(qt, kt, vt, q_chunk=chunk,
+                                             kv_chunk=chunk, causal=causal)
+    (got * _t(r)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    for t, g in zip((qt, kt, vt), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_attention_train_matches_jax(mesh1, rng):
+    """The train sublayer's attention: GQA expanded to the q heads and
+    the chunked attention, against the JAX block's jnp branch."""
+    jcfg, cfg = JModelConfig(**CFG), ModelConfig(**CFG)
+    p = _attn_weights(cfg, rng)
+    x = rng.normal(0, 1, (2, 12, 64)).astype(np.float32)
+    S = x.shape[1]
+    mi = JMeshInfo.from_mesh(mesh1)
+
+    def jfn(x_, *w):
+        return jattn.attention_block(x_, *w, jcfg, mi,
+                                     jnp.arange(S)[None, :])[0]
+    want = _in_mesh(mesh1, jfn, jnp.asarray(x),
+                    *(jnp.asarray(p[n]) for n in ATTN_NAMES))
+    got = attention.attention_train(_t(x), *(_t(p[n]) for n in ATTN_NAMES),
+                                    cfg, torch.arange(S)[None, :])
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("chunk", [0, 4, 16], ids=["unchunked", "chunk4",
+                                                   "chunk_eq_S"])
+def test_softmax_xent_matches_jax(chunk, mesh1, rng):
+    """Logits and cross entropy, whole or in sequence chunks (each chunk
+    recomputed in the backward), against ``chunked_tp_softmax_xent`` at
+    tp 1: the sum, the count, and the gradients of x and the head."""
+    x = rng.normal(0, 1, (2, 16, 64)).astype(np.float32)
+    head = rng.normal(0, 0.3, (64, 256)).astype(np.float32)
+    labels = rng.integers(0, 256, (2, 16)).astype(np.int32)
+    labels[0, 3] = 256                       # outside the vocab: masked
+    mask = rng.random((2, 16)) > 0.2
+    mi = JMeshInfo.from_mesh(mesh1)
+
+    def jfn(x_, h_, l_, m_):
+        s, c = jlayers.chunked_tp_softmax_xent(x_, h_, l_, mi, 256, chunk,
+                                               m_)
+        return jnp.stack([s, c])
+    want = _in_mesh(mesh1, jfn, *map(jnp.asarray, (x, head, labels, mask)))
+    jgrad = jax.grad(lambda x_, h_: _in_mesh_raw(mesh1, jfn, x_, h_, labels,
+                                                  mask)[0], argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(head))
+    xt, ht = _t(x).requires_grad_(True), _t(head).requires_grad_(True)
+    s, c = layers.chunked_softmax_xent(xt, ht, _t(labels).long(), 256, chunk,
+                                       _t(mask))
+    s.backward()
+    np.testing.assert_allclose([s.item(), c.item()], want, **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrad[0]), **TOL)
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(jgrad[1]), **TOL)
+
+
+def _in_mesh_raw(mesh, fn, *args):
+    """``_in_mesh`` without leaving JAX, so it can be differentiated."""
+    f = shard_map(fn, mesh=mesh, in_specs=tuple(P() for _ in args),
+                  out_specs=P(), check_vma=False)
+    return f(*map(jnp.asarray, args))
