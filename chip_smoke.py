@@ -29,16 +29,25 @@ non-zero:
                 over host memory), qwen2.5-3b at full width and depth 2
                 (random weights from seed 0), seq 512, global batch 8:
                 one step each of zero3, zeropp and fcdp, then 3 steps
-                of fcdp with int8 qwZ/qgZ. Checks the losses agree,
-                the int8 kernels ran as often as the plans predict,
-                fcdp's pod all-gather bytes undercut zero3's and its
-                peak device memory undercuts zeropp's.
+                of fcdp with int8 qwZ/qgZ, then 2 steps each of fcdp
+                with the gather-fused collective matmul in modes
+                ag_matmul and both. Checks the losses agree, the int8
+                kernels and the chunk-matmul kernel ran as often as the
+                plans predict, fcdp's pod all-gather bytes undercut
+                zero3's and its peak device memory undercuts zeropp's,
+                the fused ring moves fcdp's data-axis bytes (neutral)
+                and pod bytes, and the fused caches lie in pinned host
+                memory.
   6. train_parity -- the smoke-width model, the same 4-rank fcdp+int8
-                step on the card (kernels) and on the CPU (plain
-                versions): loss and grad norm within tolerance.
+                step and fcdp + ag_matmul step on the card (kernels)
+                and on the CPU (plain versions): loss and grad norm
+                within tolerance, the same bytes.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
-plain versions at the train phase's shapes. Then the card's name and
+plain versions at the train phase's shapes, and the chunk-matmul kernel
+of the fused ring within tolerance of its plain version (and bit for bit
+column-independent) at the train phase's shapes and ragged ones. Then
+the card's name and
 power limit, the kernels' JSON line, and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it exits non-zero and prints no
 result.
@@ -63,6 +72,8 @@ QUANT_TPU_KERNELS = {"quantize": "src/repro/kernels/quant.py:48",
 QUANT_NAMES = {"quantize": "int8_quantize_blocks",
                "dequantize": "int8_dequantize_blocks",
                "dequant_accumulate": "int8_dequant_accumulate"}
+MM_SOURCE = "src/repro_torch/kernels/csrc/collective_matmul.cu"
+MM_TPU_KERNEL = "src/repro/kernels/collective_matmul.py:64"
 TRAIN_DEPTH = 2            # qwen2.5-3b's 36 layers cut to 2 for the train phase
 TRAIN_SEQ, TRAIN_BATCH = 512, 8
 # train phase tolerances: tests/test_system.py's across modes (fp32
@@ -70,7 +81,17 @@ TRAIN_SEQ, TRAIN_BATCH = 512, 8
 LOSS_RTOL, GNORM_RTOL, INT8_DRIFT = 1e-4, 1e-3, 1e-2
 # H100 SXM published peaks (dense): bf16 tensor-core rate, HBM rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12       # CUDA cores, no tensor cores (no TF32)
 PEAK_HBM_BYTES = 3.35e12
+# matmul_chunk vs its plain version (x @ w, cuBLAS with fp32 reductions):
+# both sum the K products of an output in fp32, in their own orders, and
+# round once to the output dtype. Per element |diff| <= one unit in the
+# last place of |plain| in the output dtype (bf16; 0 for f32) plus
+# 2 K 2^-24 (|x| @ |w|), the textbook bound of a K-term fp32 dot product
+# once for each side (it matters only where a sum cancels towards 0).
+# bf16 on average: mean |diff| <= 1e-3 x mean |plain| (half a bf16 step
+# is 2e-3 relative at most, ~1e-3 on average).
+MM_MEAN_REL_TOL = 1e-3
 # Kernel vs plain version, bf16 outputs. Per element |diff| <= 2e-2: the
 # two sum in different orders and round to bf16, and the largest
 # outputs (|out| in [2, 4), rows that see a handful of keys) are one
@@ -325,6 +346,123 @@ def phase_int8_kernels():
                   if "ms" in c}
 
 
+def mm_bound(m, k, n, elt):
+    """Least time of [m, k] @ [k, n]: 2mkn flops at the dtype's peak
+    rate, or the bytes of x, w and the output once each over the HBM
+    rate, whichever is larger. Returns (ms, bound_by)."""
+    peak = PEAK_BF16_FLOPS if elt == 2 else PEAK_F32_FLOPS
+    t_ops = 2.0 * m * k * n / peak
+    t_bytes = (m * k + k * n + m * n) * elt / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def mm_case(name, m, k, n, gen, dtype="bfloat16", timed=False, x=None,
+            w=None):
+    """The chunk-matmul kernel against its plain version (x @ w) on the
+    card, within the tolerance stated at MM_MEAN_REL_TOL."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    dt = getattr(torch, dtype)
+    if x is None:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+    if w is None:
+        w = torch.randn(k, n, generator=gen, device="cuda").to(dt)
+    got = ops.matmul_chunk(x, w)
+    torch.cuda.synchronize()
+    want = ref.matmul_chunk_plain(x, w)
+    d = (got.float() - want.float()).abs()
+    mag = x.float().abs() @ w.float().abs()
+    bound = 2 * k * 2.0 ** -24 * mag
+    if dt == torch.bfloat16:
+        expo = torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126)))
+        bound = bound + torch.exp2(expo - 7)
+    out = {"kernel": "matmul_chunk", "case": name, "M": m, "K": k, "N": n,
+           "dtype": dtype, "max_abs_err": d.max().item(),
+           "mean_abs_err": d.mean().item(),
+           "mean_abs_plain": want.float().abs().mean().item(),
+           "elements_equal_share": (d == 0).float().mean().item(),
+           "worst_err_over_bound": (d / bound).max().item()}
+    check(bool(torch.isfinite(got).all().item()),
+          f"matmul_chunk {name}: output not finite")
+    check(out["worst_err_over_bound"] <= 1.0,
+          f"matmul_chunk {name}: |diff| exceeds its bound by "
+          f"{out['worst_err_over_bound']}x (max |diff| {out['max_abs_err']})")
+    if dt == torch.bfloat16:
+        check(out["mean_abs_err"] <= MM_MEAN_REL_TOL * out["mean_abs_plain"],
+              f"matmul_chunk {name}: mean |diff| {out['mean_abs_err']} > "
+              f"{MM_MEAN_REL_TOL} x mean |plain| {out['mean_abs_plain']}")
+    if timed:
+        out["ms"] = cuda_ms(lambda: ops.matmul_chunk(x, w), 50)
+        out["plain_ms"] = cuda_ms(lambda: ref.matmul_chunk_plain(x, w), 50)
+        # the library call is the same torch.matmul as the plain version
+        out["library_ms"] = cuda_ms(lambda: torch.matmul(x, w), 50)
+        out["bound_ms"], out["bound_by"] = mm_bound(
+            m, k, n, torch.finfo(dt).bits // 8)
+    return out
+
+
+def column_identity(name, x, w_full, n_ranks):
+    """The ring's contract on the card: kernel(x, w_full)'s column block
+    j equals kernel(x, w_chunk_j) bit for bit, for the chunk read in
+    place (a row-strided slice) and copied out."""
+    import torch
+    from repro_torch.kernels import collective_matmul as cm
+
+    full = cm.matmul_chunk(x, w_full)
+    nc = w_full.shape[1] // n_ranks
+    ok = True
+    for j in range(n_ranks):
+        sl = w_full[:, j * nc:(j + 1) * nc]
+        blk = full[:, j * nc:(j + 1) * nc]
+        ok &= torch.equal(cm.matmul_chunk(x, sl), blk)
+        ok &= torch.equal(cm.matmul_chunk(x, sl.contiguous()), blk)
+    torch.cuda.synchronize()
+    check(ok, f"matmul_chunk {name}: a column block differs from the "
+          "chunk's own product")
+    return {"case": name, "column_identity_bit_exact": ok}
+
+
+def phase_mm_kernels():
+    """The chunk-matmul kernel at the train phase's shapes (qwen2.5-3b,
+    mesh pod 2 x data 2: a rank holds 2 sequences x 512 = 1,024 tokens;
+    the ring over data has n = 2 chunks of half of d_model's 2,048
+    columns): wo's chunk, w_out's chunk, mode 'both''s dx and dw chunks
+    of w_out, and test_fused_matmul.py's ragged shapes in bf16 and f32.
+    Also the transposes 'both' copies to contiguous, timed. Returns
+    (main case, {case: timed case})."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tok, d, f = 1024, 2048, 11008
+    main = mm_case("w_out_chunk", tok, f, d // 2, gen, timed=True)
+    timed = [mm_case("wo_chunk", tok, d, d // 2, gen, timed=True),
+             mm_case("both_dx_w_out", tok, d // 2, f, gen, timed=True),
+             mm_case("both_dw_w_out", f, tok, d // 2, gen, timed=True)]
+    extra = [mm_case(f"ragged_{m}x{k}x{n}", m, k, n, gen, dtype=dt)
+             for m, k, n in ((7, 96, 100), (130, 32, 257), (1, 16, 1))
+             for dt in ("bfloat16", "float32")]
+    extra.append(mm_case("f32_train_parity_w_out", 128, 256, 32, gen,
+                         dtype="float32"))
+    x = torch.randn(tok, d, generator=gen, device="cuda").bfloat16()
+    xf = torch.randn(tok, f, generator=gen, device="cuda").bfloat16()
+    ids = [column_identity("wo", x, torch.randn(
+               d, d, generator=gen, device="cuda").bfloat16(), 2),
+           column_identity("w_out", xf, torch.randn(
+               f, d, generator=gen, device="cuda").bfloat16(), 2),
+           column_identity("f32_ragged", torch.randn(
+               130, 96, generator=gen, device="cuda"), torch.randn(
+               96, 2 * 129, generator=gen, device="cuda"), 2)]
+    chunk = torch.randn(f, d // 2, generator=gen, device="cuda").bfloat16()
+    copies = {"chunk_T_ms": cuda_ms(lambda: chunk.t().contiguous(), 50),
+              "x2_T_ms": cuda_ms(lambda: xf.t().contiguous(), 50)}
+    for c in [main] + timed + extra + ids:
+        emit("kernels", **c)
+    emit("kernels", kernel="matmul_chunk", case="both_transpose_copies",
+         shape=[f, d // 2], **copies)
+    return main, {c["case"]: c for c in timed}
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def phase_serve():
@@ -490,13 +628,14 @@ def phase_train():
     cfg = dataclasses.replace(get_config("qwen2.5-3b"),
                               num_layers=TRAIN_DEPTH)
     runs = [ModeRun("zero3"), ModeRun("zeropp"), ModeRun("fcdp"),
-            ModeRun("fcdp", "int8_pod", "int8_pod", steps=3)]
+            ModeRun("fcdp", "int8_pod", "int8_pod", steps=3),
+            ModeRun("fcdp", fused_matmul="ag_matmul", steps=2),
+            ModeRun("fcdp", fused_matmul="both", steps=2)]
     job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs)
     t0 = time.perf_counter()
-    ranks = spawn(job, timeout_s=600)
+    ranks = spawn(job, timeout_s=900)
     wall = time.perf_counter() - t0
-    by = {("int8" if r["run"]["param_compress"] != "none"
-           else r["run"]["mode"]): [rk["runs"][i] for rk in ranks]
+    by = {_run_key(r["run"]): [rk["runs"][i] for rk in ranks]
           for i, r in enumerate(ranks[0]["runs"])}
     check(all(rk["backend"] == "gloo" for rk in ranks),
           "4 ranks on one card must talk through gloo")
@@ -513,6 +652,9 @@ def phase_train():
                 check(launched == r["int8_plan"],
                       f"{name} step {s}: int8 launches {launched} != the "
                       f"plans' {r['int8_plan']}")
+            check(r["mm_launches"] == [r["mm_plan"]] * len(r["metrics"]),
+                  f"{name}: matmul_chunk launches {r['mm_launches']} != the "
+                  f"plans' {r['mm_plan']} per step")
         summary[name] = {
             "loss": losses, "grad_norm": [m["grad_norm"]
                                           for m in r0["metrics"]],
@@ -520,6 +662,7 @@ def phase_train():
             "bytes_per_step": r0["bytes"][0],
             "int8_launches_per_rank_step": r0["launches"][0],
             "int8_plan": r0["int8_plan"],
+            "matmul_chunk_launches_per_rank_step": r0["mm_launches"][0],
             "cached_bytes": r0["cached"][0],
             "cache_places": r0["cache_places"][0],
             "peak_mem_gib": [r["peak_mem_bytes"] / 2**30 for r in rs],
@@ -547,49 +690,126 @@ def phase_train():
     check(all(f < z for f, z in zip(fc["peak_mem_gib"], zp["peak_mem_gib"])),
           f"fcdp peak memory {fc['peak_mem_gib']} GiB not below zeropp "
           f"{zp['peak_mem_gib']} GiB")
+    fused = check_fused_runs(fc, summary["fcdp_ag_matmul"],
+                             summary["fcdp_both"])
     launches = {k: sum(sum(step[k] for step in r["launches"])
                        for rs in by.values() for r in rs)
                 for k in QUANT_NAMES}
+    launches["matmul_chunk"] = sum(sum(r["mm_launches"])
+                                   for rs in by.values() for r in rs)
     emit("train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
          layers_full=get_config("qwen2.5-3b").num_layers,
          seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
          backend=ranks[0]["backend"], wall_s=wall,
-         int8_launches_total=launches, modes=summary)
+         kernel_launches_total=launches, fused=fused, modes=summary)
     return launches
 
 
+def _run_key(run):
+    if run["param_compress"] != "none":
+        return "int8"
+    if run["fused_matmul"] != "none":
+        return f"{run['mode']}_{run['fused_matmul']}"
+    return run["mode"]
+
+
+def check_fused_runs(fc, ag, both):
+    """The fused fcdp runs against unfused fcdp: step-0 loss and grad
+    norm within the modes' tolerances (on the card the unfused
+    projection is cuBLAS and the fused one the kernel, so not bit for
+    bit); 'both''s forward is 'ag_matmul''s, so its step-0 loss is equal
+    to the bit; the 'pod' bytes are fcdp's; the ring moves fcdp's
+    data-axis bytes (ag_matmul: its forward gathers become ppermutes;
+    both: its backward gathers and dw reduce-scatters too); the stage-1
+    caches lie in pinned host memory, as many bytes as fcdp's."""
+    for name, m in (("ag_matmul", ag), ("both", both)):
+        check(_rel(m["loss"][0], fc["loss"][0]) <= LOSS_RTOL,
+              f"fused {name} loss {m['loss'][0]} != fcdp {fc['loss'][0]}")
+        check(_rel(m["grad_norm"][0], fc["grad_norm"][0]) <= GNORM_RTOL,
+              f"fused {name} grad norm {m['grad_norm'][0]} != fcdp "
+              f"{fc['grad_norm'][0]}")
+        b, bf = m["bytes_per_step"], fc["bytes_per_step"]
+        for k in bf:
+            if k.endswith("/pod"):
+                check(b.get(k) == bf[k], f"fused {name} {k} {b.get(k)} != "
+                      f"fcdp {bf[k]}")
+        data = sum(v for k, v in b.items() if k.endswith("/data"))
+        check(data == sum(v for k, v in bf.items() if k.endswith("/data")),
+              f"fused {name}: data-axis bytes {b} not fcdp's {bf}")
+        check(b.get("ppermute/data", 0) > 0, f"fused {name}: no ring hop")
+        check(m["cache_places"] == {"host": [("cpu", True)]}
+              and m["cached_bytes"] == fc["cached_bytes"],
+              f"fused {name} caches {m['cached_bytes']} in "
+              f"{m['cache_places']}, fcdp {fc['cached_bytes']}")
+    check(both["loss"][0] == ag["loss"][0],
+          f"both step-0 loss {both['loss'][0]} != ag_matmul "
+          f"{ag['loss'][0]}")
+    ring = ag["bytes_per_step"]["ppermute/data"]
+    check(ag["bytes_per_step"]["all_gather/data"] + ring
+          == fc["bytes_per_step"]["all_gather/data"]
+          and both["bytes_per_step"]["ppermute/data"] == 3 * ring,
+          "the ring is not byte-neutral")
+    return {"ring_bytes_per_rank_step": ring,
+            "ag_matmul_bytes": ag["bytes_per_step"],
+            "both_bytes": both["bytes_per_step"],
+            "loss_step0": {"fcdp": fc["loss"][0], "ag_matmul": ag["loss"][0],
+                           "both": both["loss"][0]},
+            "grad_norm_step0": {"fcdp": fc["grad_norm"][0],
+                                "ag_matmul": ag["grad_norm"][0],
+                                "both": both["grad_norm"][0]},
+            "peak_mem_gib": {"fcdp": fc["peak_mem_gib"],
+                             "ag_matmul": ag["peak_mem_gib"],
+                             "both": both["peak_mem_gib"]}}
+
+
 def phase_train_parity():
-    """fcdp + int8 at smoke width, the same 4-rank step on the card and
-    on the CPU, from the same weights (drawn on the CPU). fp32 weights
-    and activations: in bf16 the dequantized weights put matmul outputs
-    on rounding ties that the card's and the CPU's matmuls break apart
-    (tests/test_torch_train.py measures the same against JAX)."""
+    """fcdp + int8 and fcdp + ag_matmul at smoke width, the same 4-rank
+    steps on the card and on the CPU, from the same weights (drawn on
+    the CPU). fp32 weights and activations: in bf16 the dequantized
+    weights put matmul outputs on rounding ties that the card's and the
+    CPU's matmuls break apart (tests/test_torch_train.py measures the
+    same against JAX); fp32 also runs the chunk matmul's CUDA-core
+    path."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.launch.train import ModeRun, spawn
 
-    runs = [ModeRun("fcdp", "int8_pod", "int8_pod", dtype="float32")]
+    runs = [ModeRun("fcdp", "int8_pod", "int8_pod", dtype="float32"),
+            ModeRun("fcdp", fused_matmul="ag_matmul", dtype="float32")]
     out = {}
     for dev in ("cuda", "cpu"):
         job = _train_job(get_smoke_config("qwen2.5-3b"), 64, 8, runs,
                          dtype="float32", device=dev, draw_device="cpu")
         t0 = time.perf_counter()
-        r = spawn(job, timeout_s=300)[0]["runs"][0]
-        out[dev] = (r, time.perf_counter() - t0)
-    (g, t_g), (c, t_c) = out["cuda"], out["cpu"]
-    mg, mc = g["metrics"][0], c["metrics"][0]
-    check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
-          f"card loss {mg['loss']} != CPU {mc['loss']}")
-    check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
-          f"card grad norm {mg['grad_norm']} != CPU {mc['grad_norm']}")
-    check(g["bytes"] == c["bytes"], "card and CPU moved different bytes")
-    check(g["launches"][0] == g["int8_plan"] and not any(
-        c["launches"][0].values()), "int8 launches: card must launch the "
-          "plans' count, the CPU none")
+        rs = spawn(job, timeout_s=300)[0]["runs"]
+        out[dev] = (rs, time.perf_counter() - t0)
+    (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
+    report = {}
+    for name, g, c in zip(("int8", "ag_matmul"), gs, cs):
+        mg, mc = g["metrics"][0], c["metrics"][0]
+        check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
+              f"{name}: card loss {mg['loss']} != CPU {mc['loss']}")
+        check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
+              f"{name}: card grad norm {mg['grad_norm']} != CPU "
+              f"{mc['grad_norm']}")
+        check(g["bytes"] == c["bytes"],
+              f"{name}: card and CPU moved different bytes")
+        check(g["launches"][0] == g["int8_plan"] and not any(
+            c["launches"][0].values()), f"{name}: int8 launches: card must "
+              "launch the plans' count, the CPU none")
+        check(g["mm_launches"][0] == g["mm_plan"] and c["mm_launches"][0] == 0
+              and c["mm_calls"][0] == c["mm_plan"],
+              f"{name}: matmul_chunk launches: card {g['mm_launches']} must "
+              f"be the plans' {g['mm_plan']}, the CPU none")
+        report[name] = {"loss": {"cuda": mg["loss"], "cpu": mc["loss"]},
+                        "grad_norm": {"cuda": mg["grad_norm"],
+                                      "cpu": mc["grad_norm"]},
+                        "int8_launches_cuda": g["launches"][0],
+                        "matmul_chunk_launches_cuda": g["mm_launches"][0],
+                        "bytes": g["bytes"][0]}
+    check(report["ag_matmul"]["matmul_chunk_launches_cuda"] > 0,
+          "the fused parity run launched no chunk matmul")
     emit("train_parity", model="qwen2.5-smoke", dtype="float32",
-         loss={"cuda": mg["loss"], "cpu": mc["loss"]},
-         grad_norm={"cuda": mg["grad_norm"], "cpu": mc["grad_norm"]},
-         int8_launches_cuda=g["launches"][0], wall_s={"cuda": t_g,
-                                                      "cpu": t_c})
+         runs=report, wall_s={"cuda": t_g, "cpu": t_c})
 
 
 def main() -> int:
@@ -608,6 +828,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS keeps bf16 reductions in fp32 (the plain version's sums)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.kernels import _build
 
     gpu = gpu_line()
@@ -621,10 +843,11 @@ def main() -> int:
 
     prefill, decode = phase_kernels()
     int8_main, int8_extra = phase_int8_kernels()
+    mm_main, mm_extra = phase_mm_kernels()
     launches = phase_serve()
     phase_profile()
     phase_parity()
-    int8_launches = phase_train()
+    train_launches = phase_train()
     phase_train_parity()
 
     def entry(c):
@@ -636,11 +859,16 @@ def main() -> int:
         **entry(prefill), "shape": "prefill_chunk",
         "decode": entry(decode)}] + [{
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
-            "replaces": QUANT_TPU_KERNELS[k], "launches": int8_launches[k],
+            "replaces": QUANT_TPU_KERNELS[k], "launches": train_launches[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
                              if e["kernel"] == QUANT_NAMES[k]}}
-            for k, c in int8_main.items()]}
+            for k, c in int8_main.items()] + [{
+        "name": "matmul_chunk", "route": "cuda", "source": MM_SOURCE,
+        "replaces": MM_TPU_KERNEL,
+        "launches": train_launches["matmul_chunk"], **entry(mm_main),
+        "shape": mm_main["case"],
+        "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}]}
     print(gpu)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

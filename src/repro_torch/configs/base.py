@@ -54,9 +54,12 @@ class SystemConfig:
     gather (qwZ) / gradient reduce-scatter (qgZ) in int8 blocks;
     ``loss_chunk`` > 0 computes logits and cross entropy in sequence
     chunks; ``master_dtype`` / ``opt_state_dtype`` type the AdamW
-    master weights and moments. There is no ``quant_impl``: the device
-    of a tensor picks the int8 kernel or its plain version
-    (``kernels/ops.py``)."""
+    master weights and moments; ``fused_matmul`` = "ag_matmul" consumes
+    the eligible output projections' stage-2 gather in the gather-fused
+    collective matmul (backward replays the unfused one), "both" fuses
+    the backward too (``kernels/collective_matmul.py``). There is no
+    ``quant_impl`` or ``fused_impl``: the device of a tensor picks each
+    kernel or its plain version (``kernels/ops.py``)."""
     dtype: str = "bfloat16"
     serve_frozen: bool = True
     mode: str = "fcdp"
@@ -66,6 +69,7 @@ class SystemConfig:
     loss_chunk: int = 0                # 0 -> unchunked
     master_dtype: str = "float32"
     opt_state_dtype: str = "float32"
+    fused_matmul: str = "none"         # none | ag_matmul | both
 
     def __post_init__(self):
         for knob in ("dtype", "master_dtype", "opt_state_dtype"):
@@ -77,6 +81,10 @@ class SystemConfig:
                 raise ValueError(
                     f"unknown {knob} {getattr(self, knob)!r}; "
                     "known: none, int8_pod")
+        if self.fused_matmul not in ("none", "ag_matmul", "both"):
+            raise ValueError(
+                f"unknown fused_matmul {self.fused_matmul!r}; "
+                "known: none, ag_matmul, both")
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -1,19 +1,24 @@
 """Collectives per mesh axis, with a byte count per (op, axis).
 
-The four operations the train step needs, each over named mesh axes and
+The operations the train step needs, each over named mesh axes and
 tiled like the JAX package's collectives inside ``shard_map``:
 
   all_gather(x, axis, dim)      blocks of every rank concatenated on dim
   reduce_scatter(x, axis, dim)  sum over ranks, this rank's block of dim
   all_to_all(x, axis)           block j of dim 0 goes to rank j
   all_reduce(x, axes)           sum over ranks
+  ppermute(x, axis, perm)       x goes from axis index src to dst for
+                                each (src, dst) of perm; returns a handle
+                                whose ``wait()`` gives what arrived, so the
+                                caller computes while the hop is in flight
 
 ``counts`` adds up the bytes each call moves per device, keyed
 ``"<op>/<axis>"`` with the JAX package's op names (all_gather,
-psum_scatter, all_to_all, psum), under the convention of its
+psum_scatter, all_to_all, psum, ppermute), under the convention of its
 ``launch/roofline.py:collect_collectives``: the payload is the output
 bytes of an all-gather and the input bytes of the others; on an axis of
-size n it moves (n-1)/n of the payload ((2(n-1)/n for psum); on the
+size n it moves (n-1)/n of the payload (2(n-1)/n for psum, all of it
+for a ppermute hop); on the
 'pod' axis of a call that also spans intra axes, the payload is first
 divided by the intra axes' product (a hierarchical collective reduces
 inside the pod before it crosses). So these counts compare one for one
@@ -32,7 +37,7 @@ from __future__ import annotations
 
 import math
 from collections import defaultdict
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -69,12 +74,20 @@ class Collectives:
             n = size(a)
             if n <= 1:
                 continue
-            factor = 2 * (n - 1) / n if op == "psum" else (n - 1) / n
+            factor = {"psum": 2 * (n - 1) / n,
+                      "ppermute": 1.0}.get(op, (n - 1) / n)
             self.counts[f"{op}/{a}"] += factor * payload / (
                 ici_n if a == "pod" else 1)
 
     def snapshot(self) -> dict:
         return dict(self.counts)
+
+    def size(self, axis: str) -> int:
+        return self.mesh.mesh_shape.size(axis)
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.mesh.coords[axis]
 
     def _live(self, axes: Tuple[str, ...]) -> bool:
         return math.prod(self.mesh.mesh_shape.size(a) for a in axes) > 1
@@ -130,3 +143,40 @@ class Collectives:
         dist.all_reduce(buf, group=self.mesh.group(axes))
         self._count("psum", axes, buf.numel() * buf.element_size())
         return buf.to(x.device)
+
+    def ppermute(self, x: torch.Tensor, axis: str,
+                 perm: Sequence[Tuple[int, int]]) -> "Hop":
+        """One hop over ``axis``: for each (src, dst) of ``perm`` (axis
+        indices of a permutation with no fixed point, such as a ring),
+        src's ``x`` goes to dst. Returns at once; ``wait()`` on the handle
+        gives the tensor this rank received."""
+        me = self.index(axis)
+        group = self.mesh.group((axis,))
+        src = self._wire(x.contiguous())
+        buf = torch.empty_like(src)
+        ops = []
+        for a, b in perm:
+            if a == me:
+                ops.append(dist.P2POp(dist.isend, src,
+                                      dist.get_global_rank(group, b), group))
+            if b == me:
+                ops.append(dist.P2POp(dist.irecv, buf,
+                                      dist.get_global_rank(group, a), group))
+        works = dist.batch_isend_irecv(ops)
+        self._count("ppermute", (axis,), src.numel() * src.element_size())
+        return Hop(works, (src, buf), x.device)
+
+
+class Hop:
+    """A ppermute in flight: ``wait()`` blocks until this rank's send
+    and receive are done and returns the received tensor on the
+    caller's device."""
+
+    def __init__(self, works, bufs, device):
+        self.works, self.bufs, self.device = works, bufs, device
+
+    def wait(self) -> torch.Tensor:
+        for w in self.works:
+            w.wait()
+        self.works = []
+        return self.bufs[1].to(self.device)

@@ -59,7 +59,8 @@ class StepBundle:
         self.plans = self.strategy.plan_tree(
             self.defs, ms, sys.min_shard_size,
             compress_bwd=(sys.grad_compress == "int8_pod"),
-            param_compress=(sys.param_compress == "int8_pod"))
+            param_compress=(sys.param_compress == "int8_pod"),
+            fused_matmul=sys.fused_matmul)
         items = list(tree_items(self.defs))
         self.paths = [p for p, _ in items]
         self.def_leaves = [d for _, d in items]

@@ -112,3 +112,20 @@ def int8_launch_plan(bundle) -> Dict[str, int]:
             out["dequant_accumulate"] += uses
     nm = max(bundle.run.microbatch, 1)
     return {k: v * nm for k, v in out.items()}
+
+
+def matmul_chunk_launch_plan(bundle) -> int:
+    """How many times one step calls the fused ring's chunk matmul, from
+    the plans: per fused leaf and use (once per layer for a stacked
+    leaf), n chunks in the forward ring over its axis of n ranks, and
+    under 'both' n more in the dx ring and n in the dw ring. Microbatches
+    multiply."""
+    out = 0
+    for i in bundle.train_idx:
+        d, plan = bundle.def_leaves[i], bundle.plan_leaves[i]
+        if not plan.is_fused:
+            continue
+        uses = d.shape[d.dims.index("stack")] if "stack" in d.dims else 1
+        n = bundle.mesh_shape.size(plan.intra_axes[0])
+        out += uses * n * (3 if plan.fused == "both" else 1)
+    return out * max(bundle.run.microbatch, 1)

@@ -36,6 +36,19 @@ With no 'pod' axis (one pod) the cache boundary moves after stage 2
 host. The embedding, final norm and head are used outside the layers;
 as in the JAX package, autograd keeps their gathered weights.
 
+A fused plan (``GatherPlan.is_fused``: an output projection under
+``SystemConfig.fused_matmul``) never makes the full weight: stage 2
+returns a ``FusedParam`` holding the stage-1 result, and
+``models.layers.matmul`` hands it to the gather-fused collective matmul,
+which gathers stage 2 chunk by chunk inside its ring. That matmul saves
+the stage-1 tensor for its backward, so the layer scope registers the
+stage-1 tensor itself and rebuilds it from its tier: the pinned host
+copy (fcdp), the device copy (zeropp), or a stage-1 regather (zero3;
+the shard itself under mics). The gradient sum over replicated axes
+(MiCS's 'pod') then happens inside the matmul's backward, on the full
+dw before the reduce-scatter over the ring axis, where the unfused
+step's ``SumOver`` puts it.
+
 The copy to the host is a synchronous ``non_blocking`` copy on the
 current stream; overlapping it on a side stream is later work.
 """
@@ -104,10 +117,23 @@ def gather_stage1(w: torch.Tensor, plan: GatherPlan, coll) -> torch.Tensor:
     return AllGather.apply(w, coll, axis, plan.fsdp_dim)
 
 
-def gather_stage2(w: torch.Tensor, plan: GatherPlan, coll) -> torch.Tensor:
-    """Stage 2 (intra) all-gather: cached shard -> full weight."""
+class FusedParam:
+    """A stage-1 result standing in for the full weight of a fused plan:
+    ``models.layers.matmul`` runs the stage-2 gather inside the consuming
+    matmul's ring (``kernels/collective_matmul.py``) over ``coll``."""
+    __slots__ = ("cache", "plan", "coll")
+
+    def __init__(self, cache: torch.Tensor, plan: GatherPlan, coll):
+        self.cache, self.plan, self.coll = cache, plan, coll
+
+
+def gather_stage2(w: torch.Tensor, plan: GatherPlan, coll):
+    """Stage 2 (intra) all-gather: cached shard -> full weight; a fused
+    plan returns a ``FusedParam`` instead and gathers nothing here."""
     if not plan.is_gathered or not plan.intra_axes:
         return w
+    if plan.is_fused:
+        return FusedParam(w, plan, coll)
     return AllGather.apply(w, coll, _one_axis(plan.intra_axes), plan.fsdp_dim)
 
 
@@ -167,12 +193,19 @@ class ParamGather:
         self.cache_places = defaultdict(set)
 
     def __call__(self, w: torch.Tensor, plan: GatherPlan,
-                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 dtype: Optional[torch.dtype] = None):
         """The full weight of shard ``w`` in ``dtype`` (None keeps w's),
-        with its gradient summed over the plan's replicated axes."""
+        with its gradient summed over the plan's replicated axes; a
+        ``FusedParam`` for a fused plan."""
         def cast(t):
             return t if dtype is None else t.to(dtype)
         stage1 = gather_stage1(w, plan, self.coll)
+        if plan.is_fused:
+            if self._entries is not None:
+                self._entries[_key(stage1)] = (stage1, _Saved(
+                    self._stage1_rebuilder(w.detach(), stage1.detach(),
+                                           plan)))
+            return gather_stage2(stage1, plan, self.coll)
         full = cast(gather_stage2(stage1, plan, self.coll))
         if self._entries is not None and plan.is_gathered:
             # the entry holds the weight until the layer scope ends, so
@@ -198,6 +231,14 @@ class ParamGather:
                 return cast(_stage2_value(cache.to(w.device), plan, coll))
             return rebuild
         cache = self._park(full, placement)
+        return lambda: cache.to(w.device)
+
+    def _stage1_rebuilder(self, w, stage1, plan):
+        """The backward's source of a fused plan's stage-1 tensor."""
+        coll, placement = self.coll, plan.residency.cache
+        if placement == "regather":
+            return lambda: _stage1_value(w, plan, coll)
+        cache = self._park(stage1, placement)
         return lambda: cache.to(w.device)
 
     def _park(self, t: torch.Tensor, placement: str) -> torch.Tensor:

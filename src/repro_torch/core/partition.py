@@ -36,6 +36,11 @@ class ParamDef:
     init: str = "normal"          # normal | zeros | ones | embed
     init_scale: float = 1.0
     frozen: bool = False          # FCDP-Comm classification
+    # the leaf is the right operand of one [..., K] @ [K, N] output
+    # projection routed through models/layers.matmul: the use the
+    # gather-fused collective matmul needs (opt-in at the def site; the
+    # plan rule in core/strategy.residency gates further)
+    fusable: bool = False
     label: str = ""               # dotted path, filled by label_tree
 
     def __post_init__(self):

@@ -14,7 +14,9 @@ the JAX package's ``core/residency.py`` defines it.
   reconstruction   ``stage1_axes`` (inter), ``stage2_axes`` (intra),
                    the ``cache_after`` boundary, and the int8 stage-1
                    transports: qwZ (``quantized_gather``) and qgZ
-                   (``quantized_reduce``)
+                   (``quantized_reduce``); ``fused``: whether stage 2
+                   is consumed by the gather-fused collective matmul
+                   ('none' | 'ag_matmul' | 'both')
   cache+backward   where the cached gather product waits between forward
                    and backward ('regather' | 'device' | 'host') and
                    hence what the backward reads (``backward_source``)
@@ -30,6 +32,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 STORAGE_TIERS = ("dcn_sharded", "pod_replicated", "replicated")
+FUSED_MODES = ("none", "ag_matmul", "both")
 CACHE_TIERS = ("regather", "device", "host")
 UPDATE_CLASSES = ("trainable",)
 
@@ -46,6 +49,7 @@ class ParamResidency:
     cache_after: int = 2               # 1 | 2: which stage's product caches
     quantized_gather: bool = False     # qwZ int8 stage-1 transport
     quantized_reduce: bool = False     # qgZ int8 stage-1 grad reduce
+    fused: str = "none"                # FUSED_MODES
 
     def __post_init__(self):
         if self.tier not in STORAGE_TIERS:
@@ -74,6 +78,12 @@ class ParamResidency:
         if (self.quantized_gather or self.quantized_reduce) \
                 and not self.stage1_axes:
             raise ValueError("an int8 stage-1 transport needs a stage 1")
+        if self.fused not in FUSED_MODES:
+            raise ValueError(f"unknown fused mode {self.fused!r}; one of "
+                             f"{FUSED_MODES}")
+        if self.fused != "none" and len(self.stage2_axes) != 1:
+            raise ValueError("a fused stage 2 rings over exactly one intra "
+                             f"axis, not {self.stage2_axes!r}")
 
     @property
     def trainable(self) -> bool:

@@ -9,6 +9,9 @@ A ``ShardingStrategy`` owns every decision a mode makes about a leaf:
                    cache boundary
   cache placement  where the stage-1 result waits for the backward:
                    'regather' | 'device' | 'host'
+  fused matmul     whether an output projection's stage-2 gather is
+                   consumed by the gather-fused collective matmul
+                   (``SystemConfig.fused_matmul``), leaf by leaf
   opt layout       the optimizer state's sharding
 
 The built-ins are the paper's comparison set:
@@ -22,8 +25,8 @@ The built-ins are the paper's comparison set:
 Plans are derived from the mesh's axis names and sizes
 (``launch.mesh.MeshShape``), never from a process group. Every leaf is
 trainable in this port so far: a frozen leaf (PEFT, FCDP-Comm's cached
-layout) raises. Per-tensor overrides (composites), hier, the
-prefetch/async/cross-step streams and the fused matmul come later.
+layout) raises. Per-tensor overrides (composites), hier and the
+prefetch/async/cross-step streams come later.
 """
 from __future__ import annotations
 
@@ -77,6 +80,16 @@ class GatherPlan:
     def is_gathered(self) -> bool:
         return self.residency.is_gathered
 
+    @property
+    def fused(self) -> str:
+        """'none' | 'ag_matmul' | 'both'."""
+        return self.residency.fused
+
+    @property
+    def is_fused(self) -> bool:
+        """True when the stage-2 gather is consumed by the fused ring."""
+        return self.fused != "none"
+
 
 def spec_axes(spec: Tuple) -> set:
     """Set of mesh axis names a spec shards over."""
@@ -98,6 +111,10 @@ class ShardingStrategy:
     # whether the stage-1 gather may carry int8 (qwZ); strategies with no
     # stage 1 decline structurally
     supports_quantized_gather: bool = True
+    # whether eligible leaves may consume stage 2 through the gather-fused
+    # collective matmul under SystemConfig.fused_matmul != 'none'; every
+    # built-in opts in, a subclass may decline
+    supports_fused_matmul: bool = True
 
     # -- storage layout -----------------------------------------------------
     def storage_fsdp_axes(self, mesh) -> Tuple[str, ...]:
@@ -137,7 +154,8 @@ class ShardingStrategy:
     # -- residency / gather schedule ----------------------------------------
     def residency(self, pdef, mesh, min_shard_size: int = 0,
                   compress_bwd: bool = False,
-                  param_compress: bool = False) -> ParamResidency:
+                  param_compress: bool = False,
+                  fused_matmul: str = "none") -> ParamResidency:
         """The full lifecycle matching ``storage_spec``. A def with a
         'stack' dim gets the fsdp dim index of its per-layer view."""
         d = pdef.fsdp_dim
@@ -164,30 +182,63 @@ class ShardingStrategy:
                  if "stack" in pdef.dims else 1)
         quantizable = (bool(inter) and pdef.size() // (degree * stack)
                        >= QUANT_MIN_SHARD_ELEMS)
+        # gather-fused collective matmul: the def opts in (an output
+        # projection consumed through models/layers.matmul), its per-layer
+        # body is a [K, N] matrix whose OUTPUT dim shards over exactly one
+        # intra axis of degree > 1 (the column-concat split; K is never
+        # split), and stage 2 runs per use: after a stage-1 cache
+        # (cache_after 1) or as a regather. A cache_after-2 device or host
+        # placement caches the fully gathered weight, so no per-use stage
+        # 2 is left to fuse.
+        body_rank = len(pdef.shape) - (1 if "stack" in pdef.dims else 0)
+        intra_deg = math.prod(mesh.shape[a] for a in intra) if intra else 1
+        fusable = (fused_matmul != "none"
+                   and self.supports_fused_matmul
+                   and pdef.fusable
+                   and body_rank == 2 and body_dim == 1
+                   and len(intra) == 1 and intra_deg > 1
+                   and (cache_after == 1
+                        or self.cache_placement == "regather"))
         return ParamResidency(
             tier, self.cache_placement, "trainable",
             fsdp_dim=body_dim, stage1_axes=inter, stage2_axes=intra,
             cache_after=cache_after,
             quantized_gather=(param_compress and quantizable
                               and self.supports_quantized_gather),
-            quantized_reduce=(compress_bwd and quantizable))
+            quantized_reduce=(compress_bwd and quantizable),
+            fused=(fused_matmul if fusable else "none"))
 
     def gather_plan(self, pdef, mesh, min_shard_size: int = 0,
                     compress_bwd: bool = False,
-                    param_compress: bool = False) -> GatherPlan:
+                    param_compress: bool = False,
+                    fused_matmul: str = "none") -> GatherPlan:
+        """The leaf's residency and its sync axes. A leaf whose stage 2
+        would ring-fuse its backward (fused 'both') while its storage is
+        replicated over some axis (MiCS over 'pod') raises: its dw would
+        have to be summed over that axis after the ring scattered it,
+        and the JAX package fails there too (its custom VJP's dw does
+        not carry the replicated axis: ``ValueError ... varying manual
+        axes do not match``)."""
         res = self.residency(pdef, mesh, min_shard_size, compress_bwd,
-                             param_compress)
+                             param_compress, fused_matmul)
         used = spec_axes(self.storage_spec(pdef, mesh, min_shard_size))
         sync = tuple(a for a in mesh.axis_names
                      if a not in used and mesh.shape[a] > 1)
+        if res.fused == "both" and sync:
+            raise ValueError(
+                f"{self.name}: fused_matmul='both' on a leaf replicated over "
+                f"{sync} is not supported (the JAX package's fused_matmul "
+                "custom VJP fails on it: varying manual axes do not match); "
+                "use 'ag_matmul'")
         return GatherPlan(res, sync)
 
     def plan_tree(self, defs, mesh, min_shard_size: int = 0,
-                  compress_bwd: bool = False, param_compress: bool = False):
+                  compress_bwd: bool = False, param_compress: bool = False,
+                  fused_matmul: str = "none"):
         from repro_torch.core.partition import tree_map
         return tree_map(
             lambda d: self.gather_plan(d, mesh, min_shard_size, compress_bwd,
-                                       param_compress), defs)
+                                       param_compress, fused_matmul), defs)
 
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name!r}>"

@@ -9,11 +9,11 @@ kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import quant, ref
+from repro_torch.kernels import collective_matmul, quant, ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 
@@ -83,3 +83,28 @@ INT8_KERNELS = {"quantize": int8_quantize_blocks,
                 "dequant_accumulate": int8_dequant_accumulate}
 for _fn in INT8_KERNELS.values():
     _fn.launches = _fn.calls = 0
+
+
+def matmul_chunk(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One chunk of the gather-fused matmul: x [M, K] @ w [K, N] -> [M,
+    N] in their dtype (rows contiguous on the card)."""
+    matmul_chunk.calls += 1
+    if not _kernel_device(x, "matmul_chunk"):
+        return ref.matmul_chunk_plain(x, w)
+    out = collective_matmul.matmul_chunk(x, w)
+    matmul_chunk.launches += 1
+    return out
+
+
+matmul_chunk.launches = matmul_chunk.calls = 0
+
+
+def collective_ag_matmul(x: torch.Tensor, w_shard: torch.Tensor, coll,
+                         axis: str, mode: str = "ag_matmul",
+                         sync_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """Gather-fused collective matmul (``kernels/collective_matmul.py``):
+    ``x @ all_gather(w_shard, axis, dim 1)`` with the stage-2 column
+    chunks consumed as the ring delivers them, each through
+    ``matmul_chunk``."""
+    return collective_matmul.FusedMatmul.apply(x, w_shard, coll, axis, mode,
+                                               tuple(sync_axes))

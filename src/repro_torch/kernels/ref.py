@@ -88,3 +88,48 @@ def int8_dequant_acc_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     for i in range(q.shape[0]):
         acc = acc + q[i].float() * s[i]
     return acc
+
+
+def matmul_chunk_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: x [M, K], w [K, N] -> [M, N] in their (common) dtype.
+    The function of the JAX package's per-chunk matmul
+    (``collective_matmul._chunk_mm`` with impl="jnp")."""
+    return x @ w
+
+
+def ag_matmul_plain(x: torch.Tensor, w_chunks: torch.Tensor) -> torch.Tensor:
+    """Oracle of the all-gather -> matmul ring: the per-chunk products in
+    rank order along the last dim. x: [M, K]; w_chunks: [n, K, Nc]
+    (chunk j is rank j's shard)."""
+    return torch.cat([x @ w_chunks[j] for j in range(w_chunks.shape[0])],
+                     dim=-1)
+
+
+def matmul_rs_plain(a_chunks: torch.Tensor, b_chunks: torch.Tensor,
+                    rank: int) -> torch.Tensor:
+    """Oracle of the matmul -> reduce-scatter ring, for one rank: chunk
+    ``rank`` of sum_r(a_r @ b_r) added up in the ring's order (born on
+    rank+1, then rank+2, ..., finally rank), left to right.
+    a_chunks: [n, J, M]; b_chunks: [n, M, N] -> [J, N/n]."""
+    n = a_chunks.shape[0]
+    nc = b_chunks.shape[2] // n
+    acc = None
+    for h in range(n):
+        src = (rank + 1 + h) % n
+        part = a_chunks[src] @ b_chunks[src][:, rank * nc:(rank + 1) * nc]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def fused_bwd_dx_plain(g: torch.Tensor, w_chunks: torch.Tensor,
+                       rank: int) -> torch.Tensor:
+    """Oracle of mode 'both''s dx on one rank: the per-chunk terms
+    g[:, owner cols] @ w_owner.T added in ring order (owner = (rank + s)
+    % n at step s). g: [M, N]; w_chunks: [n, K, Nc] -> [M, K]."""
+    n, _, nc = w_chunks.shape
+    dx = None
+    for s in range(n):
+        owner = (rank + s) % n
+        part = g[:, owner * nc:(owner + 1) * nc] @ w_chunks[owner].T
+        dx = part if dx is None else dx + part
+    return dx

@@ -36,7 +36,8 @@ from repro_torch.configs.base import (OptimizerConfig, RunConfig, ShapeCell,
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.collectives import Collectives, pick_backend
 from repro_torch.core.engine import StepBundle
-from repro_torch.core.engine.train import int8_launch_plan
+from repro_torch.core.engine.train import (int8_launch_plan,
+                                           matmul_chunk_launch_plan)
 from repro_torch.core.partition import tree_items
 from repro_torch.core.strategy import strategy_names
 from repro_torch.data.pipeline import DataConfig, ShardedLoader, SyntheticPackedLM
@@ -50,8 +51,9 @@ TIMEOUT = timedelta(seconds=900)
 
 @dataclass(frozen=True)
 class ModeRun:
-    """One run of the job: the strategy, int8, dtype and loss-chunk
-    knobs of the system, the microbatch count, and its steps."""
+    """One run of the job: the strategy, int8, dtype, loss-chunk and
+    fused-matmul knobs of the system, the microbatch count, and its
+    steps."""
     mode: str
     param_compress: str = "none"
     grad_compress: str = "none"
@@ -61,6 +63,7 @@ class ModeRun:
     loss_chunk: int = 0
     master_dtype: str = "float32"
     opt_state_dtype: str = "float32"
+    fused_matmul: str = "none"
 
 
 @dataclass
@@ -70,7 +73,8 @@ class TrainJob:
     numpy tree, or drawn from ``seed`` on ``draw_device``) and the same
     batches (``batches``, global numpy batches per step, or
     ``SyntheticPackedLM``'s). ``return_params`` returns each rank's
-    shards after the first step."""
+    shards after the first step (``params``) and after the last
+    (``final_params``)."""
     run: RunConfig
     mesh: MeshShape
     runs: List[ModeRun]
@@ -89,7 +93,8 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
                                grad_compress=mr.grad_compress,
                                dtype=mr.dtype, loss_chunk=mr.loss_chunk,
                                master_dtype=mr.master_dtype,
-                               opt_state_dtype=mr.opt_state_dtype)
+                               opt_state_dtype=mr.opt_state_dtype,
+                               fused_matmul=mr.fused_matmul)
     run = dataclasses.replace(job.run, system=sysc,
                               microbatch=mr.microbatch)
     bundle = StepBundle(run, device=device, mesh=mesh)
@@ -106,17 +111,21 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    for f in ops.INT8_KERNELS.values():     # counts start at 0 per run
+    mm = ops.matmul_chunk
+    for f in (*ops.INT8_KERNELS.values(), mm):    # counts start at 0 per run
         f.launches = f.calls = 0
     out = {"run": dataclasses.asdict(mr), "metrics": [], "bytes": [],
            "launches": [], "calls": [], "step_s": [], "cached": [],
-           "cache_places": [], "int8_plan": int8_launch_plan(bundle)}
+           "cache_places": [], "int8_plan": int8_launch_plan(bundle),
+           "mm_launches": [], "mm_calls": [],
+           "mm_plan": matmul_chunk_launch_plan(bundle)}
     for s in range(mr.steps):
         batch = (bundle.shard_batch(job.batches[s]) if job.batches
                  else loader.get(s))
         before = coll.snapshot()
         launches = {k: f.launches for k, f in ops.INT8_KERNELS.items()}
         calls = {k: f.calls for k, f in ops.INT8_KERNELS.items()}
+        mm_launches, mm_calls = mm.launches, mm.calls
         dist.barrier()
         t0 = time.perf_counter()
         m = step(params, opt, batch)
@@ -132,6 +141,8 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
                                 for k, f in ops.INT8_KERNELS.items()})
         out["calls"].append({k: f.calls - calls[k]
                              for k, f in ops.INT8_KERNELS.items()})
+        out["mm_launches"].append(mm.launches - mm_launches)
+        out["mm_calls"].append(mm.calls - mm_calls)
         out["cached"].append(dict(step.gather.cached))
         out["cache_places"].append({k: sorted(v) for k, v in
                                     step.gather.cache_places.items()})
@@ -141,6 +152,9 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
             out["specs"] = dict(zip(bundle.paths, bundle.leaf_specs))
             out["opt_dtypes"] = {k: str(opt[k][0].dtype).split(".")[-1]
                                  for k in ("m", "v", "master")}
+    if job.return_params:
+        out["final_params"] = {path: t.detach().cpu().float().numpy()
+                               for path, t in tree_items(params)}
     if device.type == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
     del params, opt, step
@@ -240,6 +254,7 @@ def build_run(args) -> RunConfig:
     cell = ShapeCell("train", "train", args.seq_len, args.batch)
     sysc = SystemConfig(mode=args.mode, param_compress=args.param_compress,
                         grad_compress=args.grad_compress,
+                        fused_matmul=args.fused_matmul,
                         min_shard_size=8 if args.smoke else 2048)
     return RunConfig(model=cfg, shape=cell, system=sysc,
                      optimizer=OptimizerConfig(
@@ -266,6 +281,10 @@ def main(argv=None):
                     choices=["none", "int8_pod"])
     ap.add_argument("--grad-compress", default="none",
                     choices=["none", "int8_pod"])
+    ap.add_argument("--fused-matmul", default="none",
+                    choices=["none", "ag_matmul", "both"],
+                    help="consume the output projections' stage-2 gather in "
+                         "the gather-fused collective matmul")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -277,7 +296,8 @@ def main(argv=None):
                    mesh=train_mesh_shape(world, args.multi_pod),
                    runs=[ModeRun(args.mode, args.param_compress,
                                  args.grad_compress, args.steps,
-                                 microbatch=args.microbatch)],
+                                 microbatch=args.microbatch,
+                                 fused_matmul=args.fused_matmul)],
                    device=args.device, seed=args.seed)
     t0 = time.perf_counter()
     res = run_job(job, rank, world, local_world, "env://")
@@ -292,6 +312,8 @@ def main(argv=None):
             "final_loss": r["metrics"][-1]["loss"],
             "bytes_per_step": r["bytes"][-1],
             "int8_calls_per_step": r["calls"][-1],
+            "fused_matmul": args.fused_matmul,
+            "matmul_chunk_calls_per_step": r["mm_calls"][-1],
             "wall_s": time.perf_counter() - t0}))
     return res
 

@@ -40,10 +40,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for every output projection. The JAX package routes a
-    gather-fused weight through its collective matmul here; that branch
-    comes with the multi-rank slice."""
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for every output projection, where ``w`` may be a
+    ``core.fcdp.FusedParam``: the stage-1 result of an output-dim-sharded
+    weight, whose stage-2 gather then runs inside the ring of the
+    gather-fused collective matmul (``kernels/collective_matmul.py``),
+    chunk by chunk. The plan decides per leaf whether its weight arrives
+    whole or as a ring."""
+    from repro_torch.core.fcdp import FusedParam
+    if isinstance(w, FusedParam):
+        from repro_torch.kernels import ops
+        plan = w.plan
+        return ops.collective_ag_matmul(x, w.cache, w.coll,
+                                        plan.intra_axes[0], plan.fused,
+                                        plan.sync_axes)
     return x @ w
 
 

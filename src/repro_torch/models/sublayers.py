@@ -24,7 +24,7 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
         "wq": ParamDef((d, qd), ("fsdp", "tp")),
         "wk": ParamDef((d, kvd), ("fsdp", None)),
         "wv": ParamDef((d, kvd), ("fsdp", None)),
-        "wo": ParamDef((qd, d), ("tp", "fsdp")),
+        "wo": ParamDef((qd, d), ("tp", "fsdp"), fusable=True),
         "norm": ParamDef((d,), ("fsdp",), init="ones"),
     }
     if cfg.qkv_bias:
@@ -72,7 +72,7 @@ def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
     out = {
         "w_in": ParamDef((d, f), ("fsdp", "tp")),
-        "w_out": ParamDef((f, d), ("tp", "fsdp")),
+        "w_out": ParamDef((f, d), ("tp", "fsdp"), fusable=True),
         "norm": ParamDef((d,), ("fsdp",), init="ones"),
     }
     if cfg.act in ("swiglu", "geglu"):

@@ -1,0 +1,340 @@
+"""The port's gather-fused collective matmul against the JAX package's
+(``repro.kernels.collective_matmul``), on the CPU.
+
+  * the chunk matmul's plain version (``ref.matmul_chunk_plain``, what a
+    CPU tensor runs and what ``chip_smoke.py`` holds the CUDA kernel to)
+    against the JAX Pallas kernel in interpret mode, on
+    ``tests/test_fused_matmul.py``'s four shapes in float32 and bfloat16;
+  * the rings on spawned gloo ranks, at n = 2 (mesh pod 2 x data 2) and
+    n = 4 (mesh data 4), where a ring turned the wrong way would show:
+    bit for bit against the port's plain oracles, and against the JAX
+    oracles (``ag_matmul_ref``, ``matmul_rs_ref``, ``fused_bwd_dx_ref``)
+    within tolerance; mode 'ag_matmul''s gradients equal the unfused
+    gather-then-matmul's bit for bit;
+  * the dispatch: a CPU tensor takes the plain version and counts no
+    launch; the CUDA wrapper refuses a CPU tensor, and a CUDA tensor
+    whose kernel cannot be built raises instead of falling back.
+
+The train step under ``fused_matmul`` is held to the JAX step in
+``tests/test_torch_train.py`` and the plan gate in
+``tests/test_torch_strategy.py``.
+
+Tolerances. Against JAX, both sides sum the K products of an output in
+fp32, in their own orders, and round once to the output dtype: per
+element |diff| <= 2 gamma_K (|x| @ |w|) with gamma_K = K 2^-24 (the
+textbook bound of a K-term fp32 dot product, once for each side), plus
+one unit in the last place of the bfloat16 result for bf16 outputs. The
+rings against the JAX oracles: rtol = atol = 1e-5, test_fused_matmul.py's
+bound for the same sums taken in another order.
+"""
+import dataclasses
+import os
+import queue as queue_mod
+import tempfile
+import traceback
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.kernels import collective_matmul as jcm
+from repro.kernels import ref as jref
+from repro_torch.configs.base import RunConfig, ShapeCell, SystemConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.core.collectives import Collectives
+from repro_torch.core.engine import StepBundle
+from repro_torch.core.engine.train import matmul_chunk_launch_plan
+from repro_torch.core.fcdp import AllGather
+from repro_torch.kernels import collective_matmul as cm
+from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import MeshShape, RankMesh, train_mesh_shape
+
+SHAPES = [(128, 64, 128), (7, 96, 100), (130, 32, 257), (1, 16, 1)]
+M, K, NC = 6, 16, 8                  # the ring cases: x [M, K], w [K, n NC]
+MESHES = {2: MeshShape(("pod", "data", "model"), (2, 2, 1)),
+          4: MeshShape(("pod", "data", "model"), (1, 4, 1))}
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+def _dot_bound(x, w, out, bf16):
+    """Per-element bound of |port - JAX| (module docstring)."""
+    k = x.shape[1]
+    mag = np.abs(x.astype(np.float64)) @ np.abs(w.astype(np.float64))
+    bound = 2 * k * 2.0 ** -24 * mag
+    if bf16:
+        e = np.floor(np.log2(np.maximum(np.abs(out), 2.0 ** -126)))
+        bound = bound + 2.0 ** (e - 7)
+    return bound
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_chunk_plain_matches_jax_kernel(shape, dtype, rng):
+    m, k, n = shape
+    x = rng.normal(0, 1, (m, k)).astype(np.float32)
+    w = rng.normal(0, 1, (k, n)).astype(np.float32)
+    want = jcm.matmul_chunk(jnp.asarray(x, dtype), jnp.asarray(w, dtype),
+                            interpret=True)
+    tdt = getattr(torch, dtype)
+    got = ref.matmul_chunk_plain(_t(x, tdt), _t(w, tdt))
+    assert got.dtype == tdt and str(want.dtype) == dtype
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    # the inputs as both sides see them (bf16 rounds alike in both)
+    xr, wr = _t(x, tdt).float().numpy(), _t(w, tdt).float().numpy()
+    assert np.all(np.abs(got - want)
+                  <= _dot_bound(xr, wr, want, dtype == "bfloat16"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(128, 64, 64), (128, 128, 64)])
+def test_plain_matmul_column_identity_at_the_test_widths(dtype, m, k, n,
+                                                         rng):
+    """What the CPU bit parity of 'ag_matmul' rests on: at the train
+    tests' shapes PyTorch's CPU matmul gives the column blocks of x @ w
+    bit for bit when it multiplies the blocks alone."""
+    x = _t(rng.normal(0, 1, (m, k)), dtype)
+    w = _t(rng.normal(0, 1, (k, n)), dtype)
+    half = n // 2
+    assert torch.equal(x @ w, torch.cat([x @ w[:, :half], x @ w[:, half:]],
+                                        dim=1))
+
+
+def test_chunk_schedule_equals_jax():
+    for args in ((1024, 2048, 1024, 2), (128, 64, 32, 4, 4.0)):
+        assert cm.chunk_schedule(*args) == jcm.chunk_schedule(*args)
+    assert cm.ring_perm(4) == jcm._ring_perm(4)
+
+
+# -- the rings on spawned gloo ranks --------------------------------------------
+
+def _ring_cases(coll, inp):
+    """Every ring case on this rank; numpy results."""
+    n, r = coll.size("data"), coll.index("data")
+    x, w = _t(inp["x"]), _t(inp["w"])
+    shard = w[:, r * NC:(r + 1) * NC].contiguous()
+    out = {"ag": cm.ring_ag_matmul(x, shard, coll, "data"),
+           "ag_bf16": cm.ring_ag_matmul(x.bfloat16(), shard.bfloat16(),
+                                        coll, "data").float(),
+           "rs": cm.ring_matmul_rs(_t(inp["a"][r]), _t(inp["b"][r]), coll,
+                                   "data")}
+    before = coll.snapshot()
+    cm.ring_ag_matmul(x, shard, coll, "data")
+    out["ag_bytes"] = coll.snapshot().get("ppermute/data", 0.0) \
+        - before.get("ppermute/data", 0.0)
+    for mode in ("ag_matmul", "both", "unfused"):
+        xg = x.clone().requires_grad_(True)
+        wg = shard.clone().requires_grad_(True)
+        if mode == "unfused":
+            y = xg @ AllGather.apply(wg, coll, "data", 1)
+        else:
+            y = ops.collective_ag_matmul(xg, wg, coll, "data", mode)
+        (y * y).sum().backward()
+        out[f"dx_{mode}"], out[f"dw_{mode}"] = xg.grad, wg.grad
+    return {k: (v.detach().numpy() if torch.is_tensor(v) else v)
+            for k, v in out.items()}
+
+
+def _ring_worker(rank, world, init_method, mesh, inp, results):
+    try:
+        dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                                world_size=world)
+        try:
+            rank_mesh = RankMesh(mesh, "gloo")
+            out = _ring_cases(Collectives(rank_mesh), inp)
+            out["coords"] = rank_mesh.coords
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, out, None))
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))
+
+
+def _spawn(mesh, inp, tmp, timeout_s=300.0):
+    import time
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"file://{os.path.join(tmp, 'store')}"
+    procs = [ctx.Process(target=_ring_worker,
+                         args=(r, mesh.world, init, mesh, inp, results))
+             for r in range(mesh.world)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(got) < mesh.world:
+            try:
+                rank, res, err = results.get(timeout=5.0)
+            except queue_mod.Empty:
+                assert time.monotonic() < deadline, "ring ranks timed out"
+                continue
+            assert err is None, f"ring rank {rank} failed:\n{err}"
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+    return [got[r] for r in range(mesh.world)]
+
+
+@pytest.fixture(scope="module")
+def rings():
+    """n -> (inputs, each rank's results), for n = 2 and n = 4."""
+    out = {}
+    for n, mesh in MESHES.items():
+        rng = np.random.default_rng(n)
+        inp = {"x": rng.normal(0, 1, (M, K)).astype(np.float32),
+               "w": rng.normal(0, 1, (K, n * NC)).astype(np.float32),
+               "a": rng.normal(0, 1, (n, 6, 10)).astype(np.float32),
+               "b": rng.normal(0, 1, (n, 10, 8 * n)).astype(np.float32)}
+        with tempfile.TemporaryDirectory(prefix="ring_rdzv_") as tmp:
+            out[n] = (inp, _spawn(mesh, inp, tmp))
+    return out
+
+
+def _w_chunks(inp, n):
+    return torch.stack(torch.split(_t(inp["w"]), NC, dim=1))
+
+
+@pytest.mark.parametrize("n", sorted(MESHES))
+def test_ring_ag_matmul_vs_oracles(rings, n):
+    inp, ranks = rings[n]
+    x, chunks = _t(inp["x"]), _w_chunks(inp, n)
+    want = ref.ag_matmul_plain(x, chunks)
+    want_bf16 = ref.ag_matmul_plain(x.bfloat16(), chunks.bfloat16()).float()
+    jwant = np.asarray(jref.ag_matmul_ref(jnp.asarray(inp["x"]),
+                                          jnp.asarray(chunks.numpy())))
+    for res in ranks:
+        assert torch.equal(torch.from_numpy(res["ag"]), want)
+        assert torch.equal(torch.from_numpy(res["ag_bf16"]), want_bf16)
+        np.testing.assert_allclose(res["ag"], jwant, rtol=1e-5, atol=1e-5)
+        # n - 1 hops of one [K, NC] fp32 chunk, all of it per hop
+        assert res["ag_bytes"] == (n - 1) * K * NC * 4
+
+
+@pytest.mark.parametrize("n", sorted(MESHES))
+def test_ring_matmul_rs_vs_oracles(rings, n):
+    inp, ranks = rings[n]
+    a, b = _t(inp["a"]), _t(inp["b"])
+    for res in ranks:
+        r = res["coords"]["data"]
+        assert torch.equal(torch.from_numpy(res["rs"]),
+                           ref.matmul_rs_plain(a, b, r)), r
+        np.testing.assert_allclose(
+            res["rs"], np.asarray(jref.matmul_rs_ref(jnp.asarray(inp["a"]),
+                                                     jnp.asarray(inp["b"]),
+                                                     r)),
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", sorted(MESHES))
+def test_both_grads_vs_ring_oracles(rings, n):
+    """Mode 'both': dx is the ring-ordered sum, dw the matmul ->
+    reduce-scatter ring of x.T @ g (x is replicated, so every rank's a
+    and b are x.T and g); both close to the unfused gradients."""
+    inp, ranks = rings[n]
+    x, chunks = _t(inp["x"]), _w_chunks(inp, n)
+    g = 2.0 * ref.ag_matmul_plain(x, chunks)            # d(sum y^2)/dy
+    a = x.T.contiguous().expand(n, K, M)
+    b = g.expand(n, M, n * NC)
+    for res in ranks:
+        r = res["coords"]["data"]
+        assert torch.equal(torch.from_numpy(res["dx_both"]),
+                           ref.fused_bwd_dx_plain(g, chunks, r)), r
+        assert torch.equal(torch.from_numpy(res["dw_both"]),
+                           ref.matmul_rs_plain(a, b, r)), r
+        np.testing.assert_allclose(
+            res["dx_both"], np.asarray(jref.fused_bwd_dx_ref(
+                jnp.asarray(g.numpy()), jnp.asarray(chunks.numpy()), r)),
+            rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(res["dx_both"], res["dx_unfused"],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(res["dw_both"], res["dw_unfused"],
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", sorted(MESHES))
+def test_ag_matmul_grads_equal_unfused(rings, n):
+    """Mode 'ag_matmul' replays the unfused backward: both gradients
+    equal the gather-then-matmul's bit for bit."""
+    for res in rings[n][1]:
+        assert torch.equal(torch.from_numpy(res["dx_ag_matmul"]),
+                           torch.from_numpy(res["dx_unfused"]))
+        assert torch.equal(torch.from_numpy(res["dw_ag_matmul"]),
+                           torch.from_numpy(res["dw_unfused"]))
+
+
+# -- dispatch -----------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(rng):
+    x, w = _t(rng.normal(0, 1, (7, 96))), _t(rng.normal(0, 1, (96, 100)))
+    launches, calls = ops.matmul_chunk.launches, ops.matmul_chunk.calls
+    assert torch.equal(ops.matmul_chunk(x, w), x @ w)
+    assert ops.matmul_chunk.launches == launches
+    assert ops.matmul_chunk.calls == calls + 1
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        cm.matmul_chunk(torch.zeros(4, 8), torch.zeros(8, 4))
+
+
+class _FakeCuda:
+    """Stands in for a contiguous CUDA matrix on a machine without one."""
+    device = torch.device("cuda", 0)
+
+    def __init__(self, *shape):
+        self.shape, self.dtype = torch.Size(shape), torch.bfloat16
+
+    def dim(self):
+        return len(self.shape)
+
+    def stride(self, i=None):
+        s = (self.shape[1], 1)
+        return s if i is None else s[i]
+
+    def data_ptr(self):
+        return 0
+
+
+def test_cuda_tensor_launches_or_raises(monkeypatch):
+    """A CUDA tensor goes to the kernel: when the kernel cannot be built
+    the call raises, counts no launch and never runs the plain version."""
+    from repro_torch.kernels import _build
+
+    def no_nvcc(name):
+        raise RuntimeError(f"cannot build {name}")
+    monkeypatch.setattr(_build, "load", no_nvcc)
+    monkeypatch.setattr(ref, "matmul_chunk_plain",
+                        lambda *a: pytest.fail("plain version ran"))
+    cm._lib.cache_clear()
+    launches = ops.matmul_chunk.launches
+    try:
+        with pytest.raises(RuntimeError, match="cannot build"):
+            ops.matmul_chunk(_FakeCuda(1024, 2048), _FakeCuda(2048, 1024))
+    finally:
+        cm._lib.cache_clear()
+    assert ops.matmul_chunk.launches == launches
+
+
+@pytest.mark.parametrize("fused,want", [("none", 0), ("ag_matmul", 8),
+                                        ("both", 24)])
+def test_launch_plan_at_the_smoke_runs_width(fused, want):
+    """qwen2.5-3b at full width, depth 2, mesh pod 2 x data 2: wo and
+    w_out fuse over 'data' (n = 2), so a rank-step launches 2 x 2 x 2
+    chunk matmuls under 'ag_matmul' and three times that under 'both'
+    (what chip_smoke.py checks on the card)."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2)
+    run = RunConfig(model=cfg, shape=ShapeCell("t", "train", 512, 8),
+                    system=SystemConfig(fused_matmul=fused))
+    b = StepBundle(run, device="cpu", mesh=train_mesh_shape(4, True))
+    assert matmul_chunk_launch_plan(b) == want
+    assert sum(p.is_fused for p in b.plan_leaves) == (0 if fused == "none"
+                                                       else 2)

@@ -3,10 +3,13 @@ of ``tests/test_system.py``'s ``DENSE`` model on the (pod 2, data 2,
 model 1) mesh, under every ported mode, with and without the int8
 stage-1 transports, the port's ``ParamResidency`` equals the JAX one
 field for field, its storage and optimizer specs equal the JAX
-``PartitionSpec``s entry for entry, and the qwZ / qgZ gates agree.
-Exact: these are decisions, not numbers."""
+``PartitionSpec``s entry for entry, and the qwZ / qgZ gates agree; the
+gather-fused collective matmul's per-leaf gate (``fused_matmul``) agrees
+on the same leaves and on ``tests/test_fused_matmul.py``'s eligible and
+declined cases. Exact: these are decisions, not numbers."""
 import dataclasses
 import itertools
+import math
 
 import jax
 import pytest
@@ -171,3 +174,141 @@ def test_mesh_shapes():
         {"pod": p, "data": d, "model": 0} for p in (0, 1) for d in (0, 1)]
     with pytest.raises(ValueError):
         train_mesh_shape(3, True)
+
+
+# -- the gather-fused collective matmul's plan-level eligibility ----------------
+
+FUSED = ("none", "ag_matmul", "both")
+MESH3 = MeshShape(("pod", "data", "model"), (2, 2, 2))
+MESH2 = MeshShape(("data", "model"), (4, 2))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("fused", FUSED)
+def test_fused_residency_equals_jax(jax_defs, port_defs, mode, fused):
+    """Leaf for leaf, the port's residency under ``fused_matmul`` equals
+    the JAX one field for field: wo and w_out fuse wherever their fsdp
+    dim shards over one intra axis of degree > 1 with a per-use stage 2
+    (every mode on this mesh), nothing else does."""
+    mesh, jdefs = jax_defs
+    js, ps = j_get_strategy(mode), get_strategy(mode)
+    fused_paths = set()
+    for path, d in port_defs.items():
+        want = js.residency(jdefs[path], mesh, 8, fused_matmul=fused,
+                            fused_impl="jnp")
+        got = ps.residency(d, MESH, 8, fused_matmul=fused)
+        for f in dataclasses.fields(got):
+            assert getattr(got, f.name) == getattr(want, f.name), \
+                (mode, fused, path, f.name)
+        if got.fused != "none":
+            fused_paths.add(path.rsplit(".", 1)[-1])
+    assert fused_paths == (set() if fused == "none" else {"wo", "w_out"})
+
+
+def _jax_mesh(shape, names):
+    return make_mesh(shape, names, devices=jax.devices()[:math.prod(shape)])
+
+
+def _proj(**kw):
+    kw.setdefault("fusable", True)
+    return ParamDef((256, 128), ("tp", "fsdp"), **kw)
+
+
+def _jproj(**kw):
+    kw.setdefault("fusable", True)
+    return JParamDef((256, 128), ("tp", "fsdp"), **kw)
+
+
+@pytest.mark.parametrize("mode,mesh_name", [("fcdp", "mesh3"),
+                                            ("zero3", "mesh3"),
+                                            ("zero3", "mesh2"),
+                                            ("mics", "mesh3")])
+def test_fused_gate_admits_like_jax(mode, mesh_name):
+    """test_fused_matmul.py's eligible cases: a projection and its
+    stacked form on the multi-pod mesh; zero3 regathers stage 2 per use
+    on any mesh."""
+    mesh, jmesh = {"mesh3": (MESH3, ((2, 2, 2), ("pod", "data", "model"))),
+                   "mesh2": (MESH2, ((4, 2), ("data", "model")))}[mesh_name]
+    jm = _jax_mesh(*jmesh)
+    for d, jd in ((_proj(), _jproj()),
+                  (ParamDef((4, 256, 128), ("stack", "tp", "fsdp"),
+                            fusable=True),
+                   JParamDef((4, 256, 128), ("stack", "tp", "fsdp"),
+                             fusable=True))):
+        want = j_get_strategy(mode).gather_plan(jd, jm, 0,
+                                                fused_matmul="ag_matmul")
+        got = get_strategy(mode).gather_plan(d, mesh, 0,
+                                             fused_matmul="ag_matmul")
+        assert want.is_fused and got.is_fused and got.fused == "ag_matmul"
+        assert got.intra_axes == tuple(want.intra_axes)
+    assert not get_strategy(mode).gather_plan(_proj(), mesh, 0).is_fused
+
+
+def test_fused_gate_declines_like_jax():
+    """test_fused_matmul.py's decline cases: no opt-in (an embedding
+    table has a projection's dims), an input-dim-sharded matrix, a 1-D
+    leaf, an elementwise-consumed leaf without the opt-in, and a
+    single-pod fcdp/zeropp leaf whose cache is the fully gathered weight
+    (cache_after 2). Frozen leaves are refused by the port altogether."""
+    jm3 = _jax_mesh((2, 2, 2), ("pod", "data", "model"))
+    jm2 = _jax_mesh((4, 2), ("data", "model"))
+    cases = [
+        ("fcdp", _proj(fusable=False), _jproj(fusable=False), MESH3, jm3),
+        ("fcdp", ParamDef((256, 128), ("fsdp", "tp"), fusable=True),
+         JParamDef((256, 128), ("fsdp", "tp"), fusable=True), MESH3, jm3),
+        ("fcdp", ParamDef((128,), ("fsdp",), fusable=True),
+         JParamDef((128,), ("fsdp",), fusable=True), MESH3, jm3),
+        ("fcdp", ParamDef((6, 128), (None, "fsdp")),
+         JParamDef((6, 128), (None, "fsdp")), MESH3, jm3),
+        ("fcdp", _proj(), _jproj(), MESH2, jm2),
+        ("zeropp", _proj(), _jproj(), MESH2, jm2),
+    ]
+    for mode, d, jd, mesh, jm in cases:
+        want = j_get_strategy(mode).gather_plan(jd, jm, 0,
+                                                fused_matmul="ag_matmul")
+        got = get_strategy(mode).gather_plan(d, mesh, 0,
+                                             fused_matmul="ag_matmul")
+        assert not want.is_fused and not got.is_fused, (mode, d)
+    assert get_strategy("fcdp").gather_plan(_proj(), MESH2, 0).cache_after \
+        == 2
+    with pytest.raises(ValueError, match="frozen"):
+        get_strategy("fcdp").gather_plan(_proj(frozen=True), MESH3, 0,
+                                         fused_matmul="ag_matmul")
+
+
+def test_fused_strategy_opt_out():
+    """A strategy that declines keeps its unfused stage 2 for eligible
+    leaves."""
+    from repro_torch.core.strategy import FCDP
+
+    class Declining(FCDP):
+        name = "declining_fused"
+        supports_fused_matmul = False
+
+    assert not Declining().gather_plan(_proj(), MESH3, 0,
+                                       fused_matmul="both").is_fused
+    assert FCDP().gather_plan(_proj(), MESH3, 0, fused_matmul="both").is_fused
+
+
+def test_mics_both_raises_at_plan_time():
+    """MiCS stores pod-replicated, so mode 'both' would have to sum the
+    ring-scattered dw over 'pod'; the JAX package's step fails to trace
+    there ('varying manual axes do not match'), and the port refuses the
+    plan with a ValueError naming it. 'ag_matmul' is fine."""
+    run = RunConfig(model=ModelConfig(**DENSE),
+                    shape=ShapeCell("t", "train", 64, 8),
+                    system=SystemConfig(mode="mics", min_shard_size=8,
+                                        fused_matmul="both"))
+    with pytest.raises(ValueError, match="varying manual axes"):
+        StepBundle(run, device="cpu", mesh=MESH)
+    ok = dataclasses.replace(run, system=dataclasses.replace(
+        run.system, fused_matmul="ag_matmul"))
+    assert sum(p.is_fused for p in StepBundle(ok, device="cpu",
+                                              mesh=MESH).plan_leaves) == 2
+
+
+def test_fused_config_validation():
+    for v in FUSED:
+        assert SystemConfig(fused_matmul=v).fused_matmul == v
+    with pytest.raises(ValueError, match="fused_matmul"):
+        SystemConfig(fused_matmul="everything")

@@ -9,7 +9,12 @@ ranks spawned once for the module, which run every mode in turn. Each
 mode's first step is held to the JAX step; fcdp and fcdp+int8 run two
 more steps for the int8 drift bound, and fcdp also runs with two
 microbatches (gradient accumulation) and once with the loss in
-sequence chunks and bf16 master weights and moments. The port starts from the JAX bundle's parameters, cut into each rank's
+sequence chunks and bf16 master weights and moments. The gather-fused
+collective matmul runs under fcdp, zero3 and mics in mode 'ag_matmul'
+(fcdp for three steps, against the unfused fcdp run bit for bit) and
+under fcdp and zero3 in mode 'both'; the JAX side runs it with
+``fused_impl="jnp"``, the oracle its Pallas kernel is bit-exact to. The
+port starts from the JAX bundle's parameters, cut into each rank's
 shards by ``repro_torch.convert.shards_from_jax``.
 
 Tolerances are ``tests/test_system.py``'s across modes, for the same
@@ -31,7 +36,11 @@ and the int8 call counts, and the fp32 one to the JAX step.
 Byte counts per step and (op, axis) are held exactly to the JAX
 package's ``collect_collectives`` of the same step and to the table
 below (bytes per device per step; an all-gather counts its output
-bytes, every other op its input bytes, in both packages).
+bytes, a ppermute all of its input bytes per hop, every other op its
+input bytes, in both packages). The fused ring is byte-neutral: the
+forward gathers of ``wo`` and ``w_out`` (2 layers x (4,096 + 8,192)
+bytes) leave ``all_gather/data`` for ``ppermute/data``; 'both' also
+moves the backward gathers and the dw reduce-scatters into the ring.
 """
 import concurrent.futures
 import functools
@@ -70,12 +79,18 @@ RUNS = {"zero3": ModeRun("zero3"), "zeropp": ModeRun("zeropp"),
         "fcdp_mb2": ModeRun("fcdp", microbatch=2),
         "fcdp_chunk_bf16opt": ModeRun("fcdp", loss_chunk=16,
                                       master_dtype="bfloat16",
-                                      opt_state_dtype="bfloat16")}
-BF16_IDS = ["zero3", "zeropp", "fcdp", "mics", "fcdp_int8"]
+                                      opt_state_dtype="bfloat16"),
+        "fcdp_ag": ModeRun("fcdp", steps=3, fused_matmul="ag_matmul"),
+        "zero3_ag": ModeRun("zero3", fused_matmul="ag_matmul"),
+        "mics_ag": ModeRun("mics", fused_matmul="ag_matmul"),
+        "fcdp_both": ModeRun("fcdp", fused_matmul="both"),
+        "zero3_both": ModeRun("zero3", fused_matmul="both")}
+FUSED_IDS = ["fcdp_ag", "zero3_ag", "mics_ag", "fcdp_both", "zero3_both"]
+BF16_IDS = ["zero3", "zeropp", "fcdp", "mics", "fcdp_int8"] + FUSED_IDS
 # held to the JAX step: the exact modes in bf16, the int8 run in fp32
 # (see the module docstring)
 JAX_IDS = ["zero3", "zeropp", "fcdp", "mics", "fcdp_int8_f32", "fcdp_mb2",
-           "fcdp_chunk_bf16opt"]
+           "fcdp_chunk_bf16opt"] + FUSED_IDS
 
 _Z3 = {"all_gather/pod": 90400, "all_gather/data": 180800,
        "psum_scatter/pod": 53408, "psum_scatter/data": 106816,
@@ -91,6 +106,13 @@ BYTES = {
                                   "psum_scatter/pod": 160,
                                   "all_to_all/pod": 27040}),
 }
+_AG = {"all_gather/data": 156224, "ppermute/data": 24576}
+_BOTH = {"all_gather/data": 131648, "ppermute/data": 73728,
+         "psum_scatter/data": 82240}
+BYTES.update({"fcdp_ag": dict(_CACHED, **_AG), "zero3_ag": dict(_Z3, **_AG),
+              "mics_ag": dict(BYTES["mics"], **_AG),
+              "fcdp_both": dict(_CACHED, **_BOTH),
+              "zero3_both": dict(_Z3, **_BOTH)})
 LOSS_RTOL, GNORM_RTOL = 1e-4, 1e-3
 PARAM_TOL = dict(rtol=2e-2, atol=2e-3)
 
@@ -116,7 +138,8 @@ def _jax_bundle(mr):
                          param_dtype=mr.dtype, compute_dtype=mr.dtype,
                          loss_chunk=mr.loss_chunk,
                          master_dtype=mr.master_dtype,
-                         opt_state_dtype=mr.opt_state_dtype),
+                         opt_state_dtype=mr.opt_state_dtype,
+                         fused_matmul=mr.fused_matmul, fused_impl="jnp"),
                      optimizer=JOptimizerConfig(**OPT),
                      microbatch=mr.microbatch)
     return JStepBundle(run, mesh)
@@ -280,11 +303,16 @@ def test_int8_loss_drift(runs):
 
 @pytest.mark.parametrize("rid,tier", [("fcdp", "host"), ("zeropp", "device"),
                                       ("zero3", None), ("mics", None),
-                                      ("fcdp_int8", "host")])
+                                      ("fcdp_int8", "host"),
+                                      ("fcdp_ag", "host"),
+                                      ("fcdp_both", "host"),
+                                      ("zero3_ag", None), ("mics_ag", None)])
 def test_stage1_cache_placement(runs, rid, tier):
     """What the layers keep for the backward: fcdp's stage-1 caches on
     the host tier (pinned on a card, plain CPU tensors here), zeropp's
     on the rank's device, none under zero3 and mics, which regather.
+    A fused plan keeps the same stage-1 tensor (its collective matmul
+    saves it, the layer scope parks it on its tier).
     Per rank: the two layers' stage-1 shards, 2 x 36,992 bf16 elements
     over 4 ranks x 2 (pod-gathered) = 73,984 bytes."""
     for r in runs[rid][1]:
@@ -294,6 +322,49 @@ def test_stage1_cache_placement(runs, rid, tier):
             continue
         assert cached == {tier: 73984}
         assert places == {tier: [("cpu", False)]}
+
+
+def test_fused_ag_matmul_equals_unfused_bit_for_bit(runs):
+    """Mode 'ag_matmul' on the CPU: the ring's chunk products are the
+    same PyTorch matmul as the unfused one and its backward replays the
+    unfused op sequence, so three steps give the unfused fcdp run's
+    losses, grad norms and parameters to the bit, on every rank."""
+    fused, plain = runs["fcdp_ag"][1], runs["fcdp"][1]
+    for f, u in zip(fused, plain):
+        assert len(f["metrics"]) == len(u["metrics"]) == 3
+        assert f["metrics"] == u["metrics"]
+        for path, want in u["final_params"].items():
+            assert torch.equal(torch.from_numpy(f["final_params"][path]),
+                               torch.from_numpy(want)), path
+
+
+def test_fused_both_tracks_unfused(runs):
+    """Mode 'both' reorders the dx sum: close to the unfused step (the
+    JAX package's own bound for it, test_fused_matmul.py), not equal;
+    its forward is the same, so the step-0 loss is."""
+    both = runs["fcdp_both"][1][0]["metrics"][0]
+    ag = runs["fcdp_ag"][1][0]["metrics"][0]
+    plain = runs["fcdp"][1][0]["metrics"][0]
+    assert both["loss"] == ag["loss"] == plain["loss"]
+    assert _rel(both["grad_norm"], plain["grad_norm"]) < GNORM_RTOL
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def test_matmul_chunk_calls_match_the_plans(runs):
+    """The fused ring calls the chunk matmul n = 2 times per fused leaf
+    (wo, w_out) and layer in the forward, 3n under 'both': 8 and 24 per
+    step on this model; none unfused. On the CPU the plain version runs,
+    so the kernel's launch counter stays at 0."""
+    want = {"fcdp_ag": 8, "zero3_ag": 8, "mics_ag": 8, "fcdp_both": 24,
+            "zero3_both": 24}
+    for rid in RUNS:
+        for r in runs[rid][1]:
+            assert r["mm_plan"] == want.get(rid, 0), rid
+            assert r["mm_calls"] == [r["mm_plan"]] * RUNS[rid].steps, rid
+            assert not any(r["mm_launches"]), rid
 
 
 def _free_port():
