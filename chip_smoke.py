@@ -42,11 +42,26 @@ non-zero:
                 step and fcdp + ag_matmul step on the card (kernels)
                 and on the CPU (plain versions): loss and grad norm
                 within tolerance, the same bytes.
+  7. rwkv_serve -- the ssm family's serve path: rwkv6-3b at full width
+                and depth (random weights from a seed, the
+                zero-initialised leaves drawn), batch 8, 512-token
+                prompts, one prefill and 32 greedy decode steps through
+                ``StepBundle.make_prefill_step`` / ``make_decode_step``
+                over the recurrent state; checks the WKV kernel ran once
+                per layer and step (32 x 33), every logit is finite and
+                the state keeps its leaves' shapes and dtypes.
+  8. rwkv_parity -- rwkv6-3b at full width and depth 2, fp32, batch 2, a
+                128-token prompt and 4 decode steps, on the card
+                (kernel) and on the CPU (plain version), same weights:
+                logits within 1e-3, greedy tokens equal.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
-plain versions at the train phase's shapes, and the chunk-matmul kernel
+plain versions at the train phase's shapes, the chunk-matmul kernel
 of the fused ring within tolerance of its plain version (and bit for bit
-column-independent) at the train phase's shapes and ragged ones. Then
+column-independent) at the train phase's shapes and ragged ones, and the
+RWKV-6 WKV kernel within tolerance of its plain version at the rwkv
+serve path's prefill and decode shapes, tests/test_kernels.py's sweep
+and its strong-decay case. Then
 the card's name and
 power limit, the kernels' JSON line, and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it exits non-zero and prints no
@@ -74,6 +89,20 @@ QUANT_NAMES = {"quantize": "int8_quantize_blocks",
                "dequant_accumulate": "int8_dequant_accumulate"}
 MM_SOURCE = "src/repro_torch/kernels/csrc/collective_matmul.cu"
 MM_TPU_KERNEL = "src/repro/kernels/collective_matmul.py:64"
+WKV_SOURCE = "src/repro_torch/kernels/csrc/wkv6.cu"
+WKV_TPU_KERNEL = "src/repro/kernels/rwkv6_scan.py:76"
+# wkv6 vs its plain version: fp32 outputs and states within rtol = atol
+# = 2e-3 (tests/test_kernels.py:66-69; the kernel walks the steps one by
+# one, the plain version in chunks, both in fp32); bf16 outputs within
+# one bf16 step of the plain value, plus 2e-3 (both round an fp32 value
+# that agrees to ~1e-5 once to bf16, and a value on the edge of a step
+# may round to its neighbour).
+WKV_TOL = 2e-3
+# operations the recurrence needs per state element and step: r.S (one
+# FMA) and S = w S + k v (a product and an FMA), fp32 on the CUDA cores
+WKV_FLOPS_PER_ELEMENT = 5
+RWKV_BATCH, RWKV_PROMPT, RWKV_DECODE = 8, 512, 32
+RWKV_PARITY = dict(depth=2, batch=2, prompt=128, decode=4, logit_tol=1e-3)
 TRAIN_DEPTH = 2            # qwen2.5-3b's 36 layers cut to 2 for the train phase
 TRAIN_SEQ, TRAIN_BATCH = 512, 8
 # train phase tolerances: tests/test_system.py's across modes (fp32
@@ -127,11 +156,13 @@ def ptxas_summary(log: Path) -> dict:
     """Registers and spill bytes per compiled kernel, from nvcc's
     ``-Xptxas -v`` report kept beside the library."""
     out, name = {}, None
+    types = {"": "", "f": "f32_", "13__nv_bfloat16": "bf16_"}
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            tmpl = re.search(r"ILi(\d+)E", m.group(1))
-            name = f"hd{tmpl.group(1)}" if tmpl else m.group(1)
+            tmpl = re.search(r"I(f|13__nv_bfloat16|)Li(\d+)E", m.group(1))
+            name = (f"{types[tmpl.group(1)]}hd{tmpl.group(2)}" if tmpl
+                    else m.group(1))
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -461,6 +492,262 @@ def phase_mm_kernels():
     emit("kernels", kernel="matmul_chunk", case="both_transpose_copies",
          shape=[f, d // 2], **copies)
     return main, {c["case"]: c for c in timed}
+
+
+def wkv_bound(B, S, H, hd, elt, with_s0):
+    """Least time of the WKV over these inputs: the bytes of r, k, v (elt
+    bytes each), logw and u (fp32), the output (elt), the final state
+    and s0 (fp32) once each over the HBM rate, or WKV_FLOPS_PER_ELEMENT
+    fp32 operations per state element and step over the CUDA cores'
+    rate, whichever is larger. Returns (ms, bound_by)."""
+    n = B * S * H * hd
+    state = B * H * hd * hd * 4
+    nbytes = 4 * n * elt + 4 * n + 4 * H * hd + state * (2 if with_s0
+                                                          else 1)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = WKV_FLOPS_PER_ELEMENT * B * S * H * hd * hd / PEAK_F32_FLOPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def wkv_case(name, shape, gen, dtype="float32", chunk=64, decay="drawn",
+             with_s0=False, timed=False):
+    """The WKV kernel against its plain version (``ref.wkv6_plain`` at
+    ``chunk``) on the card, within the tolerances stated at WKV_TOL."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    B, S, H, hd = shape
+    dt = getattr(torch, dtype)
+    dev = "cuda"
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    if decay == "strong":
+        logw = torch.full(shape, -20.0, device=dev)
+    else:
+        logw = -torch.exp(torch.randn(shape, generator=gen, device=dev)
+                          - 0.5)
+    u = torch.randn(H, hd, generator=gen, device=dev)
+    s0 = (torch.randn(B, H, hd, hd, generator=gen, device=dev)
+          if with_s0 else None)
+    got_o, got_s = ops.wkv6(r, k, v, logw, u, s0, chunk)
+    torch.cuda.synchronize()
+    want_o, want_s = ref.wkv6_plain(r, k, v, logw, u, s0, chunk)
+    d_o = (got_o.float() - want_o.float()).abs()
+    d_s = (got_s - want_s).abs()
+    mag_o = want_o.float().abs()
+    if dt == torch.bfloat16:
+        expo = torch.floor(torch.log2(mag_o.clamp_min(2.0 ** -126)))
+        bound_o = torch.exp2(expo - 7) + WKV_TOL
+    else:
+        bound_o = WKV_TOL + WKV_TOL * mag_o
+    bound_s = WKV_TOL + WKV_TOL * want_s.abs()
+    out = {"kernel": "wkv6", "case": name, "shape": list(shape),
+           "dtype": dtype, "chunk": chunk, "decay": decay,
+           "s0": with_s0, "max_abs_err": max(d_o.max().item(),
+                                             d_s.max().item()),
+           "out_max_abs_err": d_o.max().item(),
+           "state_max_abs_err": d_s.max().item(),
+           "out_mean_abs_plain": mag_o.mean().item(),
+           "worst_err_over_bound": max((d_o / bound_o).max().item(),
+                                       (d_s / bound_s).max().item())}
+    check(bool(torch.isfinite(got_o).all().item())
+          and bool(torch.isfinite(got_s).all().item()),
+          f"wkv6 {name}: output or state not finite")
+    check(out["worst_err_over_bound"] <= 1.0,
+          f"wkv6 {name}: |diff| exceeds its tolerance by "
+          f"{out['worst_err_over_bound']}x (out {out['out_max_abs_err']}, "
+          f"state {out['state_max_abs_err']})")
+    if timed:
+        out["ms"] = cuda_ms(lambda: ops.wkv6(r, k, v, logw, u, s0, chunk),
+                            50)
+        out["plain_ms"] = cuda_ms(
+            lambda: ref.wkv6_plain(r, k, v, logw, u, s0, chunk), 5)
+        # no single PyTorch call computes the WKV recurrence
+        out["library_ms"] = None
+        out["bound_ms"], out["bound_by"] = wkv_bound(
+            B, S, H, hd, torch.finfo(dt).bits // 8, with_s0)
+    return out
+
+
+def phase_wkv_kernels():
+    """The WKV kernel at the rwkv serve phase's shapes (rwkv6-3b: 40
+    heads of 64, batch 8): the prefill over a 512-token prompt (bf16 r,
+    k, v, from zero state) and a decode step (S 1, from a random
+    state); tests/test_kernels.py's sweep shapes in fp32 at chunks 16
+    and 32, and its strong-decay case (logw = -20). Returns (prefill,
+    decode) cases."""
+    import torch
+    from repro_torch.kernels import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (RWKV_BATCH, RWKV_PROMPT, 40, 64)
+    prefill = wkv_case("prefill", shape, gen, dtype="bfloat16", timed=True)
+    decode = wkv_case("decode", (RWKV_BATCH, 1) + shape[2:], gen,
+                      dtype="bfloat16", with_s0=True, timed=True)
+    extra = [wkv_case(f"sweep_{'x'.join(map(str, sh))}_c{c}", sh, gen,
+                      chunk=c)
+             for sh in ((1, 64, 1, 16), (2, 128, 2, 32), (1, 128, 4, 64))
+             for c in (16, 32)]
+    extra += [wkv_case("strong_decay", (1, 64, 1, 16), gen, chunk=32,
+                       decay="strong"),
+              wkv_case("decode_f32_hd16", (3, 1, 4, 16), gen,
+                       with_s0=True)]
+    ptxas = ptxas_summary(_build.library_path("wkv6").with_suffix(".log"))
+    for c in [prefill, decode] + extra:
+        emit("kernels", **c)
+    emit("kernels", kernel="wkv6", case="ptxas", ptxas=ptxas)
+    return prefill, decode
+
+
+def draw_rwkv_leaves(params, gen) -> None:
+    """Overwrite the rwkv stack's zero-initialised leaves in place with
+    draws from ``gen`` (on the leaves' device): decay_base ~ N(-0.5, 1),
+    the others ~ 0.1 N(0, 1). At their default init the ddlerp deltas
+    vanish, every log decay is -1 and the u-bonus is 0, so neither the
+    kernel nor a parity check would see a data-dependent decay."""
+    import torch
+    for kind, names in (("rwkv_tm", ("maa_base", "maa_w1", "decay_base",
+                                     "decay_w1", "u")),
+                        ("rwkv_cm", ("mu_k", "mu_r"))):
+        for n in names:
+            t = params["blocks"]["pos0"][kind][n]
+            x = torch.randn(t.shape, generator=gen, device=t.device)
+            t.copy_(x - 0.5 if n == "decay_base" else 0.1 * x)
+
+
+def phase_rwkv_serve():
+    """The ssm serve path at full width and depth: prefill, then greedy
+    decode over the recurrent state. Returns the WKV kernel's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.core.partition import tree_items
+    from repro_torch.kernels import ops
+
+    cfg = get_config("rwkv6-3b")
+    cell = ShapeCell("rwkv_serve", "decode", RWKV_PROMPT + RWKV_DECODE,
+                     RWKV_BATCH)
+    bundle = StepBundle(RunConfig(model=cfg, shape=cell))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_all_params(seed=0)
+    draw_rwkv_leaves(params, torch.Generator(device="cuda").manual_seed(1))
+    ids = torch.randint(1, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(2), device="cuda")
+    prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
+    pick = bundle.make_greedy_pick()
+    state = bundle.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    ops.wkv6.launches = 0
+    t0 = time.perf_counter()
+    logits, state = prefill(params, ids, state)
+    tok = pick(logits)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite, tokens, tpot = [torch.isfinite(logits).all()], [tok], []
+    for _ in range(RWKV_DECODE):
+        t1 = time.perf_counter()
+        logits, state = decode(params, tok[:, None], state)
+        tok = pick(logits)
+        torch.cuda.synchronize()
+        tpot.append(time.perf_counter() - t1)
+        finite.append(torch.isfinite(logits).all())
+        tokens.append(tok)
+    wall = time.perf_counter() - t0
+    launches = ops.wkv6.launches
+
+    expected = cfg.num_layers * (1 + RWKV_DECODE)
+    check(launches == expected, f"wkv6 launched {launches} times, expected "
+          f"{cfg.num_layers} x {1 + RWKV_DECODE}")
+    check(all(bool(f.item()) for f in finite), "a logit is not finite")
+    toks = torch.stack(tokens, dim=1).cpu()
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all().item()),
+          "a token id lies outside the vocabulary")
+    L, D, hd = cfg.num_layers, cfg.d_model, cfg.rwkv.head_dim
+    H = D // hd
+    want = {"pos0.rwkv_cm.xprev": ((L, RWKV_BATCH, D), torch.bfloat16),
+            "pos0.rwkv_tm.s": ((L, RWKV_BATCH, H, hd, hd), torch.float32),
+            "pos0.rwkv_tm.xprev": ((L, RWKV_BATCH, D), torch.bfloat16)}
+    got = {p: (tuple(t.shape), t.dtype) for p, t in tree_items(state)}
+    check(got == want, f"decode state {got} != {want}")
+    tp = np.asarray(tpot)
+    emit("rwkv_serve", model=cfg.name, layers=cfg.num_layers,
+         batch=RWKV_BATCH, prompt=RWKV_PROMPT, decode_steps=RWKV_DECODE,
+         init_s=init_s, prefill_s=prefill_s,
+         tpot_p50_s=float(np.percentile(tp, 50)),
+         tpot_p90_s=float(np.percentile(tp, 90)),
+         decode_tok_s=RWKV_BATCH * RWKV_DECODE / float(tp.sum()),
+         generated_tok_s=RWKV_BATCH * (1 + RWKV_DECODE) / wall, wall_s=wall,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches=launches, expected_launches=expected,
+         row0_tokens=toks[0].tolist())
+    del params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rwkv_parity():
+    """rwkv6-3b at full width and depth 2 in fp32 on the card (WKV
+    kernel) and on the CPU (its plain version), from the same weights
+    (drawn on the CPU): prefill and decode logits within the tolerance,
+    greedy tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeCell, SystemConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.core.partition import tree_map
+    from repro_torch.kernels import ops
+
+    cp = RWKV_PARITY
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=cp["depth"])
+    run = RunConfig(model=cfg, shape=ShapeCell(
+        "rwkv_parity", "decode", cp["prompt"] + cp["decode"], cp["batch"]),
+        system=SystemConfig(dtype="float32"))
+    cpu, gpu = StepBundle(run, device="cpu"), StepBundle(run)
+    p_cpu = cpu.init_all_params(seed=0)
+    draw_rwkv_leaves(p_cpu, torch.Generator().manual_seed(1))
+    p_gpu = tree_map(lambda t: t.to(gpu.device), p_cpu)
+    ids = torch.randint(1, cfg.vocab_size, (cp["batch"], cp["prompt"]),
+                        generator=torch.Generator().manual_seed(2))
+    out = {}
+    for name, b, p in (("cpu", cpu, p_cpu), ("gpu", gpu, p_gpu)):
+        launches = ops.wkv6.launches
+        t0 = time.perf_counter()
+        logits, state = b.make_prefill_step()(p, ids.to(b.device),
+                                              b.init_state())
+        steps, toks = [logits.cpu().numpy()], []
+        dec = b.make_decode_step()
+        for _ in range(cp["decode"]):
+            tok = torch.argmax(logits, dim=-1)
+            toks.append(tok.cpu().tolist())
+            logits, state = dec(p, tok[:, None], state)
+            steps.append(logits.cpu().numpy())
+        toks.append(torch.argmax(logits, dim=-1).cpu().tolist())
+        out[name] = (steps, toks, ops.wkv6.launches - launches,
+                     time.perf_counter() - t0)
+    (lc, tc, nc, t_c), (lg, tg, ng, t_g) = out["cpu"], out["gpu"]
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(lg, lc)]
+    check(max(diffs) <= cp["logit_tol"],
+          f"card and CPU logits differ by {max(diffs)}")
+    check(tc == tg, f"greedy tokens differ: CPU {tc}, card {tg}")
+    check(ng == cfg.num_layers * (1 + cp["decode"]) and nc == 0,
+          f"wkv6 launches: card {ng} (expected "
+          f"{cfg.num_layers * (1 + cp['decode'])}), CPU {nc} (expected 0)")
+    emit("rwkv_parity", layers=cfg.num_layers, dtype="float32",
+         batch=cp["batch"], prompt=cp["prompt"], decode_steps=cp["decode"],
+         logit_tol=cp["logit_tol"], logits_max_abs_diff=diffs,
+         tokens=tg, wkv6_launches={"gpu": ng, "cpu": nc}, cpu_s=t_c,
+         gpu_s=t_g)
+    del p_gpu
+    torch.cuda.empty_cache()
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -844,9 +1131,12 @@ def main() -> int:
     prefill, decode = phase_kernels()
     int8_main, int8_extra = phase_int8_kernels()
     mm_main, mm_extra = phase_mm_kernels()
+    wkv_prefill, wkv_decode = phase_wkv_kernels()
     launches = phase_serve()
     phase_profile()
     phase_parity()
+    wkv_launches = phase_rwkv_serve()
+    phase_rwkv_parity()
     train_launches = phase_train()
     phase_train_parity()
 
@@ -868,7 +1158,11 @@ def main() -> int:
         "replaces": MM_TPU_KERNEL,
         "launches": train_launches["matmul_chunk"], **entry(mm_main),
         "shape": mm_main["case"],
-        "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}]}
+        "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}, {
+        "name": "wkv6", "route": "cuda", "source": WKV_SOURCE,
+        "replaces": WKV_TPU_KERNEL, "launches": wkv_launches,
+        **entry(wkv_prefill), "shape": "prefill",
+        "decode": entry(wkv_decode)}]}
     print(gpu)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Configuration dataclasses: the fields of the JAX package's
 ``configs/base.py`` that the ported paths read (the one-card serve
-path and the sequential FCDP train step)."""
+paths and the sequential FCDP train step)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 
@@ -11,9 +12,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64   # rank of the data-dependent decay LoRA
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -25,6 +32,7 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    rwkv: Optional[RWKVConfig] = None
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

@@ -1,6 +1,6 @@
-"""Architecture registry: --arch <id> resolution. The serve slice ports
-qwen2.5-3b; the other archs of the JAX package follow with their
-families."""
+"""Architecture registry: --arch <id> resolution. The port has
+qwen2.5-3b (dense) and rwkv6-3b (ssm); the other archs of the JAX
+package follow with their families."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -1,6 +1,6 @@
 """Convert the JAX package's parameters into the port's: the whole
 parameter dict (serving, one rank) or this rank's shards of it
-(training).
+(training); and a decode state of the JAX package into the port's.
 
 The JAX side hands them over as a nested dict of numpy arrays (its
 ``StepBundle`` leaves unflattened with ``StepBundle.treedef``: stacked
@@ -18,7 +18,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, SystemConfig
-from repro_torch.core.partition import tree_items, tree_map_with_path
+from repro_torch.core.partition import (tree_items, tree_map,
+                                        tree_map_with_path)
 from repro_torch.models.lm import LM
 
 
@@ -45,6 +46,15 @@ def params_from_jax(tree, cfg: ModelConfig,
         t = full(path, d)
         return (t if dtype is None else t.to(dtype)).to(device)
     return tree_map_with_path(one, defs)
+
+
+def state_from_jax(tree, device=None):
+    """The port's decode state from the JAX package's (a nested dict of
+    numpy arrays with the same leaves, e.g. ``{pos0: {rwkv_tm: {s,
+    xprev}, rwkv_cm: {xprev}}}``), bf16 bit for bit, on ``device`` (None
+    means ``cuda``, and raises without one)."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _tensor(a).to(device), tree)
 
 
 def shards_from_jax(tree, bundle):

@@ -141,6 +141,20 @@ class StepBundle:
         from repro_torch.core.engine.train import build_train_step
         return build_train_step(self, coll)
 
+    def init_state(self, cell=None):
+        """The decode state for ``cell``'s batch (default: the run's
+        cell), on the bundle's device."""
+        cell = cell or self.run.shape
+        return self.model.init_decode_state(cell.global_batch, self.device)
+
+    def make_prefill_step(self):
+        from repro_torch.core.engine.serve import build_prefill_step
+        return build_prefill_step(self)
+
+    def make_decode_step(self):
+        from repro_torch.core.engine.serve import build_decode_step
+        return build_decode_step(self)
+
     def init_paged_state(self, kv):
         from repro_torch.core.engine.serve import paged_replicas
         n_pages = kv.pages_per_replica * paged_replicas(self, self.run.shape)

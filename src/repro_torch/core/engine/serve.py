@@ -1,8 +1,10 @@
-"""Paged serve-step builders for one rank: the chunked-prefill step, the
-paged decode step and the greedy pick, plus the paged-plan gate and the
-default pool sizing, as the JAX package's ``core/engine/serve.py``
-builds them. The steps are plain functions run eagerly; they update the
-paged pools in place and return them."""
+"""Serve-step builders for one rank, as the JAX package's
+``core/engine/serve.py`` builds them: the contiguous prefill and decode
+steps over the decode state (the recurrent state of the ssm family),
+the paged chunked-prefill and decode steps with the paged-plan gate and
+the default pool sizing, and the greedy pick. The steps are plain
+functions run eagerly; the paged steps update the pools in place and
+return them, the contiguous ones return the new state."""
 from __future__ import annotations
 
 import torch
@@ -18,7 +20,29 @@ def check_paged_plan(model) -> None:
     if bad:
         raise ValueError(
             f"paged serving supports (attn, mlp) stacks only, plan has "
-            f"{bad}")
+            f"{bad}; use the contiguous prefill/decode steps instead")
+
+
+def build_prefill_step(bundle):
+    """(params, ids [B,S], state) -> (last-token logits [B,V], state).
+    The prompt length must be a multiple of min(64, S) (the WKV's
+    chunk)."""
+    model = bundle.model
+
+    @torch.no_grad()
+    def step(params, ids, state):
+        return model.prefill_fn(params, ids, state)
+    return step
+
+
+def build_decode_step(bundle):
+    """(params, tok [B,1], state) -> (logits [B,V], state)."""
+    model = bundle.model
+
+    @torch.no_grad()
+    def step(params, tok, state):
+        return model.decode_fn(params, tok, state)
+    return step
 
 
 def paged_replicas(bundle, cell: ShapeCell) -> int:

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import collective_matmul, quant, ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.wkv6 import wkv6_fwd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,6 +98,27 @@ def matmul_chunk(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 matmul_chunk.launches = matmul_chunk.calls = 0
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None, chunk: int = 64):
+    """RWKV-6 WKV: r, k, v, logw [B,S,H,hd], u [H,hd], s0 [B,H,hd,hd]
+    fp32 or None (zeros) -> (out [B,S,H,hd] in r's dtype, final state
+    [B,H,hd,hd] fp32). The chunk contract of the JAX package's
+    ``_wkv_chunked`` (min(chunk, S) divides S) is held on every device,
+    so the CPU and the card accept the same inputs; the kernel itself
+    walks the steps one by one and has no chunk."""
+    wkv6.calls += 1
+    ref.wkv6_chunk_len(r.shape[1], chunk)
+    if not _kernel_device(r, "wkv6"):
+        return ref.wkv6_plain(r, k, v, logw, u, s0, chunk)
+    out = wkv6_fwd(r, k, v, logw, u, s0)
+    wkv6.launches += 1
+    return out
+
+
+wkv6.launches = wkv6.calls = 0
 
 
 def collective_ag_matmul(x: torch.Tensor, w_shard: torch.Tensor, coll,

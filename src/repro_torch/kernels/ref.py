@@ -133,3 +133,61 @@ def fused_bwd_dx_plain(g: torch.Tensor, w_chunks: torch.Tensor,
         part = g[:, owner * nc:(owner + 1) * nc] @ w_chunks[owner].T
         dx = part if dx is None else dx + part
     return dx
+
+
+def wkv6_chunk_len(S: int, chunk: int = 64) -> int:
+    """The chunk length of the chunked WKV over S steps: min(chunk, S),
+    which must divide S (the JAX package's ``_wkv_chunked`` asserts the
+    same)."""
+    c = min(chunk, S)
+    if c < 1 or S % c:
+        raise ValueError(f"wkv seq {S} not divisible by chunk {c}")
+    return c
+
+
+def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor,
+               s0: Optional[torch.Tensor] = None, chunk: int = 64):
+    """RWKV-6 WKV with per-step, per-channel decay, chunked: the JAX
+    package's ``models/sublayers._wkv_chunked`` in torch.
+
+    r, k, v: [B,S,H,hd]; logw: [B,S,H,hd] (log decay, <= 0); u: [H,hd];
+    s0: [B,H,hd,hd] fp32 carried state (None = zeros). Returns (out
+    [B,S,H,hd] in r's dtype, final state [B,H,hd,hd] fp32, ``bhkv``).
+    Recurrence: S = diag(w_t) S + k_t v_t^T; o_t = r_t (S_prev + u k_t
+    v_t^T). Per chunk of c steps, in fp32: the inter-chunk term from the
+    carried state, the intra-chunk term with the decay ratio
+    exp(cw_prev[t] - cw[i]) masked to i < t in the log domain (so strong
+    decay cannot overflow into inf * 0), the u-bonus diagonal, and the
+    state update.
+    """
+    B, S, H, hd = r.shape
+    c = wkv6_chunk_len(S, chunk)
+    n = S // c
+
+    def split(x):                      # [B,S,H,hd] -> [n,B,c,H,hd] fp32
+        return x.float().reshape(B, n, c, H, hd).transpose(0, 1)
+    rs, ks, vs, lws = split(r), split(k), split(v), split(logw)
+    uf = u.float()
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=r.device), -1)
+    state = (torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device)
+             if s0 is None else s0.float())
+    outs = []
+    for rc, kc, vc, lwc in zip(rs, ks, vs, lws):        # [B,c,H,hd] each
+        cw = torch.cumsum(lwc, dim=1)                  # log prod_{j<=t} w_j
+        cw_prev = cw - lwc                             # log prod_{j<t} w_j
+        o_inter = torch.einsum("bthk,bhkv->bthv", rc * torch.exp(cw_prev),
+                               state)
+        ratio_log = cw_prev[:, :, None] - cw[:, None, :]      # [B,t,i,H,hd]
+        ratio_log = torch.where(tri[None, :, :, None, None], ratio_log,
+                                torch.full((), NEG_INF, device=r.device))
+        a = (rc[:, :, None] * kc[:, None, :] * torch.exp(ratio_log)).sum(-1)
+        o_intra = torch.einsum("btih,bihv->bthv", a, vc)
+        diag = (rc * (uf[None, None] * kc)).sum(-1)      # [B,c,H]
+        outs.append(o_inter + o_intra + diag[..., None] * vc)
+        cw_c = cw[:, -1]                               # [B,H,hd]
+        kd = kc * torch.exp(cw_c[:, None] - cw)
+        state = torch.exp(cw_c)[..., None] * state + torch.einsum(
+            "bihk,bihv->bhkv", kd, vc)
+    out = torch.stack(outs, dim=1).reshape(B, S, H, hd)
+    return out.to(r.dtype), state

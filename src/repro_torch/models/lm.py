@@ -1,7 +1,9 @@
-"""Decoder-only language model of the dense family: parameter defs, the
-training loss over this rank's shards, and the paged serve steps
-(chunked prefill and decode over the paged KV cache), as the JAX
-package's ``models/lm.py`` computes them."""
+"""Decoder-only language model of the dense and ssm families: parameter
+defs, the training loss over this rank's shards (dense), the paged
+serve steps (chunked prefill and decode over the paged KV cache;
+dense) and the contiguous serve steps (prefill and decode over the
+recurrent state; ssm), as the JAX package's ``models/lm.py`` computes
+them."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
@@ -19,6 +21,8 @@ def layer_plan(cfg: ModelConfig) -> Tuple[List[Tuple[str, ...]], int]:
     """Returns (plan, n_groups). plan[i] = sublayer kinds at position i."""
     if cfg.family == "dense":
         return [("attn", "mlp")], cfg.num_layers
+    if cfg.family == "ssm":
+        return [("rwkv_tm", "rwkv_cm")], cfg.num_layers
     raise ValueError(f"layer_plan: family {cfg.family!r} is not ported yet")
 
 
@@ -73,6 +77,31 @@ class LM:
             x, head, labels, cfg.vocab_size, self.sys.loss_chunk,
             batch.get("mask"))
         return loss_sum, cnt, torch.zeros((), device=x.device)
+
+    # -- serving over the contiguous decode state ----------------------------
+    def init_decode_state(self, batch: int, device):
+        """The decode state of ``batch`` rows, stacked over the layer
+        groups (the recurrent sublayers' state)."""
+        return stk.init_group_state(self.cfg, self.plan, batch,
+                                    self.n_groups, device)
+
+    def prefill_fn(self, params, ids, state):
+        """Full-prompt forward that fills the decode state. ids: [B, S].
+        Returns (last-token logits [B, V], new state)."""
+        x = self._embed(params, ids)
+        x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
+                                   params["blocks"], x, {"prefill": True},
+                                   state)
+        return self._final(params, x[:, -1]), state
+
+    def decode_fn(self, params, tok, state):
+        """One decode step. tok: [B, 1] token ids. Returns (logits [B,
+        V], new state)."""
+        x = self._embed(params, tok)
+        x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
+                                   params["blocks"], x, {"decode": True},
+                                   state)
+        return self._final(params, x[:, 0]), state
 
     # -- paged serving (continuous batching) ---------------------------------
     def init_paged_state(self, n_pages: int, page_size: int, device):

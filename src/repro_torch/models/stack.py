@@ -1,11 +1,12 @@
 """Layer-stack machinery: stacked ParamDefs for a repeating group of
-sublayers, the paged state stacked the same way, and the stack applied
-as a Python loop over the leading ``[L, ...]`` dim (the JAX package's
-layer scan). Serving runs on one rank with whole weights, so its loop
-indexes the stacked leaves directly. Training (``apply_stack_train``)
-holds each rank's shards: every layer gathers its weights through the
-plans inside a ``ParamGather.layer()`` scope, the sequential schedule of
-the JAX package's ``GatherScheduler`` at depth 0."""
+sublayers, the paged and the recurrent decode state stacked the same
+way, and the stack applied as a Python loop over the leading ``[L,
+...]`` dim (the JAX package's layer scan). Serving runs on one rank
+with whole weights, so its loop indexes the stacked leaves directly.
+Training (``apply_stack_train``) holds each rank's shards: every layer
+gathers its weights through the plans inside a ``ParamGather.layer()``
+scope, the sequential schedule of the JAX package's ``GatherScheduler``
+at depth 0."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,7 +21,12 @@ from repro_torch.models import sublayers as sl
 KIND_DEFS = {
     "attn": sl.attn_defs,
     "mlp": sl.mlp_defs,
+    "rwkv_tm": sl.rwkv_tm_defs,
+    "rwkv_cm": sl.rwkv_cm_defs,
 }
+
+# sublayers whose decode state is recurrent: each step returns a new one
+RECURRENT_KINDS = ("rwkv_tm", "rwkv_cm")
 
 
 def group_defs(cfg: ModelConfig, plan: List[Tuple[str, ...]]
@@ -64,16 +70,57 @@ def init_paged_group_state(cfg, plan, n_pages: int, page_size: int,
     return out
 
 
+def init_group_state(cfg, plan, batch: int, n_groups: int, device):
+    """The contiguous decode state of the stack, [n_groups, ...] per
+    leaf, with the JAX package's leaves, names and dtypes. Attention's
+    contiguous KV cache is not ported yet."""
+    out: Dict[str, Any] = {}
+    for i, kinds in enumerate(plan):
+        pos = {}
+        for kind in kinds:
+            if kind == "rwkv_tm":
+                st = sl.rwkv_tm_init_state(cfg, batch, device)
+            elif kind == "rwkv_cm":
+                st = sl.rwkv_cm_init_state(cfg, batch, device)
+            elif kind == "attn":
+                raise ValueError("the contiguous-cache attention state is "
+                                 "not ported yet")
+            else:
+                continue
+            pos[kind] = {n: t.expand((n_groups,) + t.shape).contiguous()
+                         for n, t in st.items()}
+        if pos:
+            out[f"pos{i}"] = pos
+    return out
+
+
 def apply_sublayer(kind: str, cfg, p, x, ctx: Dict[str, Any], state=None):
-    """Dispatch one sublayer. Returns (x, new_state)."""
+    """Dispatch one sublayer. Returns (x, new_state). ctx "paged" serves
+    attention over the paged cache; "prefill" and "decode" run the
+    recurrent sublayers over their state (prefill starts from zero
+    state and does not read the one passed, as in the JAX package);
+    with neither, they run over the whole sequence and keep no state."""
     if kind == "attn":
         if not ctx.get("paged"):
-            raise ValueError("the port serves attention over the paged "
-                             "cache only")
+            raise ValueError("contiguous-cache attention is not ported "
+                             "yet: the port serves attention over the "
+                             "paged cache only")
         return sl.attn_paged(cfg, p, x, state, ctx["positions"],
                              ctx["page_table"])
     if kind == "mlp":
         return sl.mlp_apply(cfg, p, x), state
+    if kind == "rwkv_tm":
+        if ctx.get("decode"):
+            return sl.rwkv_tm_decode(cfg, p, x, state)
+        if ctx.get("prefill"):
+            return sl.rwkv_tm_prefill(cfg, p, x)
+        return sl.rwkv_tm_apply(cfg, p, x), state
+    if kind == "rwkv_cm":
+        if ctx.get("decode"):
+            return sl.rwkv_cm_decode(cfg, p, x, state)
+        if ctx.get("prefill"):
+            return sl.rwkv_cm_prefill(cfg, p, x)
+        return sl.rwkv_cm_apply(cfg, p, x), state
     raise ValueError(f"unknown sublayer kind {kind!r}")
 
 
@@ -82,8 +129,10 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                 stacked_state=None):
     """Run the group once per entry of the stack dim. stacked_params and
     stacked_state carry the stack dim first on every leaf; layer l reads
-    the views ``leaf[l]``, and the paged pools are updated in place
-    through them. Returns (x, stacked_state)."""
+    the views ``leaf[l]``. The paged pools are updated in place through
+    them; the recurrent sublayers' new states are stacked into new
+    tensors. Returns (x, the stacked state the next step consumes)."""
+    fresh: Dict[Tuple[str, str], List[Dict[str, torch.Tensor]]] = {}
     for layer in range(n_groups):
         for i, kinds in enumerate(plan):
             key = f"pos{i}"
@@ -94,8 +143,16 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                         key, {}):
                     st = {n: t[layer]
                           for n, t in stacked_state[key][kind].items()}
-                x, _ = apply_sublayer(kind, cfg, p, x, ctx, st)
-    return x, stacked_state
+                x, st_new = apply_sublayer(kind, cfg, p, x, ctx, st)
+                if kind in RECURRENT_KINDS and st_new is not None:
+                    fresh.setdefault((key, kind), []).append(st_new)
+    if not fresh:
+        return x, stacked_state
+    out = {key: dict(pos) for key, pos in (stacked_state or {}).items()}
+    for (key, kind), layers in fresh.items():
+        out.setdefault(key, {})[kind] = {
+            n: torch.stack([st[n] for st in layers]) for n in layers[0]}
+    return x, out
 
 
 def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
