@@ -54,6 +54,24 @@ non-zero:
                 128-token prompt and 4 decode steps, on the card
                 (kernel) and on the CPU (plain version), same weights:
                 logits within 1e-3, greedy tokens equal.
+  9. jamba_serve -- the hybrid family's serve path: jamba-v0.1-52b at
+                full width, depth cut to 16 layers (14 mamba, 2
+                attention, 8 MoE; random weights from a seed, the
+                constant-initialised mamba leaves drawn), bf16, batch 8,
+                512-token prompts, one prefill and 32 greedy decode
+                steps through ``make_prefill_step`` / ``make_decode_step``
+                over the contiguous KV cache and the mamba state; checks
+                the scan kernel ran 14 x 33 times and the attention
+                kernel 2 x 33, every logit is finite, the state keeps its
+                leaves' shapes and dtypes and every cache's idx is 544.
+ 10. jamba_parity -- jamba at full width, depth 2 (attention + MLP,
+                mamba + MoE), bf16, batch 2, a 128-token prompt and 4
+                decode steps on the card (kernels) and on the CPU (plain
+                versions), same weights, the CPU's greedy tokens fed to
+                both: MoE routing equal up to router near-ties (CPU
+                margin within ROUTER_STEPS bf16 steps), then logits
+                within 0.1 of the CPU run forced onto the card's
+                routing, and greedy tokens equal up to near-ties.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
 plain versions at the train phase's shapes, the chunk-matmul kernel
@@ -61,7 +79,10 @@ of the fused ring within tolerance of its plain version (and bit for bit
 column-independent) at the train phase's shapes and ragged ones, and the
 RWKV-6 WKV kernel within tolerance of its plain version at the rwkv
 serve path's prefill and decode shapes, tests/test_kernels.py's sweep
-and its strong-decay case. Then
+and its strong-decay case, the flash kernel at the jamba path's shapes,
+and the Mamba scan kernel within tolerance of its plain version at the
+jamba path's prefill and decode shapes, tests/test_kernels.py's sweep,
+ragged shapes and a long-memory case. Then
 the card's name and
 power limit, the kernels' JSON line, and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it exits non-zero and prints no
@@ -103,6 +124,29 @@ WKV_TOL = 2e-3
 WKV_FLOPS_PER_ELEMENT = 5
 RWKV_BATCH, RWKV_PROMPT, RWKV_DECODE = 8, 512, 32
 RWKV_PARITY = dict(depth=2, batch=2, prompt=128, decode=4, logit_tol=1e-3)
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
+SCAN_TPU_KERNEL = "src/repro/kernels/mamba_scan.py:25"
+# mamba_scan vs its plain version: both walk the steps one by one in
+# fp32, the kernel with one FMA a step, the plain version with a product
+# and a sum (one rounding more); held to tests/test_kernels.py:112-113's
+# 1e-4, relative to max(1, max |h|) where |h| grows (long memory: a =
+# 0.999 over 512 steps sums ~20 b's of N(0, 1))
+SCAN_TOL = 1e-4
+# jamba-v0.1-52b's 32 layers cut to 16 (48.5 GiB of bf16 weights; the
+# full 96.1 GiB do not fit one 80 GB card): two period-8 groups
+JAMBA_DEPTH = 16
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_DECODE = 8, 512, 32
+# the full-width parity model: 2 layers of period 2, attention at 0
+# (jamba-smoke's layout), bf16 (the flash kernel takes bf16 only)
+JAMBA_PARITY = dict(depth=2, batch=2, prompt=128, decode=4, logit_tol=0.1)
+# card vs CPU router logits: the router's bf16 input (the residual after
+# a mamba sublayer, whose bf16 elementwise ops round differently on the
+# two devices) differs by single bf16 steps in some elements, so its
+# bf16 logits may lie a few steps apart; a top-2 margin within that
+# noise may route a token to another expert on each side. 8 is about
+# twice the 3.75 steps read on the card, with CPU margins of 1-2 steps
+# at the three tokens routed otherwise (PERF.md, jamba_parity)
+ROUTER_STEPS = 8
 TRAIN_DEPTH = 2            # qwen2.5-3b's 36 layers cut to 2 for the train phase
 TRAIN_SEQ, TRAIN_BATCH = 512, 8
 # train phase tolerances: tests/test_system.py's across modes (fp32
@@ -161,8 +205,11 @@ def ptxas_summary(log: Path) -> dict:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             tmpl = re.search(r"I(f|13__nv_bfloat16|)Li(\d+)E", m.group(1))
+            one = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)EEv",
+                            m.group(1))
             name = (f"{types[tmpl.group(1)]}hd{tmpl.group(2)}" if tmpl
-                    else m.group(1))
+                    else f"{one.group(1)}_{types[one.group(2)]}".rstrip("_")
+                    if one else m.group(1))
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -277,9 +324,22 @@ def phase_kernels():
     cases += [prefill, decode]
     cases.append(kernel_case("hd16", 8, 32, 128, 4, 2, 16,
                              [0, 32, 64, 96, 0, 32, 64, 0], True, gen))
+    # the jamba path's shapes: 32/8 heads of 128 over the contiguous
+    # cache of 544 positions, the 512-token prompt from 0 and a decode
+    # token at its position
+    kv_len = JAMBA_PROMPT + JAMBA_DECODE
+    jamba = {"prefill": kernel_case(
+        "jamba_prefill", JAMBA_BATCH, JAMBA_PROMPT, kv_len, 32, 8, 128,
+        [0] * JAMBA_BATCH, True, gen, timed=True)}
+    offs = torch.randint(JAMBA_PROMPT, kv_len, (JAMBA_BATCH,), generator=gen,
+                         device="cuda")
+    jamba["decode"] = kernel_case("jamba_decode", JAMBA_BATCH, 1, kv_len, 32,
+                                  8, 128, offs.tolist(), True, gen,
+                                  timed=True)
+    cases += list(jamba.values())
     for c in cases:
         emit("kernels", **c)
-    return prefill, decode
+    return prefill, decode, jamba
 
 
 def int8_bound(kind, nb, n=1, in_elt=4):
@@ -750,6 +810,408 @@ def phase_rwkv_parity():
     torch.cuda.empty_cache()
 
 
+# -- the hybrid family (jamba) ---------------------------------------------------
+
+def scan_bound(B, S, C, elt, with_h0):
+    """Least time of the scan over these inputs: the bytes of a and b
+    (elt bytes each), hs (fp32) and h0 (fp32) once each over the HBM
+    rate, or one FMA (2 fp32 operations) per element and step over the
+    CUDA cores' rate, whichever is larger. Returns (ms, bound_by)."""
+    n = B * S * C
+    nbytes = 2 * n * elt + 4 * n + (4 * B * C if with_h0 else 0)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = 2 * n / PEAK_F32_FLOPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def scan_case(name, shape, gen, dtype="float32", with_h0=False,
+              a_kind="uniform", timed=False):
+    """The Mamba scan kernel against its plain version
+    (``ref.mamba_scan_plain``) on the card, within SCAN_TOL x max(1, max
+    |h|). a: "decay" draws the model's a = exp(dt A) (dt = softplus(N(-3,
+    1)), A = -U(1, 16)), "uniform" U(0.2, 0.999) as tests/test_kernels.py
+    draws it, or a constant; b ~ N(0, 1); h0 ~ N(0, 1)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    B, S, C = shape
+    dev = "cuda"
+    if a_kind == "decay":
+        dt = F.softplus(torch.randn(shape, generator=gen, device=dev) - 3.0)
+        a = torch.exp(-dt * (torch.rand(C, generator=gen, device=dev) * 15.0
+                             + 1.0))
+        del dt
+    elif a_kind == "uniform":
+        a = torch.rand(shape, generator=gen, device=dev) * 0.799 + 0.2
+    else:
+        a = torch.full(shape, float(a_kind), device=dev)
+    b = torch.randn(shape, generator=gen, device=dev)
+    dt_ = getattr(torch, dtype)
+    a, b = a.to(dt_), b.to(dt_)
+    h0 = (torch.randn(B, C, generator=gen, device=dev) if with_h0
+          else None)
+    got = ops.mamba_scan(a, b, h0)
+    torch.cuda.synchronize()
+    want = ref.mamba_scan_plain(a, b, h0)
+    d = (got - want).abs()
+    scale = max(1.0, want.abs().max().item())
+    out = {"kernel": "mamba_scan", "case": name, "shape": list(shape),
+           "dtype": dtype, "h0": with_h0, "a": a_kind,
+           "max_abs_err": d.max().item(), "max_abs_plain": scale,
+           "err_over_bound": d.max().item() / (SCAN_TOL * scale)}
+    check(bool(torch.isfinite(got).all().item()),
+          f"mamba_scan {name}: output not finite")
+    check(out["err_over_bound"] <= 1.0,
+          f"mamba_scan {name}: max |diff| {out['max_abs_err']} > "
+          f"{SCAN_TOL} x max(1, max |h|) = {SCAN_TOL * scale}")
+    if timed:
+        out["ms"] = cuda_ms(lambda: ops.mamba_scan(a, b, h0), 20)
+        out["plain_ms"] = cuda_ms(lambda: ref.mamba_scan_plain(a, b, h0),
+                                  3 if S > 1 else 50)
+        # no single PyTorch call computes a linear recurrence
+        out["library_ms"] = None
+        out["bound_ms"], out["bound_by"] = scan_bound(
+            B, S, C, torch.finfo(dt_).bits // 8, with_h0)
+    del a, b, h0, got, want, d
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mamba_kernels():
+    """The Mamba scan kernel at the jamba serve phase's shapes (d_inner
+    8,192 x d_state 16 = 131,072 channels, batch 8): the prefill over a
+    512-token prompt (fp32 a, b, from zero state) and a decode step (S
+    1, from a random state); tests/test_kernels.py:105's sweep shapes,
+    ragged S and C in fp32 and bf16, and a long-memory case (a = 0.999
+    over 512 steps). Returns (prefill, decode) cases."""
+    import torch
+    from repro_torch.kernels import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    C = 2 * 4096 * 16
+    prefill = scan_case("prefill", (JAMBA_BATCH, JAMBA_PROMPT, C), gen,
+                        a_kind="decay", timed=True)
+    decode = scan_case("decode", (JAMBA_BATCH, 1, C), gen, a_kind="decay",
+                       with_h0=True, timed=True)
+    extra = [scan_case(f"sweep_{'x'.join(map(str, sh))}", sh, gen)
+             for sh in ((1, 64, 32), (2, 256, 64), (1, 128, 48))]
+    extra += [scan_case("ragged_S77_C1000", (2, 77, 1000), gen,
+                        with_h0=True),
+              scan_case("ragged_bf16", (3, 77, 1000), gen, dtype="bfloat16",
+                        with_h0=True),
+              scan_case("long_memory", (2, 512, 1024), gen, a_kind="0.999")]
+    ptxas = ptxas_summary(
+        _build.library_path("mamba_scan").with_suffix(".log"))
+    for c in [prefill, decode] + extra:
+        emit("kernels", **c)
+    emit("kernels", kernel="mamba_scan", case="ptxas", ptxas=ptxas)
+    return prefill, decode
+
+
+def jamba_config(depth, period=None, attn_positions=None):
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=depth)
+    if period is not None:
+        cfg = dataclasses.replace(cfg, hybrid_period=period,
+                                  hybrid_attn_positions=attn_positions)
+    return cfg
+
+
+def draw_mamba_leaves(params, gen) -> None:
+    """Overwrite the mamba stack's constant-initialised leaves in place
+    with draws from ``gen`` (on the leaves' device): A_log = log U(1,
+    d_state) (decay rates spread as S4D-real's log 1..n), dt_bias =
+    softplus^-1(dt) with dt log-uniform in [1e-3, 1e-1] (Mamba's dt
+    init), conv_b ~ 0.1 N(0, 1), D_skip ~ 1 + 0.1 N(0, 1). At their
+    default init (ones, zeros) every channel decays alike."""
+    import math
+
+    import torch
+    for pos in params["blocks"].values():
+        if "mamba" not in pos:
+            continue
+        p = pos["mamba"]
+        for name, t in p.items():
+            shape, dev = t.shape, t.device
+            if name == "A_log":
+                x = torch.log(1 + torch.rand(shape, generator=gen, device=dev)
+                              * (shape[-1] - 1))
+            elif name == "dt_bias":
+                lo, hi = math.log(1e-3), math.log(1e-1)
+                dt = torch.exp(lo + torch.rand(shape, generator=gen,
+                                               device=dev) * (hi - lo))
+                x = torch.log(torch.expm1(dt))
+            elif name in ("conv_b", "D_skip"):
+                x = 0.1 * torch.randn(shape, generator=gen, device=dev)
+                x = x + 1.0 if name == "D_skip" else x
+            else:
+                continue
+            t.copy_(x)
+
+
+def phase_jamba_serve():
+    """The hybrid serve path at full width and JAMBA_DEPTH layers:
+    prefill, then greedy decode over the contiguous KV cache and the
+    mamba state. Returns the scan and attention kernels' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.core.partition import tree_items
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import layer_plan
+
+    cfg = jamba_config(JAMBA_DEPTH)
+    max_len = JAMBA_PROMPT + JAMBA_DECODE
+    cell = ShapeCell("jamba_serve", "decode", max_len, JAMBA_BATCH)
+    bundle = StepBundle(RunConfig(model=cfg, shape=cell))
+    plan, groups = layer_plan(cfg)
+    n_mamba = groups * sum(k[0] == "mamba" for k in plan)
+    n_attn = groups * sum(k[0] == "attn" for k in plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_all_params(seed=0)
+    draw_mamba_leaves(params, torch.Generator(device="cuda").manual_seed(1))
+    ids = torch.randint(1, cfg.vocab_size, (JAMBA_BATCH, JAMBA_PROMPT),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(2), device="cuda")
+    prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
+    pick = bundle.make_greedy_pick()
+    state = bundle.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = sum(t.numel() * t.element_size()
+                      for _, t in tree_items(params)) / 2**30
+
+    ops.mamba_scan.launches = ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, state = prefill(params, ids, state)
+    tok = pick(logits)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite, tokens, tpot = [torch.isfinite(logits).all()], [tok], []
+    for _ in range(JAMBA_DECODE):
+        t1 = time.perf_counter()
+        logits, state = decode(params, tok[:, None], state)
+        tok = pick(logits)
+        torch.cuda.synchronize()
+        tpot.append(time.perf_counter() - t1)
+        finite.append(torch.isfinite(logits).all())
+        tokens.append(tok)
+    wall = time.perf_counter() - t0
+    launches = {"mamba_scan": ops.mamba_scan.launches,
+                "flash_attention": ops.flash_attention.launches}
+
+    steps = 1 + JAMBA_DECODE
+    expected = {"mamba_scan": n_mamba * steps,
+                "flash_attention": n_attn * steps}
+    check(launches == expected, f"kernel launches {launches}, expected "
+          f"{expected} ({n_mamba} mamba and {n_attn} attention layers x "
+          f"{steps} steps)")
+    check(all(bool(f.item()) for f in finite), "a logit is not finite")
+    toks = torch.stack(tokens, dim=1).cpu()
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all().item()),
+          "a token id lies outside the vocabulary")
+    d_in = cfg.mamba.expand * cfg.d_model
+    hd = cfg.resolved_head_dim()
+    kv = ((groups, JAMBA_BATCH, max_len, cfg.num_kv_heads, hd),
+          torch.bfloat16)
+    want = {}
+    for i, (mixer, _) in enumerate(plan):
+        if mixer == "attn":
+            want.update({f"pos{i}.attn.idx": ((groups,), torch.int32),
+                         f"pos{i}.attn.k": kv, f"pos{i}.attn.v": kv})
+        else:
+            want.update({
+                f"pos{i}.mamba.conv": ((groups, JAMBA_BATCH,
+                                        cfg.mamba.d_conv - 1, d_in),
+                                       torch.bfloat16),
+                f"pos{i}.mamba.h": ((groups, JAMBA_BATCH, d_in,
+                                     cfg.mamba.d_state), torch.float32)})
+    got = {p: (tuple(t.shape), t.dtype) for p, t in tree_items(state)}
+    check(got == want, f"decode state {got} != {want}")
+    idx = {p: t.tolist() for p, t in tree_items(state) if p.endswith("idx")}
+    check(all(v == [max_len] * groups for v in idx.values()),
+          f"KV cache idx {idx}, expected {max_len}")
+    tp = np.asarray(tpot)
+    emit("jamba_serve", model=cfg.name, layers=cfg.num_layers,
+         layers_full=jamba_config(32).num_layers, mamba_layers=n_mamba,
+         attention_layers=n_attn, batch=JAMBA_BATCH, prompt=JAMBA_PROMPT,
+         decode_steps=JAMBA_DECODE, weights_gib=weights_gib, init_s=init_s,
+         prefill_s=prefill_s, tpot_p50_s=float(np.percentile(tp, 50)),
+         tpot_p90_s=float(np.percentile(tp, 90)),
+         decode_tok_s=JAMBA_BATCH * JAMBA_DECODE / float(tp.sum()),
+         generated_tok_s=JAMBA_BATCH * steps / wall, wall_s=wall,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches=launches, expected_launches=expected,
+         row0_tokens=toks[0].tolist())
+    del params, state, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _recording_router(route, log, force=None):
+    """A stand-in for the router ``route`` (``models.sublayers._route``)
+    that records, per call, each token's router logits and chosen
+    experts (on the host). ``force`` ({call: {token: experts}}) puts
+    those tokens on the given experts, with their gates renormalised
+    from the router's own probabilities as ``_route`` does."""
+    def recorded(cfg, p, x_flat):
+        import torch
+        probs, gate, eid = route(cfg, p, x_flat)
+        if force and len(log) in force:
+            gate, eid = gate.clone(), eid.clone()
+            for t, experts in force[len(log)].items():
+                e = torch.tensor(experts, device=eid.device)
+                g = probs[t, e]
+                eid[t], gate[t] = e, g / g.sum().clamp_min(1e-9)
+        log.append(((x_flat @ p["router"]).float().cpu(), eid.cpu()))
+        return probs, gate, eid
+    return recorded
+
+
+def _bf16_step(x):
+    """One bf16 step (unit in the last place) at |x|, elementwise."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(
+        x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def phase_jamba_parity():
+    """jamba at full width and depth 2 in bf16 on the card (kernels) and
+    on the CPU (plain versions), from the same weights (drawn on the
+    CPU), the CPU's greedy tokens fed to both. The router logits agree
+    within ROUTER_STEPS bf16 steps. A token may be routed to other
+    experts on the two sides only where the CPU's margin between its
+    choice and the card's is within ROUTER_STEPS bf16 steps (a near-tie
+    in the router; reported). Where any token was so routed, the CPU
+    runs again with the card's choices forced at those tokens, so that
+    both sides dispatch alike (the slot positions, and so the capacity
+    drops, follow from the choices), and its routing must then equal
+    the card's. Every row's logits at every step are within 0.1 of the
+    CPU run whose dispatch equals the card's; the card's greedy tokens
+    equal its, up to near-ties (top-2 logit margin within 0.1)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.core.partition import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import sublayers
+
+    cp = JAMBA_PARITY
+    cfg = jamba_config(cp["depth"], 2, (0,))
+    run = RunConfig(model=cfg, shape=ShapeCell(
+        "jamba_parity", "decode", cp["prompt"] + cp["decode"], cp["batch"]))
+    cpu, gpu = StepBundle(run, device="cpu"), StepBundle(run)
+    t0 = time.perf_counter()
+    p_cpu = cpu.init_all_params(seed=0)
+    draw_mamba_leaves(p_cpu, torch.Generator().manual_seed(1))
+    p_gpu = tree_map(lambda t: t.to(gpu.device), p_cpu)
+    draw_s = time.perf_counter() - t0
+    ids = torch.randint(1, cfg.vocab_size, (cp["batch"], cp["prompt"]),
+                        generator=torch.Generator().manual_seed(2))
+    route = sublayers._route
+
+    def serve(b, p, feed=None, force=None):
+        """Prefill + decode steps, fed ``feed`` (default: own greedy
+        tokens). Returns (per-step logits, greedy tokens, router log,
+        (scan, attention) launches, seconds)."""
+        routes = []
+        sublayers._route = _recording_router(route, routes, force)
+        launches = (ops.mamba_scan.launches, ops.flash_attention.launches)
+        t0 = time.perf_counter()
+        try:
+            logits, state = b.make_prefill_step()(p, ids.to(b.device),
+                                                  b.init_state())
+            steps = [logits.float().cpu()]
+            dec = b.make_decode_step()
+            toks = [torch.argmax(logits, dim=-1).cpu()]
+            for i in range(cp["decode"]):
+                tok = feed[i] if feed is not None else toks[-1]
+                logits, state = dec(p, tok[:, None].to(b.device), state)
+                steps.append(logits.float().cpu())
+                toks.append(torch.argmax(logits, dim=-1).cpu())
+        finally:
+            sublayers._route = route
+        return (steps, toks, routes,
+                (ops.mamba_scan.launches - launches[0],
+                 ops.flash_attention.launches - launches[1]),
+                time.perf_counter() - t0)
+
+    # the CPU's run fixes the tokens both sides are fed
+    lc, tc, rc, nc, t_c = serve(cpu, p_cpu)
+    lg, tg, rg, ng, t_g = serve(gpu, p_gpu, feed=tc)
+    k = cfg.moe.top_k
+    S = cp["prompt"]
+    route_diffs, force, router_steps = [], {}, 0.0
+    check(len(rc) == len(rg) == 1 + cp["decode"],
+          f"router calls: CPU {len(rc)}, card {len(rg)}")
+    for step, ((l_c, e_c), (l_g, e_g)) in enumerate(zip(rc, rg)):
+        # the router logits agree within ROUTER_STEPS bf16 steps at each
+        # token's largest |logit|
+        unit = _bf16_step(l_c.abs().amax(-1))
+        steps_off = (l_g - l_c).abs().amax(-1) / unit
+        router_steps = max(router_steps, steps_off.max().item())
+        check(router_steps <= ROUTER_STEPS, f"step {step}: router logits "
+              f"differ by {router_steps} bf16 steps")
+        same = (e_c.sort(-1).values == e_g.sort(-1).values).all(-1)
+        for t in torch.nonzero(~same).flatten().tolist():
+            # the CPU's margin between its choice and the card's
+            i = [e for e in e_c[t].tolist() if e not in e_g[t].tolist()]
+            j = [e for e in e_g[t].tolist() if e not in e_c[t].tolist()]
+            margin = ((l_c[t, i].min() - l_c[t, j].max()) / unit[t]).item()
+            row, pos = divmod(t, S if step == 0 else 1)
+            route_diffs.append({
+                "step": step, "row": row, "pos": pos,
+                "cpu": e_c[t].tolist(), "card": e_g[t].tolist(),
+                "cpu_margin_bf16_steps": margin})
+            check(margin <= ROUTER_STEPS, f"step {step} token {t}: MoE "
+                  f"routing {e_c[t].tolist()} (CPU) vs {e_g[t].tolist()} "
+                  f"(card) at a CPU margin of {margin} bf16 steps")
+            force.setdefault(step, {})[t] = e_g[t].tolist()
+    rerun_s = None
+    if force:
+        lc, tc, rf, _, rerun_s = serve(cpu, p_cpu, feed=tc, force=force)
+        for step, ((_, e_f), (_, e_g)) in enumerate(zip(rf, rg)):
+            check(torch.equal(e_f.sort(-1).values, e_g.sort(-1).values),
+                  f"step {step}: the forced CPU run routes otherwise")
+    diffs = []
+    for step, (a, b) in enumerate(zip(lg, lc)):
+        d = (a - b).abs().amax(-1)
+        for row, v in enumerate(d.tolist()):
+            check(v <= cp["logit_tol"], f"step {step} row {row}: card "
+                  f"and CPU logits differ by {v}")
+        diffs.append(d.tolist())
+    near_ties = []
+    for step, (a, b) in enumerate(zip(tg, tc)):
+        for row in torch.nonzero(a != b).flatten().tolist():
+            top2 = lc[step][row].topk(2).values
+            check(float(top2[0] - top2[1]) <= cp["logit_tol"],
+                  f"step {step} row {row}: tokens {b[row].item()} (CPU) vs "
+                  f"{a[row].item()} (card)")
+            near_ties.append([step, row])
+    steps = 1 + cp["decode"]
+    check(ng == (steps, steps) and nc == (0, 0),
+          f"launches (scan, attention): card {ng}, expected {(steps,) * 2} "
+          f"(1 mamba and 1 attention layer x {steps} steps); CPU {nc}")
+    emit("jamba_parity", layers=cfg.num_layers, dtype="bfloat16",
+         batch=cp["batch"], prompt=cp["prompt"], decode_steps=cp["decode"],
+         logit_tol=cp["logit_tol"], logits_max_abs_diff=diffs,
+         router_logits_max_bf16_steps=router_steps,
+         routing_differences=route_diffs, cpu_rerun_forced=bool(force),
+         token_near_ties=near_ties,
+         tokens_cpu=[t.tolist() for t in tc],
+         tokens_gpu=[t.tolist() for t in tg],
+         launches={"gpu": ng, "cpu": nc}, draw_s=draw_s, cpu_s=t_c,
+         gpu_s=t_g, cpu_rerun_s=rerun_s)
+    del p_gpu
+    torch.cuda.empty_cache()
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def phase_serve():
@@ -1128,15 +1590,18 @@ def main() -> int:
          ptxas={n: ptxas_summary(_build.library_path(n).with_suffix(".log"))
                 for n in _build.SOURCES})
 
-    prefill, decode = phase_kernels()
+    prefill, decode, flash_jamba = phase_kernels()
     int8_main, int8_extra = phase_int8_kernels()
     mm_main, mm_extra = phase_mm_kernels()
     wkv_prefill, wkv_decode = phase_wkv_kernels()
+    scan_prefill, scan_decode = phase_mamba_kernels()
     launches = phase_serve()
     phase_profile()
     phase_parity()
     wkv_launches = phase_rwkv_serve()
     phase_rwkv_parity()
+    jamba_launches = phase_jamba_serve()
+    phase_jamba_parity()
     train_launches = phase_train()
     phase_train_parity()
 
@@ -1147,7 +1612,9 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL, "launches": launches,
         **entry(prefill), "shape": "prefill_chunk",
-        "decode": entry(decode)}] + [{
+        "decode": entry(decode),
+        "jamba_launches": jamba_launches["flash_attention"],
+        "jamba_shapes": {n: entry(c) for n, c in flash_jamba.items()}}] + [{
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
             "replaces": QUANT_TPU_KERNELS[k], "launches": train_launches[k],
             **entry(c), "shape": c["case"],
@@ -1162,7 +1629,11 @@ def main() -> int:
         "name": "wkv6", "route": "cuda", "source": WKV_SOURCE,
         "replaces": WKV_TPU_KERNEL, "launches": wkv_launches,
         **entry(wkv_prefill), "shape": "prefill",
-        "decode": entry(wkv_decode)}]}
+        "decode": entry(wkv_decode)}, {
+        "name": "mamba_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_TPU_KERNEL,
+        "launches": jamba_launches["mamba_scan"], **entry(scan_prefill),
+        "shape": "prefill", "decode": entry(scan_decode)}]}
     print(gpu)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

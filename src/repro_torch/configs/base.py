@@ -4,11 +4,31 @@ paths and the sequential FCDP train step)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # layers that are MoE: every `moe_period` starting at `moe_offset`
+    moe_period: int = 1
+    moe_offset: int = 0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
 
 
 @dataclass(frozen=True)
@@ -20,7 +40,7 @@ class RWKVConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | ssm
+    family: str                 # dense | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -32,7 +52,12 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    # hybrid (jamba): within each period, which positions are attention
+    hybrid_period: int = 0           # 0 -> not hybrid
+    hybrid_attn_positions: Tuple[int, ...] = ()
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

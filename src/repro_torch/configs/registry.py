@@ -1,6 +1,6 @@
 """Architecture registry: --arch <id> resolution. The port has
-qwen2.5-3b (dense) and rwkv6-3b (ssm); the other archs of the JAX
-package follow with their families."""
+qwen2.5-3b (dense), rwkv6-3b (ssm) and jamba-v0.1-52b (hybrid); the
+other archs of the JAX package follow with their families."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +11,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "rwkv6-3b": "rwkv6_3b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

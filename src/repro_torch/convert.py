@@ -51,8 +51,10 @@ def params_from_jax(tree, cfg: ModelConfig,
 def state_from_jax(tree, device=None):
     """The port's decode state from the JAX package's (a nested dict of
     numpy arrays with the same leaves, e.g. ``{pos0: {rwkv_tm: {s,
-    xprev}, rwkv_cm: {xprev}}}``), bf16 bit for bit, on ``device`` (None
-    means ``cuda``, and raises without one)."""
+    xprev}, rwkv_cm: {xprev}}}`` or jamba's ``{pos0: {attn: {idx, k,
+    v}}, pos1: {mamba: {conv, h}}}``), every leaf in its own type (bf16
+    bit for bit, the caches' int32 ``idx`` included), on ``device``
+    (None means ``cuda``, and raises without one)."""
     device = resolve_device(device)
     return tree_map(lambda a: _tensor(a).to(device), tree)
 

@@ -142,10 +142,12 @@ class StepBundle:
         return build_train_step(self, coll)
 
     def init_state(self, cell=None):
-        """The decode state for ``cell``'s batch (default: the run's
-        cell), on the bundle's device."""
+        """The decode state for ``cell``'s batch, with KV caches of
+        ``cell.seq_len`` positions (default: the run's cell), on the
+        bundle's device."""
         cell = cell or self.run.shape
-        return self.model.init_decode_state(cell.global_batch, self.device)
+        return self.model.init_decode_state(cell.global_batch, cell.seq_len,
+                                            self.device)
 
     def make_prefill_step(self):
         from repro_torch.core.engine.serve import build_prefill_step

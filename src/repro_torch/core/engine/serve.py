@@ -1,6 +1,7 @@
 """Serve-step builders for one rank, as the JAX package's
 ``core/engine/serve.py`` builds them: the contiguous prefill and decode
-steps over the decode state (the recurrent state of the ssm family),
+steps over the decode state (attention's contiguous KV cache and the
+recurrent state of the ssm and hybrid families),
 the paged chunked-prefill and decode steps with the paged-plan gate and
 the default pool sizing, and the greedy pick. The steps are plain
 functions run eagerly; the paged steps update the pools in place and
@@ -25,8 +26,10 @@ def check_paged_plan(model) -> None:
 
 def build_prefill_step(bundle):
     """(params, ids [B,S], state) -> (last-token logits [B,V], state).
-    The prompt length must be a multiple of min(64, S) (the WKV's
-    chunk)."""
+    For rwkv the prompt length must be a multiple of min(64, S) (the
+    WKV's chunk); mamba and attention take prompts of any length, up to
+    the KV cache's ``max_len`` (``cell.seq_len``) with room left for the
+    decode steps."""
     model = bundle.model
 
     @torch.no_grad()

@@ -26,7 +26,8 @@ BUILD_DIR = KERNEL_DIR / "build"
 SOURCES = {"flash_attention": KERNEL_DIR / "csrc" / "flash_attention.cu",
            "quant": KERNEL_DIR / "csrc" / "quant.cu",
            "collective_matmul": KERNEL_DIR / "csrc" / "collective_matmul.cu",
-           "wkv6": KERNEL_DIR / "csrc" / "wkv6.cu"}
+           "wkv6": KERNEL_DIR / "csrc" / "wkv6.cu",
+           "mamba_scan": KERNEL_DIR / "csrc" / "mamba_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

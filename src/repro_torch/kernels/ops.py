@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import collective_matmul, quant, ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.mamba_scan import mamba_scan_fwd
 from repro_torch.kernels.wkv6 import wkv6_fwd
 
 
@@ -119,6 +120,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 wkv6.launches = wkv6.calls = 0
+
+
+def mamba_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mamba's diagonal SSM scan h_t = a_t h_{t-1} + b_t: a, b [B,S,C]
+    fp32 or bf16, h0 [B,C] fp32 or None (zeros) -> every state hs
+    [B,S,C] fp32. Any S and C on both devices."""
+    mamba_scan.calls += 1
+    if not _kernel_device(a, "mamba_scan"):
+        return ref.mamba_scan_plain(a, b, h0)
+    out = mamba_scan_fwd(a, b, h0)
+    mamba_scan.launches += 1
+    return out
+
+
+mamba_scan.launches = mamba_scan.calls = 0
 
 
 def collective_ag_matmul(x: torch.Tensor, w_shard: torch.Tensor, coll,

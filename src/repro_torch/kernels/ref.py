@@ -191,3 +191,24 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "bihk,bihv->bhkv", kd, vc)
     out = torch.stack(outs, dim=1).reshape(B, S, H, hd)
     return out.to(r.dtype), state
+
+
+def mamba_scan_plain(a: torch.Tensor, b: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Diagonal SSM scan h_t = a_t h_{t-1} + b_t over [B,S,C] (C =
+    d_inner x d_state flattened), walked step by step in fp32: the JAX
+    package's ``kernels/ref.py:mamba_scan_ref`` (the oracle of its
+    Pallas ``mamba_scan``) with the channels flattened.
+
+    a, b: [B,S,C] fp32 or bf16; h0: [B,C] fp32 carried state (None =
+    zeros, the Pallas kernel's function). Returns every state hs
+    [B,S,C] fp32; hs[:, -1] is the state to carry."""
+    B, S, C = a.shape
+    h = (torch.zeros(B, C, dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, bf = a.float(), b.float()
+    hs = torch.empty(B, S, C, dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = af[:, t] * h + bf[:, t]
+        hs[:, t] = h
+    return hs

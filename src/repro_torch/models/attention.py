@@ -1,5 +1,6 @@
 """Attention sublayer: GQA with qkv bias and RoPE, over the paged KV
-cache (continuous batching), without a cache, or in training.
+cache (continuous batching), over the contiguous KV cache (the
+prefill/decode steps), without a cache, or in training.
 
 The serving branches hand their core to ``kernels.ops.flash_attention``
 (the hand-written kernel on CUDA tensors, its plain version on CPU
@@ -143,23 +144,51 @@ def attention_train(x, wq, wk, wv, wo, bq, bk, bv, cfg,
 
 def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
                     positions: torch.Tensor,
-                    paged_kv: Optional[Tuple] = None, causal: bool = True):
+                    paged_kv: Optional[Tuple] = None,
+                    kv_cache: Optional[Tuple] = None, causal: bool = True):
     """Full attention sublayer.
 
     x: [B, S, D]. wq: [D, H*hd]; wk/wv: [D, KVH*hd]; wo: [H*hd, D].
     positions: [B, S] per-row absolute positions (contiguous per row) on
-    the paged path, [1, S] or [B, S] without a cache.
+    the paged path, [1, S] or [B, S] otherwise.
 
     paged_kv: (pool_k, pool_v, page_table) -- pools [n_pages, page_size,
     KVH, hd], updated in place; page_table [B, max_pages] page ids,
-    page 0 the scratch page inactive rows point at. Returns
-    ([B, S, D], (pool_k, pool_v) or None).
+    page 0 the scratch page inactive rows point at.
+
+    kv_cache: (k_cache, v_cache, idx) -- caches [B, max_len, KVH, hd]
+    and the int32 scalar ``idx``, the length written so far. The new
+    K/V are written at [idx, idx + S) in the cache's type, in place, and
+    ``idx`` advances by S in place; attention reads the whole cache back
+    (so the cache's rounding enters here too) with q[:, 0] at absolute
+    position idx, and the causal mask hides the unwritten tail. The JAX
+    package's ``dynamic_update_slice`` clamps a write past ``max_len``
+    to the cache's end without a word; here it fails (RuntimeError).
+
+    Returns ([B, S, D], the updated cache: (pool_k, pool_v), (k_cache,
+    v_cache, idx) or None).
     """
     B, S, D = x.shape
     q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions)
 
     new_cache = None
-    if paged_kv is not None:
+    if kv_cache is not None:
+        k_cache, v_cache, idx = kv_cache
+        max_len = k_cache.shape[1]
+        # idx stays on the device: the check and the write wait for no
+        # copy to the host (on the card a failed check surfaces as a
+        # device-side assert at the next synchronisation)
+        torch._assert_async(idx + S <= max_len,
+                            f"KV cache overflow: writing {S} positions "
+                            f"from idx into a cache of {max_len}")
+        at = idx.long() + torch.arange(S, device=x.device)
+        k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+        q_offset = idx.repeat(B)
+        idx.add_(S)
+        new_cache = (k_cache, v_cache, idx)
+        k, v = k_cache, v_cache
+    elif paged_kv is not None:
         pool_k, pool_v, table = paged_kv
         _write_pages(pool_k, table, positions, k)
         _write_pages(pool_v, table, positions, v)

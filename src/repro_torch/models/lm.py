@@ -1,9 +1,9 @@
-"""Decoder-only language model of the dense and ssm families: parameter
-defs, the training loss over this rank's shards (dense), the paged
-serve steps (chunked prefill and decode over the paged KV cache;
+"""Decoder-only language model of the dense, ssm and hybrid families:
+parameter defs, the training loss over this rank's shards (dense), the
+paged serve steps (chunked prefill and decode over the paged KV cache;
 dense) and the contiguous serve steps (prefill and decode over the
-recurrent state; ssm), as the JAX package's ``models/lm.py`` computes
-them."""
+contiguous KV cache and the recurrent state), as the JAX package's
+``models/lm.py`` computes them."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
@@ -23,6 +23,18 @@ def layer_plan(cfg: ModelConfig) -> Tuple[List[Tuple[str, ...]], int]:
         return [("attn", "mlp")], cfg.num_layers
     if cfg.family == "ssm":
         return [("rwkv_tm", "rwkv_cm")], cfg.num_layers
+    if cfg.family == "hybrid":
+        period = cfg.hybrid_period
+        if period < 1 or cfg.num_layers % period:
+            raise ValueError(f"hybrid: {cfg.num_layers} layers are not a "
+                             f"whole number of periods of {period}")
+        plan = []
+        m = cfg.moe
+        for i in range(period):
+            mixer = "attn" if i in cfg.hybrid_attn_positions else "mamba"
+            ffn = "moe" if (m and i % m.moe_period == m.moe_offset) else "mlp"
+            plan.append((mixer, ffn))
+        return plan, cfg.num_layers // period
     raise ValueError(f"layer_plan: family {cfg.family!r} is not ported yet")
 
 
@@ -79,19 +91,22 @@ class LM:
         return loss_sum, cnt, torch.zeros((), device=x.device)
 
     # -- serving over the contiguous decode state ----------------------------
-    def init_decode_state(self, batch: int, device):
+    def init_decode_state(self, batch: int, max_len: int, device):
         """The decode state of ``batch`` rows, stacked over the layer
-        groups (the recurrent sublayers' state)."""
-        return stk.init_group_state(self.cfg, self.plan, batch,
+        groups: attention's KV cache of ``max_len`` positions and the
+        recurrent sublayers' state."""
+        return stk.init_group_state(self.cfg, self.plan, batch, max_len,
                                     self.n_groups, device)
 
     def prefill_fn(self, params, ids, state):
         """Full-prompt forward that fills the decode state. ids: [B, S].
         Returns (last-token logits [B, V], new state)."""
+        S = ids.shape[1]
         x = self._embed(params, ids)
+        ctx = {"prefill": True,
+               "positions": torch.arange(S, device=ids.device)[None, :]}
         x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
-                                   params["blocks"], x, {"prefill": True},
-                                   state)
+                                   params["blocks"], x, ctx, state)
         return self._final(params, x[:, -1]), state
 
     def decode_fn(self, params, tok, state):

@@ -21,12 +21,15 @@ from repro_torch.models import sublayers as sl
 KIND_DEFS = {
     "attn": sl.attn_defs,
     "mlp": sl.mlp_defs,
+    "moe": sl.moe_defs,
+    "mamba": sl.mamba_defs,
     "rwkv_tm": sl.rwkv_tm_defs,
     "rwkv_cm": sl.rwkv_cm_defs,
 }
 
 # sublayers whose decode state is recurrent: each step returns a new one
-RECURRENT_KINDS = ("rwkv_tm", "rwkv_cm")
+# (attention's caches are written in place instead)
+RECURRENT_KINDS = ("mamba", "rwkv_tm", "rwkv_cm")
 
 
 def group_defs(cfg: ModelConfig, plan: List[Tuple[str, ...]]
@@ -70,21 +73,24 @@ def init_paged_group_state(cfg, plan, n_pages: int, page_size: int,
     return out
 
 
-def init_group_state(cfg, plan, batch: int, n_groups: int, device):
+def init_group_state(cfg, plan, batch: int, max_len: int, n_groups: int,
+                     device):
     """The contiguous decode state of the stack, [n_groups, ...] per
-    leaf, with the JAX package's leaves, names and dtypes. Attention's
-    contiguous KV cache is not ported yet."""
+    leaf, with the JAX package's leaves, names and dtypes: attention's
+    KV cache of ``max_len`` positions and the recurrent sublayers'
+    state."""
     out: Dict[str, Any] = {}
     for i, kinds in enumerate(plan):
         pos = {}
         for kind in kinds:
-            if kind == "rwkv_tm":
+            if kind == "attn":
+                st = sl.attn_init_state(cfg, batch, max_len, device)
+            elif kind == "mamba":
+                st = sl.mamba_init_state(cfg, batch, device)
+            elif kind == "rwkv_tm":
                 st = sl.rwkv_tm_init_state(cfg, batch, device)
             elif kind == "rwkv_cm":
                 st = sl.rwkv_cm_init_state(cfg, batch, device)
-            elif kind == "attn":
-                raise ValueError("the contiguous-cache attention state is "
-                                 "not ported yet")
             else:
                 continue
             pos[kind] = {n: t.expand((n_groups,) + t.shape).contiguous()
@@ -96,19 +102,33 @@ def init_group_state(cfg, plan, batch: int, n_groups: int, device):
 
 def apply_sublayer(kind: str, cfg, p, x, ctx: Dict[str, Any], state=None):
     """Dispatch one sublayer. Returns (x, new_state). ctx "paged" serves
-    attention over the paged cache; "prefill" and "decode" run the
-    recurrent sublayers over their state (prefill starts from zero
-    state and does not read the one passed, as in the JAX package);
-    with neither, they run over the whole sequence and keep no state."""
+    attention over the paged cache; "prefill" and "decode" run attention
+    over its contiguous cache (from the cache's ``idx`` on, in place)
+    and the recurrent sublayers over their state (prefill starts from
+    zero state and does not read the one passed, as in the JAX
+    package); with neither, rwkv runs over the whole sequence and keeps
+    no state. The MoE's aux loss is not computed (serving)."""
     if kind == "attn":
-        if not ctx.get("paged"):
-            raise ValueError("contiguous-cache attention is not ported "
-                             "yet: the port serves attention over the "
-                             "paged cache only")
-        return sl.attn_paged(cfg, p, x, state, ctx["positions"],
-                             ctx["page_table"])
+        if ctx.get("paged"):
+            return sl.attn_paged(cfg, p, x, state, ctx["positions"],
+                                 ctx["page_table"])
+        if ctx.get("decode"):
+            return sl.attn_decode(cfg, p, x, state)
+        if ctx.get("prefill") and state is not None:
+            return sl.attn_apply(cfg, p, x, ctx["positions"], state)
+        raise ValueError("attention without a cache is the train branch "
+                         "(apply_stack_train)")
     if kind == "mlp":
         return sl.mlp_apply(cfg, p, x), state
+    if kind == "moe":
+        return sl.moe_apply(cfg, p, x)[0], state
+    if kind == "mamba":
+        if ctx.get("decode"):
+            return sl.mamba_decode(cfg, p, x, state)
+        if ctx.get("prefill"):
+            return sl.mamba_prefill(cfg, p, x)
+        raise ValueError("mamba runs only in the prefill and decode steps "
+                         "(hybrid training is not ported)")
     if kind == "rwkv_tm":
         if ctx.get("decode"):
             return sl.rwkv_tm_decode(cfg, p, x, state)
@@ -129,9 +149,10 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                 stacked_state=None):
     """Run the group once per entry of the stack dim. stacked_params and
     stacked_state carry the stack dim first on every leaf; layer l reads
-    the views ``leaf[l]``. The paged pools are updated in place through
-    them; the recurrent sublayers' new states are stacked into new
-    tensors. Returns (x, the stacked state the next step consumes)."""
+    the views ``leaf[l]``. The paged pools and the contiguous KV caches
+    (with their ``idx``) are updated in place through them; the
+    recurrent sublayers' new states are stacked into new tensors.
+    Returns (x, the stacked state the next step consumes)."""
     fresh: Dict[Tuple[str, str], List[Dict[str, torch.Tensor]]] = {}
     for layer in range(n_groups):
         for i, kinds in enumerate(plan):

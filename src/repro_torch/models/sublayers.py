@@ -1,17 +1,20 @@
-"""Sublayer library: ParamDefs and apply functions of the dense
-family's attention and GLU-MLP sublayers (serving over the paged cache,
-and training) with the paged attention state, and of the ssm family's
-RWKV-6 time-mix and channel-mix (full-sequence, prefill and decode over
-the recurrent state). The defs carry the JAX package's tensor-parallel
-tags (q/o head-parallel, k/v replicated; mlp in/gate column-, out
-row-parallel; rwkv heads over 'tp'); at tp 1 nothing is sharded by
-them, and the JAX package's tensor-parallel steps of these sublayers
-(``psum_tp``, head padding ``pad_heads`` and its ``local_head_mask``,
-the channel-mix's ``psum_scatter`` / ``all_gather_invariant`` pair) are
-the identity and are left out."""
+"""Sublayer library: ParamDefs and apply functions of the attention
+sublayer (serving over the paged or the contiguous KV cache, and
+training) with both caches' state, the GLU-MLP, the GShard MoE, the
+Mamba mixer (full-sequence, prefill and decode over the recurrent
+state) and the ssm family's RWKV-6 time-mix and channel-mix. The defs
+carry the JAX package's tensor-parallel tags (q/o head-parallel, k/v
+replicated; mlp in/gate column-, out row-parallel; experts over 'tp';
+mamba's d_inner and the rwkv heads over 'tp'); at tp 1 nothing is
+sharded by them, and the JAX package's tensor-parallel steps of these
+sublayers (``psum_tp``, head padding ``pad_heads`` and its
+``local_head_mask``, the MoE's token split and ``all_to_all`` over
+'model', the channel-mix's ``psum_scatter`` / ``all_gather_invariant``
+pair) are the identity and are left out."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +69,36 @@ def attn_paged(cfg, p, x, state, positions, table):
     return x + y, {"k": pk, "v": pv}
 
 
+def attn_init_state(cfg, batch: int, max_len: int,
+                    device) -> Dict[str, torch.Tensor]:
+    """The contiguous KV cache of one layer: k, v [B, max_len, KVH, hd]
+    in bf16 whatever the compute dtype (as the JAX package stores it),
+    and ``idx`` int32, the written length shared by the batch's rows."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim())
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "idx": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def attn_apply(cfg, p, x, positions, state):
+    """Attention over the contiguous cache from its ``idx`` on: the
+    prompt in prefill (positions [1, S] from 0, as the JAX package's
+    prefill passes them) or one token in decode (positions [1, 1] =
+    idx). K/V are written into ``state`` in place and ``idx`` advances
+    by S in place."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    y, _ = attn_mod.attention_block(
+        h, p["wq"], p["wk"], p["wv"], p["wo"],
+        p.get("bq"), p.get("bk"), p.get("bv"), cfg, positions,
+        kv_cache=(state["k"], state["v"], state["idx"]))
+    return x + y, state
+
+
+def attn_decode(cfg, p, x, state):
+    """One-token decode over the contiguous cache. x: [B,1,D]."""
+    return attn_apply(cfg, p, x, state["idx"].view(1, 1), state)
+
+
 def attn_train(cfg, p, x, positions):
     """Causal self-attention sublayer of the train step (under
     autograd)."""
@@ -94,6 +127,233 @@ def mlp_apply(cfg, p, x):
     else:
         z = act_fn(cfg.act)(h @ p["w_in"])
     return x + matmul(z, p["w_out"])
+
+
+# ===========================================================================
+# MoE (GShard-style capacity dispatch; at tp 1 the expert-parallel
+# all_to_all over 'model' is the identity)
+# ===========================================================================
+
+# tokens of one dispatch (its [E, C, D] buffer), the JAX package's
+# SystemConfig.moe_token_chunk default
+MOE_TOKEN_CHUNK = 8192
+
+
+def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    m = cfg.moe
+    d, fe, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    return {
+        "router": ParamDef((d, e), ("fsdp", None), init_scale=0.1),
+        "we_in": ParamDef((e, d, fe), ("tp", "fsdp", None)),
+        "we_gate": ParamDef((e, d, fe), ("tp", "fsdp", None)),
+        "we_out": ParamDef((e, fe, d), ("tp", None, "fsdp")),
+        "norm": ParamDef((d,), ("fsdp",), init="ones"),
+    }
+
+
+def moe_capacity(cfg, chunk: int) -> int:
+    """Slots per expert for a dispatch of ``chunk`` tokens: chunk x top_k
+    / E x capacity_factor, rounded up to a multiple of 4 (at least 4)."""
+    m = cfg.moe
+    capacity = int(math.ceil(chunk * m.top_k / m.num_experts
+                             * m.capacity_factor))
+    return max(4, ((capacity + 3) // 4) * 4)
+
+
+def _dispatch_indices(eid_flat: torch.Tensor, capacity: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Position of each (token, slot) within its expert's capacity
+    buffer, in slot order (a stable sort by expert), and whether it
+    fits."""
+    n = eid_flat.shape[0]
+    order = torch.argsort(eid_flat, stable=True)
+    sorted_e = eid_flat[order]
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(n, device=eid_flat.device) - first
+    return pos, pos < capacity
+
+
+def _route(cfg, p, x_flat: torch.Tensor):
+    """Router: (probs [T,E] fp32, gate values [T,k] renormalised, expert
+    ids [T,k]). The logits are ``x @ router`` in the compute dtype, then
+    fp32. The top k by a stable descending sort: equal probabilities go
+    to the lower expert id, as ``jax.lax.top_k`` orders them."""
+    k = cfg.moe.top_k
+    logits = (x_flat @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, eid = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, eid = gate_vals[:, :k], eid[:, :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return probs, gate_vals, eid
+
+
+def _moe_chunk(cfg, p, x_flat: torch.Tensor, capacity: int,
+               with_aux: bool):
+    """x_flat: [T, D] tokens; returns ([T, D], aux_loss_sum or None)."""
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    T, D = x_flat.shape
+    probs, gate_vals, eid = _route(cfg, p, x_flat)
+    eid_flat = eid.reshape(-1)                                # [T*k]
+    pos, keep = _dispatch_indices(eid_flat, capacity)
+    # scatter tokens into [E+1, C, D]; dropped slots go to the dummy row E
+    zero = torch.zeros_like(pos)
+    e_idx = torch.where(keep, eid_flat, torch.full_like(eid_flat, E))
+    p_idx = torch.where(keep, pos, zero)
+    x_slots = x_flat.repeat_interleave(k, dim=0)              # [T*k, D]
+    buf = torch.zeros((E + 1, capacity, D), dtype=x_flat.dtype,
+                      device=x_flat.device)
+    buf[e_idx, p_idx] = torch.where(keep[:, None], x_slots,
+                                    torch.zeros_like(x_slots))
+    buf = buf[:E]                                             # [E, C, D]
+    h = torch.bmm(buf, p["we_in"])
+    g = torch.bmm(buf, p["we_gate"])
+    z = act_fn(cfg.act)(g) * h
+    y = torch.bmm(z, p["we_out"])                             # [E, C, D]
+    # combine
+    gathered = y[torch.where(keep, eid_flat, zero), p_idx]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros_like(gathered))
+    out = (gathered.reshape(T, k, D)
+           * gate_vals[..., None].to(y.dtype)).sum(dim=1)
+    if not with_aux:
+        return out, None
+    # load-balance aux loss (GShard): E * sum_e f_e * p_e, sum-scaled
+    ones = torch.zeros((T, E), dtype=torch.float32, device=x_flat.device)
+    ones.scatter_(1, eid, 1.0)
+    f_e = ones.mean(dim=0) / k
+    p_e = probs.mean(dim=0)
+    return out, E * (f_e * p_e).sum() * T
+
+
+def moe_apply(cfg, p, x, token_chunk: int = MOE_TOKEN_CHUNK,
+              with_aux: bool = False):
+    """x: [B, S, D] -> (x + MoE(x), aux loss, or None unless
+    ``with_aux``: serving drops it). The B*S tokens are dispatched in
+    chunks of ``token_chunk`` when it divides them into several, else
+    all at once; each chunk's capacity comes from its own size."""
+    m = cfg.moe
+    B, S, D = x.shape
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    T = B * S
+    h_flat = h.reshape(T, D)
+    chunk = min(token_chunk, T)
+    n = T // chunk if T % chunk == 0 else 1
+    if n == 1:
+        chunk = T
+    capacity = moe_capacity(cfg, chunk)
+    outs, auxes = [], []
+    for c in range(n):
+        out_c, aux_c = _moe_chunk(cfg, p, h_flat[c * chunk:(c + 1) * chunk],
+                                  capacity, with_aux)
+        outs.append(out_c)
+        auxes.append(aux_c)
+    out = outs[0] if n == 1 else torch.cat(outs)
+    aux = sum(auxes) * m.aux_loss_weight if with_aux else None
+    return x + out.reshape(B, S, D).to(x.dtype), aux
+
+
+# ===========================================================================
+# Mamba (selective scan; for Jamba)
+# ===========================================================================
+# The conv state is stored in bf16 whatever the compute dtype, as the
+# JAX package stores it (sublayers.py:606,624); the scan state h stays
+# fp32. The scan runs in ``ops.mamba_scan``: the CUDA kernel on the card
+# (prefill from zeros, decode from the carried h), the sequential plain
+# version on the CPU.
+
+def mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    mc = cfg.mamba
+    d = cfg.d_model
+    d_in = mc.expand * d
+    dt_rank = mc.dt_rank or -(-d // 16)
+    ns = mc.d_state
+    return {
+        "norm": ParamDef((d,), ("fsdp",), init="ones"),
+        "in_proj": ParamDef((d, 2 * d_in), ("fsdp", "tp")),
+        "conv_w": ParamDef((d_in, mc.d_conv), ("tp", None), init_scale=0.5),
+        "conv_b": ParamDef((d_in,), ("tp",), init="zeros"),
+        "x_proj": ParamDef((d_in, dt_rank + 2 * ns), ("tp", None)),
+        "dt_proj": ParamDef((dt_rank, d_in), (None, "tp")),
+        "dt_bias": ParamDef((d_in,), ("tp",), init="zeros"),
+        "A_log": ParamDef((d_in, ns), ("tp", None), init="ones"),
+        "D_skip": ParamDef((d_in,), ("tp",), init="ones"),
+        "out_proj": ParamDef((d_in, d), ("tp", "fsdp"), fusable=True),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it (``logaddexp(x,
+    0)``: max(x, 0) + log1p(exp(-|x|))), with no switch to x above a
+    threshold as ``torch.nn.functional.softplus`` has."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _mamba_core(cfg, p, xz, conv_state=None, h_state=None):
+    """xz: [B, S, 2*d_in]. Returns (y [B,S,d_in], (conv state [B, d_conv
+    - 1, d_in] in xz's dtype, h [B, d_in, d_state] fp32))."""
+    mc = cfg.mamba
+    ns = mc.d_state
+    dt_rank = mc.dt_rank or -(-cfg.d_model // 16)
+    B, S, _ = xz.shape
+    x, z = xz.chunk(2, dim=-1)
+    d_in = x.shape[-1]
+    # causal depthwise conv (k = d_conv)
+    k = mc.d_conv
+    if conv_state is None:
+        x_pad = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        x_pad = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    new_conv_state = x_pad[:, -(k - 1):] if k > 1 else None
+    idx = (torch.arange(S, device=xz.device)[:, None]
+           + torch.arange(k, device=xz.device)[None, :])
+    xs = x_pad[:, idx]                                    # [B,S,k,d_in]
+    xc = F.silu(torch.einsum("bskd,dk->bsd", xs, p["conv_w"]) + p["conv_b"])
+    xdb = xc @ p["x_proj"]                                # [B,S,r+2n]
+    dt_in, Bc, Cc = torch.split(xdb, [dt_rank, ns, ns], dim=-1)
+    dt = softplus(dt_in @ p["dt_proj"] + p["dt_bias"])    # [B,S,d_in]
+    A = -torch.exp(p["A_log"].float())                    # [d_in, ns]
+    dtf, xcf = dt.float(), xc.float()
+    a = (dtf[..., None] * A).exp_()                       # [B,S,d_in,ns]
+    b = (dtf * xcf)[..., None] * Bc.float()[..., None, :]
+    h0 = None if h_state is None else h_state.reshape(B, d_in * ns)
+    hs = ops.mamba_scan(a.view(B, S, d_in * ns), b.view(B, S, d_in * ns),
+                        h0).view(B, S, d_in, ns)
+    del a, b
+    h_last = hs[:, -1].contiguous()
+    y = torch.einsum("bsdn,bsn->bsd", hs, Cc.float())
+    y = y + p["D_skip"].float() * xcf
+    y = (y * F.silu(z.float())).to(xz.dtype)
+    return y, (new_conv_state, h_last)
+
+
+def mamba_prefill(cfg, p, x):
+    """Full-prompt forward from zero state (the incoming state is not
+    read, as in the JAX package); returns the state."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    y, (conv_s, h_s) = _mamba_core(cfg, p, h @ p["in_proj"])
+    return (x + matmul(y, p["out_proj"]),
+            {"conv": conv_s.to(torch.bfloat16), "h": h_s})
+
+
+def mamba_init_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+    mc = cfg.mamba
+    d_in = mc.expand * cfg.d_model
+    return {"conv": torch.zeros(batch, mc.d_conv - 1, d_in,
+                                dtype=torch.bfloat16, device=device),
+            "h": torch.zeros(batch, d_in, mc.d_state, dtype=torch.float32,
+                             device=device)}
+
+
+def mamba_decode(cfg, p, x, state):
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    y, (conv_s, h_s) = _mamba_core(cfg, p, h @ p["in_proj"],
+                                   conv_state=state["conv"],
+                                   h_state=state["h"])
+    return (x + matmul(y, p["out_proj"]),
+            {"conv": conv_s.to(torch.bfloat16), "h": h_s})
 
 
 # ===========================================================================
