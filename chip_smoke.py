@@ -13,7 +13,10 @@ non-zero:
                 version on the card, at the TPU kernel's own function
                 and at the shapes the main path gives it; times of the
                 kernel, the plain version and one PyTorch library call
-                (the yardstick, never called by the port).
+                (the yardstick, never called by the port); for the
+                chunk matmul and the flash kernel also the variant each
+                shape took, the device time through a CUDA graph and
+                the wrapper's host time per call.
   3. serve   -- the main path: ``repro_torch.launch.serve.main`` serving
                 16 requests through qwen2.5-3b at full width and depth
                 (random weights from a seed); checks every request's
@@ -76,7 +79,9 @@ non-zero:
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
 plain versions at the train phase's shapes, the chunk-matmul kernel
 of the fused ring within tolerance of its plain version (and bit for bit
-column-independent) at the train phase's shapes and ragged ones, and the
+column-independent, its wgmma + TMA variant bit-equal to its mma.sync
+one) at the train phase's shapes, mode 'both''s transposed operands read
+in place, and ragged ones, and the
 RWKV-6 WKV kernel within tolerance of its plain version at the rwkv
 serve path's prefill and decode shapes, tests/test_kernels.py's sweep
 and its strong-decay case, the flash kernel at the jamba path's shapes,
@@ -196,21 +201,54 @@ def gpu_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """``base<args>`` from a mangled kernel name: the length-prefixed
+    identifier ending in ``_kernel``, then its template arguments
+    (integers and bools as numbers, float as f32, __nv_bfloat16 as
+    bf16)."""
+    # the shortest length-prefixed identifier ending in _kernel (a longer
+    # one would take in the digits of a namespace hash before it)
+    found = [(int(m.group()[i:]), m.end())
+             for m in re.finditer(r"\d+", mangled)
+             for i in range(len(m.group()))]
+    found = sorted((n, at) for n, at in found
+                   if n and mangled[at:at + n].endswith("_kernel")
+                   and mangled[at:at + n].isidentifier())
+    for n, at in found[:1]:
+        base = mangled[at:at + n]
+        args, j = [], at + n
+        if mangled[j:j + 1] == "I":
+            j += 1
+            while j < len(mangled) and mangled[j] != "E":
+                if mangled[j] == "L":
+                    k = mangled.index("E", j)
+                    args.append(mangled[j + 2:k])
+                    j = k + 1
+                elif mangled[j] == "f":
+                    args.append("f32")
+                    j += 1
+                elif mangled[j].isdigit():
+                    d = re.match(r"\d+", mangled[j:]).group()
+                    ident = mangled[j + len(d):j + len(d) + int(d)]
+                    args.append("bf16" if ident == "__nv_bfloat16" else ident)
+                    j += len(d) + int(d)
+                else:
+                    break
+        return base + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
 def ptxas_summary(log: Path) -> dict:
-    """Registers and spill bytes per compiled kernel, from nvcc's
-    ``-Xptxas -v`` report kept beside the library."""
+    """Registers, static shared memory and spill bytes per compiled
+    kernel, from nvcc's ``-Xptxas -v`` report kept beside the library
+    (the wgmma kernels' shared memory is dynamic: their sources' T_SMEM
+    and P_SMEM), and any performance warning ptxas printed."""
     out, name = {}, None
-    types = {"": "", "f": "f32_", "13__nv_bfloat16": "bf16_"}
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            tmpl = re.search(r"I(f|13__nv_bfloat16|)Li(\d+)E", m.group(1))
-            one = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)EEv",
-                            m.group(1))
-            name = (f"{types[tmpl.group(1)]}hd{tmpl.group(2)}" if tmpl
-                    else f"{one.group(1)}_{types[one.group(2)]}".rstrip("_")
-                    if one else m.group(1))
-            out[name] = {}
+            name = kernel_name(m.group(1))
+            out[name] = {"smem_bytes": 0}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -218,6 +256,11 @@ def ptxas_summary(log: Path) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            out[name]["smem_bytes"] = int(m.group(1))
+        if "Performance Loss" in line or "setmaxnreg ignored" in line:
+            out.setdefault("warnings", []).append(line.strip())
     return out
 
 
@@ -233,6 +276,46 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Device ms per call without the host: ``iters`` calls captured in
+    one CUDA graph, timed over a replay (``cuda_ms`` times eager calls,
+    which a wrapper's host cost can set when the kernel is short)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call: ``calls`` calls on a host clock, no
+    sync inside (the wrapper's checks, descriptor encoding and launch)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -256,7 +339,7 @@ def kernel_case(name, B, Sq, Skv, H, Hk, hd, offsets, causal, gen,
                 timed=False):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as fa, ops, ref
 
     dev = "cuda"
     q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).bfloat16()
@@ -269,6 +352,7 @@ def kernel_case(name, B, Sq, Skv, H, Hk, hd, offsets, causal, gen,
     d = (got.float() - want.float()).abs()
     out = {"case": name, "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H,
                                    "Hk": Hk, "hd": hd, "causal": causal},
+           "variant": fa.variant(Sq, H, Hk, hd),
            "max_abs_err": d.max().item(), "mean_abs_err": d.mean().item(),
            "mean_abs_plain": want.float().abs().mean().item(),
            "finite": bool(torch.isfinite(got).all().item())}
@@ -281,8 +365,11 @@ def kernel_case(name, B, Sq, Skv, H, Hk, hd, offsets, causal, gen,
           f"(mean |diff| {out['mean_abs_err']} > {MEAN_REL_TOL} x mean "
           f"|plain| {out['mean_abs_plain']})")
     if timed:
-        out["ms"] = cuda_ms(lambda: ops.flash_attention(q, k, v, off, causal),
-                            50)
+        def call():
+            return ops.flash_attention(q, k, v, off, causal)
+        out["ms"] = cuda_ms(call, 50)
+        out["device_ms"] = graph_ms(call)
+        out["host_us"] = host_us(call)
         out["plain_ms"] = cuda_ms(
             lambda: ref.attention_plain(q, k, v, off, causal), 20)
         # yardstick: one PyTorch call computing the same function
@@ -448,12 +535,29 @@ def mm_bound(m, k, n, elt):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def mma_variant(x, w):
+    """x @ w through the mma.sync variant on row-major copies, launched
+    directly (no count): what the wgmma variant is held to bit for bit."""
+    import torch
+    from repro_torch.kernels import _build, collective_matmul as cm
+    xc, wc = x.contiguous(), w.contiguous()
+    (m, k), n = xc.shape, wc.shape[1]
+    out = torch.empty((m, n), dtype=xc.dtype, device=xc.device)
+    err = _build.launch(xc.device, cm._lib().matmul_chunk_bf16, xc.data_ptr(),
+                     wc.data_ptr(), out.data_ptr(), m, n, k, k, n, n,
+                     int(k % 8 == 0 and n % 8 == 0))
+    check(err == 0, f"matmul_chunk_bf16 launch failed: CUDA error {err}")
+    return out
+
+
 def mm_case(name, m, k, n, gen, dtype="bfloat16", timed=False, x=None,
             w=None):
     """The chunk-matmul kernel against its plain version (x @ w) on the
-    card, within the tolerance stated at MM_MEAN_REL_TOL."""
+    card, within the tolerance stated at MM_MEAN_REL_TOL; a bf16 product
+    of the wgmma variant also equal to the mma.sync variant's bit for
+    bit."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import collective_matmul as cm, ops, ref
 
     dt = getattr(torch, dtype)
     if x is None:
@@ -469,8 +573,12 @@ def mm_case(name, m, k, n, gen, dtype="bfloat16", timed=False, x=None,
     if dt == torch.bfloat16:
         expo = torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126)))
         bound = bound + torch.exp2(expo - 7)
+    plan = cm.launch_plan(x, w)
     out = {"kernel": "matmul_chunk", "case": name, "M": m, "K": k, "N": n,
-           "dtype": dtype, "max_abs_err": d.max().item(),
+           "dtype": dtype, "variant": plan.variant,
+           "layout": {"x_col_major": plan.x_mn, "w_row_major": plan.w_mn,
+                      "lda": plan.lda, "ldb": plan.ldb},
+           "max_abs_err": d.max().item(),
            "mean_abs_err": d.mean().item(),
            "mean_abs_plain": want.float().abs().mean().item(),
            "elements_equal_share": (d == 0).float().mean().item(),
@@ -484,8 +592,16 @@ def mm_case(name, m, k, n, gen, dtype="bfloat16", timed=False, x=None,
         check(out["mean_abs_err"] <= MM_MEAN_REL_TOL * out["mean_abs_plain"],
               f"matmul_chunk {name}: mean |diff| {out['mean_abs_err']} > "
               f"{MM_MEAN_REL_TOL} x mean |plain| {out['mean_abs_plain']}")
+    if plan.variant == "tma":
+        out["equal_mma_variant"] = bool(torch.equal(got, mma_variant(x, w)))
+        check(out["equal_mma_variant"], f"matmul_chunk {name}: the wgmma "
+              "and mma.sync variants give different bits")
     if timed:
-        out["ms"] = cuda_ms(lambda: ops.matmul_chunk(x, w), 50)
+        def call():
+            return ops.matmul_chunk(x, w)
+        out["ms"] = cuda_ms(call, 50)
+        out["device_ms"] = graph_ms(call)
+        out["host_us"] = host_us(call)
         out["plain_ms"] = cuda_ms(lambda: ref.matmul_chunk_plain(x, w), 50)
         # the library call is the same torch.matmul as the plain version
         out["library_ms"] = cuda_ms(lambda: torch.matmul(x, w), 50)
@@ -497,22 +613,27 @@ def mm_case(name, m, k, n, gen, dtype="bfloat16", timed=False, x=None,
 def column_identity(name, x, w_full, n_ranks):
     """The ring's contract on the card: kernel(x, w_full)'s column block
     j equals kernel(x, w_chunk_j) bit for bit, for the chunk read in
-    place (a row-strided slice) and copied out."""
+    place (a row-strided slice) and copied out; records the variant each
+    took (a copied chunk whose width is not a multiple of 8 takes the
+    mma.sync variant where the full matrix takes the wgmma one)."""
     import torch
     from repro_torch.kernels import collective_matmul as cm
 
     full = cm.matmul_chunk(x, w_full)
     nc = w_full.shape[1] // n_ranks
-    ok = True
+    ok, variants = True, set()
     for j in range(n_ranks):
         sl = w_full[:, j * nc:(j + 1) * nc]
         blk = full[:, j * nc:(j + 1) * nc]
-        ok &= torch.equal(cm.matmul_chunk(x, sl), blk)
-        ok &= torch.equal(cm.matmul_chunk(x, sl.contiguous()), blk)
+        for chunk in (sl, sl.contiguous()):
+            ok &= torch.equal(cm.matmul_chunk(x, chunk), blk)
+            variants.add(cm.launch_plan(x, chunk).variant)
     torch.cuda.synchronize()
     check(ok, f"matmul_chunk {name}: a column block differs from the "
           "chunk's own product")
-    return {"case": name, "column_identity_bit_exact": ok}
+    return {"case": name, "column_identity_bit_exact": ok,
+            "variants": {"full": cm.launch_plan(x, w_full).variant,
+                         "chunks": sorted(variants)}}
 
 
 def phase_mm_kernels():
@@ -520,16 +641,23 @@ def phase_mm_kernels():
     mesh pod 2 x data 2: a rank holds 2 sequences x 512 = 1,024 tokens;
     the ring over data has n = 2 chunks of half of d_model's 2,048
     columns): wo's chunk, w_out's chunk, mode 'both''s dx and dw chunks
-    of w_out, and test_fused_matmul.py's ragged shapes in bf16 and f32.
-    Also the transposes 'both' copies to contiguous, timed. Returns
-    (main case, {case: timed case})."""
+    of w_out with ``chunk.T`` and ``x2.T`` read in place (as the ring
+    hands them over), and test_fused_matmul.py's ragged shapes in bf16
+    and f32. Also the transposes the parent copied to contiguous, timed
+    as a record of what is gone. Returns (main case, {case: timed
+    case})."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     tok, d, f = 1024, 2048, 11008
-    main = mm_case("w_out_chunk", tok, f, d // 2, gen, timed=True)
+    x2 = torch.randn(tok, f, generator=gen, device="cuda").bfloat16()
+    chunk = torch.randn(f, d // 2, generator=gen, device="cuda").bfloat16()
+    g2 = torch.randn(tok, d, generator=gen, device="cuda").bfloat16()
+    main = mm_case("w_out_chunk", tok, f, d // 2, gen, timed=True, x=x2)
     timed = [mm_case("wo_chunk", tok, d, d // 2, gen, timed=True),
-             mm_case("both_dx_w_out", tok, d // 2, f, gen, timed=True),
-             mm_case("both_dw_w_out", f, tok, d // 2, gen, timed=True)]
+             mm_case("both_dx_w_out", tok, d // 2, f, gen, timed=True,
+                     x=g2[:, :d // 2], w=chunk.t()),
+             mm_case("both_dw_w_out", f, tok, d // 2, gen, timed=True,
+                     x=x2.t(), w=g2[:, d // 2:])]
     extra = [mm_case(f"ragged_{m}x{k}x{n}", m, k, n, gen, dtype=dt)
              for m, k, n in ((7, 96, 100), (130, 32, 257), (1, 16, 1))
              for dt in ("bfloat16", "float32")]
@@ -543,10 +671,18 @@ def phase_mm_kernels():
                f, d, generator=gen, device="cuda").bfloat16(), 2),
            column_identity("f32_ragged", torch.randn(
                130, 96, generator=gen, device="cuda"), torch.randn(
-               96, 2 * 129, generator=gen, device="cuda"), 2)]
-    chunk = torch.randn(f, d // 2, generator=gen, device="cuda").bfloat16()
+               96, 2 * 129, generator=gen, device="cuda"), 2),
+           # 512 tiles (two a CTA) whole, 128 (one a CTA) a chunk
+           column_identity("wide", x[:, :d // 2], torch.randn(
+               d // 2, 4 * d // 2, generator=gen, device="cuda").bfloat16(),
+               4),
+           # chunks of 100 columns: in place the wgmma variant (its map
+           # starts at the base rounded down), copied the mma.sync one
+           column_identity("bf16_chunk_100", torch.randn(
+               70, 96, generator=gen, device="cuda").bfloat16(), torch.randn(
+               96, 2 * 100, generator=gen, device="cuda").bfloat16(), 2)]
     copies = {"chunk_T_ms": cuda_ms(lambda: chunk.t().contiguous(), 50),
-              "x2_T_ms": cuda_ms(lambda: xf.t().contiguous(), 50)}
+              "x2_T_ms": cuda_ms(lambda: x2.t().contiguous(), 50)}
     for c in [main] + timed + extra + ids:
         emit("kernels", **c)
     emit("kernels", kernel="matmul_chunk", case="both_transpose_copies",
@@ -1606,8 +1742,12 @@ def main() -> int:
     phase_train_parity()
 
     def entry(c):
+        # the redesigned kernels also carry the variant each shape took,
+        # their device time (a CUDA graph) and their host time per call
         return {k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "variant", "device_ms", "host_us")
+                if k in c}
     kernels = {"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL, "launches": launches,

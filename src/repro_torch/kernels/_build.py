@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, which the wrappers load with
 ``ctypes``. Libraries land in ``kernels/build/`` (listed in
-``.gitignore``), named by a digest of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. ``build``
+``.gitignore``), named by a digest of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. ``build``
 starts one ``nvcc`` per missing library, all together, and prints each
 build's time to stderr.
 """
@@ -46,10 +47,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a digest of its source,
+    of every header beside it (``*.cuh``, which a source may include) and
+    of the flags: an edit to any of them names a new library."""
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -94,3 +100,14 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of kernel ``name`` (building it on first use)."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def launch(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a kernel's C entry point called with
+    ``device``'s current stream (switching the current device only when
+    it is another). Returns the entry point's CUDA error code."""
+    import torch
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -39,17 +39,18 @@ backward too (dx ring and ``ring_matmul_rs``, each chunk through the
 kernel), which reorders the dx sum: exact against ``kernels/ref.py``'s
 ring oracles, close to the unfused gradients.
 
-The kernel reads both operands by rows (row strides are arguments, so a
-column slice of a row-major matrix is read in place). A column-major
-operand is copied to row-major before it on the card: the stage-1
-tensor (the tiled all-gather's layout) in the forward ring, and mode
-'both''s transposed operands (``chunk.T``, ``x2.T``).
+On the card bf16 operands are read in place, row-major or column-major
+(``launch_plan``: the wgmma + TMA variant, with the transpose bits): the
+stage-1 tensor in the forward ring and mode 'both''s transposed operands
+(``chunk.T``, ``x2.T``) are not copied. Only an operand TMA cannot take
+in a column-major layout (a leading dimension not a multiple of 8) is
+copied to row-major, for the mma.sync variant; float32 operands too.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -62,15 +63,21 @@ def _lib():
     ptr, i32, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.matmul_chunk_bf16.argtypes = [ptr, ptr, ptr, i32, i32, i32, ll, ll,
                                       ll, i32, ptr]
+    lib.matmul_chunk_bf16_tma.argtypes = [ptr, ptr, ptr, i32, i32, i32, ll,
+                                          ll, ll, i32, i32, ptr]
     lib.matmul_chunk_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, ll, ll,
                                      ll, ptr]
-    lib.matmul_chunk_bf16.restype = lib.matmul_chunk_f32.restype = i32
+    for fn in (lib.matmul_chunk_bf16, lib.matmul_chunk_bf16_tma,
+               lib.matmul_chunk_f32):
+        fn.restype = i32
     return lib
 
 
-def _check_rows(name: str, t: torch.Tensor, device) -> None:
-    """A 2-D CUDA matrix whose rows are contiguous (a row stride of at
-    least its width: a column slice of a row-major matrix qualifies)."""
+def _layout(name: str, t: torch.Tensor, device) -> Tuple[bool, int]:
+    """(column-major?, leading dimension) of a 2-D CUDA matrix whose rows
+    or columns are contiguous; rows win where both are (a single row or
+    column). A column slice of a row-major matrix, or a row slice of a
+    column-major one, qualifies."""
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name} must lie on a CUDA device"
                          f"{'' if device is None else f' ({device})'}, is on "
@@ -80,57 +87,116 @@ def _check_rows(name: str, t: torch.Tensor, device) -> None:
     if t.dim() != 2 or 0 in t.shape:
         raise ValueError(f"{name} must be a non-empty matrix, is "
                          f"{tuple(t.shape)}")
-    if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
-        raise ValueError(f"{name} must have contiguous rows, has strides "
-                         f"{t.stride()}")
+    (r, c), (s0, s1) = t.shape, t.stride()
+    if s1 == 1 and (s0 >= c or r == 1):
+        return False, max(s0, c) if r == 1 else s0
+    if s0 == 1 and (s1 >= r or c == 1):
+        return True, max(s1, r) if c == 1 else s1
+    raise ValueError(f"{name} must have contiguous rows or columns, has "
+                     f"strides {t.stride()}")
+
+
+class Launch(NamedTuple):
+    """How ``matmul_chunk`` runs a product: ``variant`` "tma" (wgmma +
+    TMA, operands in place), "mma" (mma.sync, operands row-major) or
+    "f32"; ``x_mn`` / ``w_mn`` the wgmma transpose bits (x column-major /
+    w row-major); ``lda`` / ``ldb`` the leading dimensions; ``copy_x`` /
+    ``copy_w``: the operand is column-major and its kernel reads rows, so
+    it is copied to row-major first."""
+    variant: str
+    x_mn: bool
+    lda: int
+    w_mn: bool
+    ldb: int
+    copy_x: bool
+    copy_w: bool
+
+
+def _tma_ok(t: torch.Tensor, mn_major: bool, ld: int) -> bool:
+    # TMA: a row pitch of a multiple of 16 bytes; a K-major base 16-byte
+    # aligned (an MN-major map starts at the base rounded down)
+    return ld % 8 == 0 and (mn_major or t.data_ptr() % 16 == 0)
+
+
+def launch_plan(x: torch.Tensor, w: torch.Tensor) -> Launch:
+    """The variant and operand layout for ``x @ w`` on the card.
+
+    bf16 takes the wgmma + TMA variant when TMA reads both operands in
+    place: each row- or column-major with a leading dimension of a
+    multiple of 8 elements, and a K-major one (x row-major, w
+    column-major) 16-byte aligned. An MN-major operand (x column-major, w
+    row-major) may start at any element, so a column chunk of a weight
+    takes the variant its full matrix takes. Anything else takes the
+    mma.sync variant, which reads rows; float32 takes the CUDA-core
+    kernel, which reads rows too. Both bf16 variants give the same bits
+    (held on the card by chip_smoke.py)."""
+    x_cols, lda = _layout("x", x, None)
+    w_cols, ldb = _layout("w", w, x.device)
+    if w.dtype != x.dtype:
+        raise ValueError(f"x and w must share a dtype: {x.dtype} vs "
+                         f"{w.dtype}")
+    if x.shape[1] != w.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
+                         "chain")
+    x_mn, w_mn = x_cols, not w_cols
+    if x.dtype == torch.bfloat16 and _tma_ok(x, x_mn, lda) \
+            and _tma_ok(w, w_mn, ldb):
+        return Launch("tma", x_mn, lda, w_mn, ldb, False, False)
+    variant = "mma" if x.dtype == torch.bfloat16 else "f32"
+    return Launch(variant, False, x.shape[1] if x_cols else lda, True,
+                  w.shape[1] if w_cols else ldb, x_cols, w_cols)
+
+
+def _new_output(m: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty((m, n), dtype=like.dtype, device=like.device)
 
 
 def matmul_chunk(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` through the CUDA kernel: x [M, K], w [K, N], both
-    bfloat16 or both float32 on one card, rows contiguous. Returns a new
-    contiguous [M, N] of their dtype (fp32 accumulation; float32 on the
-    CUDA cores, never TF32)."""
-    _check_rows("x", x, None)
-    _check_rows("w", w, x.device)
-    if w.dtype != x.dtype:
-        raise ValueError(f"x and w must share a dtype: {x.dtype} vs "
-                         f"{w.dtype}")
-    (m, k), (k2, n) = x.shape, w.shape
-    if k != k2:
-        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
-                         "chain")
+    bfloat16 or both float32 on one card, each with contiguous rows or
+    columns (``launch_plan`` picks the variant). Returns a new contiguous
+    [M, N] of their dtype (fp32 accumulation; float32 on the CUDA cores,
+    never TF32)."""
+    plan = launch_plan(x, w)
     lib = _lib()
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16:
+    (m, k), n = x.shape, w.shape[1]
+    out = _new_output(m, n, x)
+    if plan.variant == "tma":
+        err = _build.launch(x.device, lib.matmul_chunk_bf16_tma, x.data_ptr(),
+                      w.data_ptr(), out.data_ptr(), m, n, k, plan.lda,
+                      plan.ldb, n, int(plan.x_mn), int(plan.w_mn))
+    else:
+        if plan.copy_x:
+            x = x.contiguous()
+        if plan.copy_w:
+            w = w.contiguous()
+        if plan.variant == "mma":
             vec = (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-                   and x.stride(0) % 8 == 0 and w.stride(0) % 8 == 0
+                   and plan.lda % 8 == 0 and plan.ldb % 8 == 0
                    and k % 8 == 0 and n % 8 == 0)
-            err = lib.matmul_chunk_bf16(x.data_ptr(), w.data_ptr(),
-                                        out.data_ptr(), m, n, k, x.stride(0),
-                                        w.stride(0), n, int(vec), stream)
+            err = _build.launch(x.device, lib.matmul_chunk_bf16, x.data_ptr(),
+                          w.data_ptr(), out.data_ptr(), m, n, k, plan.lda,
+                          plan.ldb, n, int(vec))
         else:
-            err = lib.matmul_chunk_f32(x.data_ptr(), w.data_ptr(),
-                                       out.data_ptr(), m, n, k, x.stride(0),
-                                       w.stride(0), n, stream)
+            err = _build.launch(x.device, lib.matmul_chunk_f32, x.data_ptr(),
+                          w.data_ptr(), out.data_ptr(), m, n, k, plan.lda,
+                          plan.ldb, n)
     if err != 0:
-        raise RuntimeError(f"matmul_chunk launch failed: CUDA error {err}")
+        raise RuntimeError(f"matmul_chunk ({plan.variant}) launch failed: "
+                           f"CUDA error {err}")
     return out
 
 
 def _chunk_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One per-chunk matmul on x of any rank ([..., K] @ [K, Nc]),
-    through the counting dispatcher. The kernel reads its operands by
-    rows, so on the card a column-major chunk (the stage-1 tensor, as
-    the tiled all-gather lays it out, or a transposed one) is copied to
-    row-major first; the plain version takes any layout."""
+    through the counting dispatcher. On the card the kernel reads each
+    operand in its layout (the stage-1 chunk, ``chunk.T`` and ``x2.T``
+    in place); on the CPU a column-major x is made contiguous first, so
+    the plain version's bits do not depend on it."""
     from repro_torch.kernels import ops
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.stride(-1) != 1:
+    if x2.device.type != "cuda" and x2.stride(-1) != 1:
         x2 = x2.contiguous()
-    if w.stride(-1) != 1 and w.device.type == "cuda":
-        w = w.contiguous()
     return ops.matmul_chunk(x2, w).reshape(x.shape[:-1] + (w.shape[1],))
 
 

@@ -16,33 +16,44 @@
 // q_offset int32 [B]. GQA is read by index (q head h reads kv head
 // h / (H/Hk)), so the caller never materializes expanded K/V.
 //
-// What bounds it on this card: at the serve path's shapes the kernel
-// is small next to the layer's matmuls. A prefill chunk (Sq 128 over a
-// 512-token window, hd 128) does ~64 flops per byte it must move, under
-// the H100's ~295 bf16 flops/byte ridge, so the bound is memory; decode
-// (Sq 1) is far below the ridge and purely memory-bound. The design:
-//   - one thread block per (q tile, head, batch row); a loop inside the
-//     block walks the kv tiles (the TPU grid's sequential minor axis);
-//   - Q/K/V tiles in shared memory (rows padded by 8 elements so the
-//     fragment loads hit distinct banks), m/l/acc in fp32 registers;
-//   - both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//     fp32 accumulate); P is rounded to bf16 for the P.V product, the
-//     one place this kernel rounds where the TPU kernel does not;
-//   - kv tiles wholly above the diagonal are never loaded (the loop
-//     stops at the row tile's last visible key), ragged ends are masked
-//     in the kernel;
-//   - masked scores are -1e30 as in the JAX code, and their p is set to
-//     exactly 0, so stale or scratch KV rows (finite) contribute nothing;
-//   - four warps per block, 16 query rows each; decode (Sq 1) runs the
-//     same block with one live row: all 128 threads share the tile
-//     loads, and warps whose rows all lie past Sq skip the arithmetic.
-// Not yet done (a later PR's work): wgmma/TMA, cp.async double
-// buffering, split-kv for decode, packing the H/Hk query heads that
-// share a kv head into one tile.
+// What bounds it on this card: a prefill chunk (Sq 128 over a 512-token
+// window, hd 128) does ~64 flops per byte it must move, jamba's prompt
+// (Sq 512 over 544 keys, GQA 4) ~200, both under the H100's ~295 bf16
+// flops/byte ridge, so the bound is memory; decode (Sq 1) is far below
+// it. Two variants, chosen by the wrapper from the shapes:
+//   - prefill, hd 128 and Sq >= 64 with H / Hk dividing 64
+//     (``flash_attention_fwd_bf16_tma``): one CTA per (2T query tokens,
+//     kv head, batch row) serves all G = H / Hk query heads of the kv
+//     head, T = 64 / G tokens x G heads per consumer warpgroup, so each
+//     K/V tile is read once per GQA group (the old kernel read it once
+//     per q head: 4x for jamba, 8x for qwen2.5-3b). A producer warp
+//     loads Q once and K/V tiles of 64 keys through a 2-stage mbarrier
+//     ring by TMA (4-D maps over [B, S, H, hd]; 128-byte swizzle; keys
+//     past Skv and tokens past Sq read as zero). Two consumer
+//     warpgroups: S = Q K^T by wgmma m64n64k16 (both K-major in shared
+//     memory), the online softmax in fp32 registers (exp2 with the scale
+//     folded into log2 units), P rounded to bf16 in registers and O +=
+//     P V by wgmma m64n128k16 with A from registers and V MN-major (the
+//     transpose bit). Causal q tiles launch heaviest first, and kv tiles
+//     above the diagonal are never loaded. ~99 KB of shared memory, one
+//     CTA of 288 threads per SM;
+//   - everything else (decode, short queries, hd 16/32/64): one thread
+//     block per (q tile, head, batch row), a loop inside the block walks
+//     the kv tiles (the TPU grid's sequential minor axis); Q/K/V tiles in
+//     padded shared memory, m/l/acc in fp32 registers; both products on
+//     mma.sync m16n8k16; four warps per block, 16 query rows each;
+//     decode (Sq 1) runs the same block with one live row.
+// Both: masked scores are -1e30 as in the JAX code, and their p is set
+// to exactly 0, so stale or scratch KV rows (finite) contribute nothing;
+// P is rounded to bf16 for the P.V product, the one place these kernels
+// round where the TPU kernel does not. Not yet done: split-kv for
+// decode, other head dims and dtypes in the prefill variant.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -266,6 +277,206 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// -- the prefill variant: wgmma + TMA, hd 128, Sq >= 64 -----------------------
+//
+// A CTA serves the G = H / Hk query heads of one kv head over 2T query
+// tokens (T = 64 / G): two consumer warpgroups of 64 rows each, row r of
+// warpgroup w being token q0 + w T + r / G, head kvh G + r % G (a 4-D TMA
+// box {64 of hd, G heads, T tokens, 1 batch row} of q lands in exactly that
+// order), and one producer warp. Each K/V tile is loaded once for the whole
+// GQA group.
+constexpr int P_HD = 128;                    // head dim of this variant
+constexpr int P_BKV = 64;                    // keys per kv tile
+constexpr int P_WG = 2;                      // consumer warpgroups
+constexpr int P_THREADS = P_WG * 128 + 32;   // + the producer warp
+constexpr int P_BOX = 64 * 64 * 2;           // one 64 x 64 bf16 box
+constexpr int P_Q_BYTES = P_WG * 2 * P_BOX;  // 2 hd halves per warpgroup
+constexpr int P_KV_BYTES = 4 * P_BOX;        // K and V, 2 hd halves each
+constexpr int P_STAGES = 2;
+constexpr int P_SMEM = P_Q_BYTES + P_STAGES * P_KV_BYTES + 1024 + 64;
+
+__global__ void __launch_bounds__(P_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const int* __restrict__ q_offset,
+                       __nv_bfloat16* __restrict__ out, int Sq, int Skv,
+                       int H, int Hk, int causal, float scale_log2) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = sm;                          // [wg][half] boxes
+  unsigned char* kvs = sm + P_Q_BYTES;             // [stage][K0 K1 V0 V1]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kvs + P_STAGES * P_KV_BYTES);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + P_STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = H / Hk, T = 64 / G;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  // causal: the heaviest q tiles (the last) first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * P_WG * T;                    // first token of the CTA
+  const int off = q_offset[b];
+  int n_tiles = (Skv + P_BKV - 1) / P_BKV;
+  if (causal)
+    n_tiles = min(n_tiles, (off + min(q0 + P_WG * T, Sq) - 1) / P_BKV + 1);
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < P_STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], P_WG * 4);           // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == P_WG * 4) {
+    // producer
+    if (lane == 0) {
+      tma_prefetch_desc(&map_q);
+      tma_prefetch_desc(&map_k);
+      tma_prefetch_desc(&map_v);
+      mbar_expect_tx(q_full, P_Q_BYTES);
+      for (int w = 0; w < P_WG; ++w)
+        for (int h = 0; h < 2; ++h)
+          tma_load_4d(qs + (2 * w + h) * P_BOX, &map_q, q_full, 64 * h,
+                      kvh * G, q0 + w * T, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % P_STAGES;
+        if (j >= P_STAGES)
+          mbar_wait(&kv_empty[s], ((j / P_STAGES) - 1) & 1);
+        mbar_expect_tx(&kv_full[s], P_KV_BYTES);
+        unsigned char* st = kvs + s * P_KV_BYTES;
+        for (int h = 0; h < 2; ++h) {
+          tma_load_4d(st + h * P_BOX, &map_k, &kv_full[s], 64 * h, kvh,
+                      j * P_BKV, b);
+          tma_load_4d(st + (2 + h) * P_BOX, &map_v, &kv_full[s], 64 * h, kvh,
+                      j * P_BKV, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg, warp w of it
+  const int wg = warp >> 2, w = warp & 3;
+  int tok[2], head[2], qpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * w + (lane >> 2) + 8 * r;
+    tok[r] = q0 + wg * T + row / G;
+    head[r] = kvh * G + row % G;
+    qpos[r] = off + tok[r];
+  }
+  const uint32_t q_addr = smem_u32(qs + 2 * wg * P_BOX);
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};                         // this thread's partials
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % P_STAGES;
+    const int k_start = j * P_BKV;
+    mbar_wait(&kv_full[s], (j / P_STAGES) & 1);
+    const uint32_t k_addr = smem_u32(kvs + s * P_KV_BYTES);
+    const uint32_t v_addr = k_addr + 2 * P_BOX;
+
+    // S = Q K^T: both K-major; hd in 8 k16 steps over the two boxes
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < P_HD / 16; ++kk) {
+      const uint32_t step = (kk >> 2) * P_BOX + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(sc, desc_sw128(q_addr + step, 16, 1024),
+                         desc_sw128(k_addr + step, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // scale (in log2 units), mask, running max; element 4j + e: row
+    // r = e >> 1 of the thread's two, key k_start + 8j + 2 (lane % 4) +
+    // (e & 1)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k_start + 8 * jj + 2 * (lane & 3) + (e & 1);
+        const bool ok = kpos < Skv && (!causal || kpos <= qpos[e >> 1]);
+        const float val = ok ? sc[4 * jj + e] * scale_log2 : NEG_INF;
+        sc[4 * jj + e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = sc[i] == NEG_INF ? 0.f
+                                       : exp2f(sc[i] - m[(i >> 1) & 1]);
+      sc[i] = p;
+      ls[(i >> 1) & 1] += p;
+    }
+    l[0] = l[0] * corr[0] + ls[0];
+    l[1] = l[1] * corr[1] + ls[1];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: P (bf16) from registers, the S accumulators of keys
+    // 16kk .. 16kk + 15 being the A fragment of k16 step kk; V MN-major
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = pack_f32(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_rs_tb(o, pa[kk],
+                             desc_sw128(v_addr + kk * 2048, P_BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&kv_empty[s]);
+  }
+
+  // row sums across the four threads of each row, then store
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-20f);
+  }
+  const int B_idx = b;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (tok[r] >= Sq) continue;
+    __nv_bfloat16* orow =
+        out + ((static_cast<size_t>(B_idx) * Sq + tok[r]) * H + head[r]) *
+                  P_HD + 2 * (lane & 3);
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj) =
+          pack_f32(o[4 * jj + 2 * r] * l[r], o[4 * jj + 2 * r + 1] * l[r]);
+  }
+}
+
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_offset, void* out, int B, int Sq, int Skv,
@@ -313,4 +524,57 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The prefill variant (hd 128; the wrapper sends Sq >= 64 and H / Hk
+// dividing 64). Same arguments as flash_attention_fwd_bf16 but hd.
+// Returns cudaErrorInvalidValue for what it does not take, else
+// cudaGetLastError() after the launch.
+extern "C" int flash_attention_fwd_bf16_tma(const void* q, const void* k,
+                                            const void* v,
+                                            const void* q_offset, void* out,
+                                            int B, int Sq, int Skv, int H,
+                                            int Hk, int causal, float scale,
+                                            void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hk <= 0 || H % Hk != 0 ||
+      64 % (H / Hk) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / Hk, T = 64 / G;
+  const cuuint64_t hd_b = P_HD * 2;
+  CUtensorMap mq, mk, mv;
+  {
+    const cuuint64_t dims[4] = {P_HD, static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(Sq),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {hd_b, hd_b * H, hd_b * H * Sq};
+    const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(G),
+                               static_cast<cuuint32_t>(T), 1};
+    if (!hopper::encode_bf16(&mq, q, 4, dims, strides, box))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  {
+    const cuuint64_t dims[4] = {P_HD, static_cast<cuuint64_t>(Hk),
+                                static_cast<cuuint64_t>(Skv),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {hd_b, hd_b * Hk, hd_b * Hk * Skv};
+    const cuuint32_t box[4] = {64, 1, P_BKV, 1};
+    if (!hopper::encode_bf16(&mk, k, 4, dims, strides, box) ||
+        !hopper::encode_bf16(&mv, v, 4, dims, strides, box))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        P_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((Sq + P_WG * T - 1) / (P_WG * T), Hk, B);
+  flash_fwd_wgmma_kernel<<<grid, P_THREADS, P_SMEM,
+                           static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, static_cast<const int*>(q_offset),
+      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hk, causal,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }

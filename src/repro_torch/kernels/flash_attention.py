@@ -5,6 +5,12 @@
 It checks what the kernel takes, allocates the output and launches on
 PyTorch's current stream. It never falls back: a tensor the kernel does
 not take raises. ``kernels.ref.attention_plain`` is its plain version.
+
+Two variants of one function (``variant``): the prefill variant (wgmma
++ TMA, the GQA group's query heads packed into one CTA) takes hd 128,
+Sq >= 64 and a GQA group size H / Hk that divides 64 -- the prefill of
+qwen2.5-3b's paged chunks and of jamba's prompts; everything else
+(decode, Sq < 64, hd 16/32/64) takes the mma.sync kernel.
 """
 from __future__ import annotations
 
@@ -21,12 +27,27 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("flash_attention").flash_attention_fwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _kernels():
+    lib = _build.load("flash_attention")
+    fns = {"mma": lib.flash_attention_fwd_bf16,
+           "tma": lib.flash_attention_fwd_bf16_tma}
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fns["mma"].argtypes = ([ptr] * 5 + [i32] * 7 + [ctypes.c_float, ptr])
+    fns["tma"].argtypes = ([ptr] * 5 + [i32] * 6 + [ctypes.c_float, ptr])
+    for fn in fns.values():
+        fn.restype = i32
+    return fns
+
+
+def variant(Sq: int, H: int, Hk: int, hd: int) -> str:
+    """"tma" (the wgmma + TMA prefill kernel) for hd 128, Sq >= 64 and
+    H / Hk dividing 64; "mma" (the mma.sync kernel) otherwise."""
+    return "tma" if hd == 128 and Sq >= 64 and 64 % (H // Hk) == 0 \
+        else "mma"
+
+
+def _new_output(q: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(q)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,13 +87,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_offset must be [{B}], is "
                          f"{tuple(q_offset.shape)}")
     scale = softmax_scale or (1.0 / math.sqrt(hd))
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        q_offset.data_ptr(), out.data_ptr(), B, Sq, Skv, H,
-                        Hk, hd, int(causal), scale, stream)
+    kind = variant(Sq, H, Hk, hd)
+    fn = _kernels()[kind]
+    out = _new_output(q)
+    shape = (B, Sq, Skv, H, Hk) + ((hd,) if kind == "mma" else ())
+    err = _build.launch(q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  q_offset.data_ptr(), out.data_ptr(), *shape, int(causal),
+                  scale)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd_bf16 launch failed: CUDA "
+        raise RuntimeError(f"flash attention ({kind}) launch failed: CUDA "
                            f"error {err}")
     return out

@@ -47,7 +47,7 @@ from repro_torch.core.collectives import Collectives
 from repro_torch.core.engine import StepBundle
 from repro_torch.core.engine.train import matmul_chunk_launch_plan
 from repro_torch.core.fcdp import AllGather
-from repro_torch.kernels import collective_matmul as cm
+from repro_torch.kernels import _build, collective_matmul as cm
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import MeshShape, RankMesh, train_mesh_shape
 
@@ -338,3 +338,143 @@ def test_launch_plan_at_the_smoke_runs_width(fused, want):
     assert matmul_chunk_launch_plan(b) == want
     assert sum(p.is_fused for p in b.plan_leaves) == (0 if fused == "none"
                                                        else 2)
+
+
+# -- the kernel's variants on the card (launch_plan), with stand-ins ----------
+
+class _FakeMat:
+    """Stands in for a bf16 CUDA matrix view: a shape, element strides and
+    an address. A copy would show as a call to ``contiguous``, which
+    fails the test."""
+    device = torch.device("cuda", 0)
+    dtype = torch.bfloat16
+
+    def __init__(self, shape, strides, ptr=0):
+        self.shape, self._strides, self._ptr = torch.Size(shape), \
+            tuple(strides), ptr
+
+    @classmethod
+    def rows(cls, r, c, ptr=0):
+        return cls((r, c), (c, 1), ptr)
+
+    def dim(self):
+        return 2
+
+    def stride(self, i=None):
+        return self._strides if i is None else self._strides[i]
+
+    def data_ptr(self):
+        return self._ptr
+
+    def t(self):
+        return _FakeMat(self.shape[::-1], self._strides[::-1], self._ptr)
+
+    def cols(self, j0, j1):
+        """The column slice [:, j0:j1]."""
+        return _FakeMat((self.shape[0], j1 - j0), self._strides,
+                        self._ptr + 2 * j0 * self._strides[1])
+
+    def reshape(self, *shape):
+        assert tuple(shape) in ((-1, self.shape[1]), tuple(self.shape))
+        return self
+
+    def contiguous(self):
+        pytest.fail("an operand was copied")
+
+
+@pytest.fixture
+def fake_launches(monkeypatch):
+    """Replaces the built library, the output allocation and the stream
+    with recorders; yields the list of (entry point, args) launched."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: calls.append((name, a)) or 0
+    monkeypatch.setattr(cm, "_lib", lambda: Lib())
+    monkeypatch.setattr(cm, "_new_output", lambda m, n, like: torch.empty(
+        (m, n), dtype=torch.bfloat16))
+    monkeypatch.setattr(_build, "launch", lambda device, fn, *a: fn(*a, 0))
+    return calls
+
+
+# the train phase's shapes: 1,024 tokens, d_model 2,048, d_ff 11,008, a
+# ring of n = 2 over data (chunks of 1,024 output columns)
+TOK, DM, DFF = 1024, 2048, 11008
+
+
+@pytest.mark.parametrize("case", ["forward", "forward_stage1_col_major",
+                                  "both_dx_chunk_T", "both_dw_x2_T"])
+def test_smoke_shapes_reach_the_wgmma_variant_in_place(case, fake_launches):
+    """The forward chunk, mode 'both''s ``chunk.T`` and ``x2.T`` take the
+    wgmma + TMA variant with their own layout (the transpose bits) and
+    leading dimensions: no operand is copied."""
+    g2 = _FakeMat.rows(TOK, DM, ptr=1 << 20)
+    chunk = _FakeMat.rows(DFF, DM // 2, ptr=1 << 24)
+    x2 = _FakeMat.rows(TOK, DFF, ptr=1 << 28)
+    x, w, want = {
+        "forward": (x2, chunk, (0, DFF, 1, DM // 2)),
+        "forward_stage1_col_major": (
+            x2, _FakeMat((DFF, DM // 2), (1, DFF)), (0, DFF, 0, DFF)),
+        "both_dx_chunk_T": (g2.cols(DM // 2, DM), chunk.t(),
+                            (0, DM, 0, DM // 2)),
+        "both_dw_x2_T": (x2.t(), g2.cols(0, DM // 2), (1, DFF, 1, DM)),
+    }[case]
+    launches = ops.matmul_chunk.launches
+    out = cm._chunk_mm(x, w)
+    assert ops.matmul_chunk.launches == launches + 1
+    assert out.shape == (x.shape[0], w.shape[1])
+    (name, args), = fake_launches
+    assert name == "matmul_chunk_bf16_tma"
+    m, n, k, lda, ldb, ldc, x_mn, w_mn = args[3:11]
+    assert (m, n, k, ldc) == (x.shape[0], w.shape[1], x.shape[1],
+                              w.shape[1])
+    assert (x_mn, lda, w_mn, ldb) == want
+    assert args[:2] == (x.data_ptr(), w.data_ptr())
+
+
+@pytest.mark.parametrize("x,w", [
+    (_FakeMat.rows(7, 96), _FakeMat.rows(96, 100)),            # ld 100
+    (_FakeMat.rows(130, 32), _FakeMat.rows(32, 257)),          # ld 257
+    (_FakeMat.rows(1, 16), _FakeMat.rows(16, 1)),              # ld 1
+    (_FakeMat.rows(64, 100).cols(4, 100), _FakeMat.rows(96, 64)),  # x + 8 B
+    (_FakeMat.rows(7, 96), _FakeMat((96, 100), (1, 100)).cols(0, 96)),
+])
+def test_ragged_and_misaligned_take_the_mma_variant(x, w):
+    """What TMA cannot read (a leading dimension not a multiple of 8, a
+    K-major operand off a 16-byte boundary) takes the mma.sync variant."""
+    plan = cm.launch_plan(x, w)
+    assert plan.variant == "mma"
+
+
+def test_mma_variant_copies_only_a_column_major_operand(fake_launches,
+                                                        monkeypatch):
+    """The mma.sync variant reads rows: a column-major operand TMA cannot
+    take is copied to row-major (and only then)."""
+    copied = []
+    monkeypatch.setattr(_FakeMat, "contiguous", lambda self: copied.append(
+        self.shape) or _FakeMat.rows(*self.shape))
+    x = _FakeMat.rows(7, 100)
+    w_col = _FakeMat((100, 36), (1, 104))     # K-major, ld 104
+    w_bad = _FakeMat((100, 36), (1, 101))     # ld 101
+    assert cm.launch_plan(x, w_col).variant == "mma"    # x's ld is 100
+    cm.matmul_chunk(x, w_bad)
+    (name, args), = fake_launches
+    assert name == "matmul_chunk_bf16" and copied == [torch.Size((100, 36))]
+    assert args[6:9] == (100, 36, 36)                           # lda ldb ldc
+
+
+@pytest.mark.parametrize("k,n,ranks", [(96, 200, 2), (2048, 2048, 2),
+                                       (11008, 2048, 2), (96, 264, 4)])
+def test_full_matrix_and_its_column_chunks_take_one_variant(k, n, ranks):
+    """A column chunk of a row-major weight starts at any element; the
+    wgmma variant's MN-major map starts at the base rounded down, so
+    every chunk takes the variant its full matrix takes (the column
+    identity the ring rests on does not meet a change of variant)."""
+    x = _FakeMat.rows(70, k, ptr=4096)
+    w = _FakeMat.rows(k, n, ptr=1 << 20)
+    full = cm.launch_plan(x, w)
+    nc = n // ranks
+    for j in range(ranks):
+        assert cm.launch_plan(x, w.cols(j * nc, (j + 1) * nc)) == full
+    assert full.variant == "tma"

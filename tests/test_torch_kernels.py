@@ -16,7 +16,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_causal_attention
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -132,3 +132,60 @@ def test_expand_kv_maps_q_head_to_kv_head():
     assert e.shape == (2, 3, 6, 1)
     for h in range(6):
         torch.testing.assert_close(e[:, :, h], k[:, :, h // 3])
+
+
+class _FakeCuda4:
+    """Stands in for a contiguous CUDA tensor of the flash wrapper."""
+    device = torch.device("cuda", 0)
+
+    def __init__(self, *shape, dtype=torch.bfloat16):
+        self.shape, self.dtype = torch.Size(shape), dtype
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0
+
+
+# (B, Sq, Skv, H, Hk, hd) -> the variant the wrapper launches
+FLASH_VARIANTS = [
+    ((8, 128, 512, 16, 2, 128), "tma"),     # qwen2.5-3b paged prefill chunk
+    ((8, 512, 544, 32, 8, 128), "tma"),     # jamba's prompt
+    ((2, 200, 200, 16, 16, 128), "tma"),    # the TPU kernel's own function
+    ((8, 64, 64, 4, 1, 128), "tma"),        # GQA 4, Sq at the threshold
+    ((8, 1, 512, 16, 2, 128), "mma"),       # decode
+    ((8, 1, 544, 32, 8, 128), "mma"),       # jamba decode
+    ((8, 63, 512, 16, 2, 128), "mma"),      # a short query
+    ((8, 128, 512, 16, 2, 64), "mma"),      # hd 64
+    ((8, 32, 128, 4, 2, 16), "mma"),        # hd 16
+    ((2, 128, 128, 12, 4, 128), "mma"),     # a GQA group of 3 (not of 64)
+]
+
+
+@pytest.mark.parametrize("shape,want", FLASH_VARIANTS)
+def test_flash_wrapper_sends_prefill_to_the_wgmma_variant(shape, want,
+                                                          monkeypatch):
+    """hd 128 with Sq >= 64 (and a GQA group dividing 64) launches the
+    wgmma + TMA prefill kernel, everything else the mma.sync kernel, with
+    the arguments each takes."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, Hk, hd = shape
+    calls = []
+    monkeypatch.setattr(fa, "_kernels", lambda: {
+        kind: (lambda *a, kind=kind: calls.append((kind, a)) or 0)
+        for kind in ("tma", "mma")})
+    monkeypatch.setattr(fa, "_new_output", lambda q: torch.empty(0))
+    monkeypatch.setattr(_build, "launch", lambda device, fn, *a: fn(*a, 0))
+    q = _FakeCuda4(B, Sq, H, hd)
+    kv = _FakeCuda4(B, Skv, Hk, hd)
+    off = _FakeCuda4(B, dtype=torch.int32)
+    flash_attention_fwd(q, kv, kv, off, True)
+    (kind, args), = calls
+    assert kind == want == fa.variant(Sq, H, Hk, hd)
+    assert args[5:10] == (B, Sq, Skv, H, Hk)
+    assert args[10:] == (((hd,) if kind == "mma" else ())
+                         + (1, pytest.approx(hd ** -0.5), 0))

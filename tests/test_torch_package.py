@@ -169,3 +169,30 @@ def test_pools_start_as_zeros():
         pool = st["pos0"]["attn"][name]
         assert pool.shape == (2, 17, 4, 1, 16)
         assert pool.dtype == torch.bfloat16 and not pool.any()
+
+
+def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is named by its source, every header beside it
+    (``csrc/*.cuh``, which the sources include) and the flags: an edit to
+    a shared header names a new library, so a stale one is never
+    loaded; an unchanged tree names the same one."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src, header = csrc / "k.cu", csrc / "shared.cuh"
+    src.write_text('#include "shared.cuh"\n')
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "SOURCES", {"k": src})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    assert first.parent == tmp_path / "build" and first.name.startswith("libk_")
+    header.write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first
+    (csrc / "added.cuh").write_text("// new\n")
+    assert _build.library_path("k") not in (first, second)
+    (csrc / "added.cuh").unlink()
+    assert _build.library_path("k") == second
+    src.write_text('#include "shared.cuh"\n// edited\n')
+    assert _build.library_path("k") not in (first, second)
