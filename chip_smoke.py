@@ -13,10 +13,12 @@ non-zero:
                 version on the card, at the TPU kernel's own function
                 and at the shapes the main path gives it; times of the
                 kernel, the plain version and one PyTorch library call
-                (the yardstick, never called by the port); for the
-                chunk matmul and the flash kernel also the variant each
-                shape took, the device time through a CUDA graph and
-                the wrapper's host time per call.
+                (the yardstick, never called by the port), the device
+                time through a CUDA graph and the wrapper's host time
+                per call; for the chunk matmul and the flash kernel
+                also the variant each shape took, and for the flash and
+                WKV kernels nvcc's registers, spills and warnings of the
+                kernel each case ran.
   3. serve   -- the main path: ``repro_torch.launch.serve.main`` serving
                 16 requests through qwen2.5-3b at full width and depth
                 (random weights from a seed); checks every request's
@@ -84,7 +86,13 @@ one) at the train phase's shapes, mode 'both''s transposed operands read
 in place, and ragged ones, and the
 RWKV-6 WKV kernel within tolerance of its plain version at the rwkv
 serve path's prefill and decode shapes, tests/test_kernels.py's sweep
-and its strong-decay case, the flash kernel at the jamba path's shapes,
+and its strong-decay case, S of 100, 37 and 1 (a last staged chunk of
+4 or 5 steps, the decode kernel) at every hd in fp32 and bf16 with and
+without a carried state (the fp32 final state within WKV_TOL in every
+case), the flash kernel at the jamba path's shapes, its split-KV decode
+variant at the edges of its splits (offset 0, last visible keys ending a
+split, ragged Skv, GQA groups of 1-16, hd 64, non-causal) and its
+keys-per-split sweep,
 and the Mamba scan kernel within tolerance of its plain version at the
 jamba path's prefill and decode shapes, tests/test_kernels.py's sweep,
 ragged shapes and a long-memory case. Then
@@ -264,6 +272,37 @@ def ptxas_summary(log: Path) -> dict:
     return out
 
 
+def case_ptxas(lib: str, kernel: str) -> dict:
+    """nvcc's report for one compiled kernel of library ``lib``
+    (``kernel_name``'s form, e.g. ``flash_decode_split_kernel<128>``):
+    registers, shared memory and spills, and every performance warning
+    ptxas printed for the library."""
+    from repro_torch.kernels import _build
+    rep = ptxas_summary(_build.library_path(lib).with_suffix(".log"))
+    return {"kernel": kernel, **rep.get(kernel, {}),
+            "warnings": rep.get("warnings", [])}
+
+
+FLASH_KERNELS = {"mma": "flash_fwd_kernel<{hd}>",
+                 "tma": "flash_fwd_wgmma_kernel",
+                 "split": "flash_decode_split_kernel<{hd}>"}
+WKV_KERNELS = {False: "wkv6_kernel", True: "wkv6_step_kernel"}
+
+
+def check_split_counters(phase: str) -> int:
+    """Every split-KV decode counter buffer is all zeros again after
+    ``phase`` (the kernel's contract: a count left behind would make a
+    later call merge its splits wrongly). Returns the buffers held."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    torch.cuda.synchronize()
+    for (dev, stream), buf in fa._COUNTERS.items():
+        left = int(torch.count_nonzero(buf).item())
+        check(left == 0, f"{phase}: {left} split-KV decode counters on "
+              f"{dev} (stream {stream:#x}) are not zero after the phase")
+    return len(fa._COUNTERS)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -350,12 +389,18 @@ def kernel_case(name, B, Sq, Skv, H, Hk, hd, offsets, causal, gen,
     torch.cuda.synchronize()
     want = ref.attention_plain(q, k, v, off, causal)
     d = (got.float() - want.float()).abs()
+    kind = fa.variant(Sq, H, Hk, hd)
     out = {"case": name, "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H,
                                    "Hk": Hk, "hd": hd, "causal": causal},
-           "variant": fa.variant(Sq, H, Hk, hd),
+           "offsets": list(offsets), "variant": kind,
+           "ptxas": case_ptxas("flash_attention",
+                               FLASH_KERNELS[kind].format(hd=hd)),
            "max_abs_err": d.max().item(), "mean_abs_err": d.mean().item(),
            "mean_abs_plain": want.float().abs().mean().item(),
            "finite": bool(torch.isfinite(got).all().item())}
+    if kind == "split":
+        out["keys_per_split"], out["splits"], _ = fa.split_plan(
+            B, H, Hk, Skv, hd)
     check(out["finite"], f"{name}: kernel output not finite")
     check(out["max_abs_err"] <= MAX_ABS_TOL,
           f"{name}: kernel disagrees with plain version "
@@ -391,6 +436,48 @@ def kernel_case(name, B, Sq, Skv, H, Hk, hd, offsets, causal, gen,
     return out
 
 
+def split_sweep(gen) -> list:
+    """Device ms of the split-KV decode kernel at both serve decode
+    shapes for every keys-per-split it takes (16, 32, 64, 128), each
+    launched directly (no count) and held to the plain version: the
+    measurement behind ``flash_attention.split_plan``'s 64."""
+    import torch
+    from repro_torch.kernels import _build, flash_attention as fa, ref
+    rows = []
+    for name, B, Skv, H, Hk in (("decode", 8, 512, 16, 2),
+                                ("jamba_decode", JAMBA_BATCH,
+                                 JAMBA_PROMPT + JAMBA_DECODE, 32, 8)):
+        q = torch.randn(B, 1, H, 128, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(B, Skv, Hk, 128, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        off = torch.randint(Skv - 64, Skv, (B,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        want = ref.attention_plain(q, k, v, off, True)
+        out = torch.empty_like(q)
+        for keys in (16, 32, 64, 128):
+            splits = -(-Skv // keys)
+            ws = torch.empty(splits * B * H * 130, device="cuda")
+            cnt = torch.zeros(B * Hk, dtype=torch.int32, device="cuda")
+
+            def call():
+                return _build.launch(
+                    q.device, fa._kernels()["split"], q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), off.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), B, Skv,
+                    H, Hk, 128, keys, 1, 128 ** -0.5)
+            check(call() == 0, f"split decode launch failed ({keys} keys)")
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= MAX_ABS_TOL, f"split decode at {keys} keys a split "
+                  f"disagrees with plain version (max |diff| {err})")
+            rows.append({"shape": name, "keys_per_split": keys,
+                         "splits": splits, "ctas": B * Hk * splits,
+                         "max_abs_err": err, "device_ms": graph_ms(call),
+                         "chosen": fa.split_plan(B, H, Hk, Skv, 128)[0]
+                         == keys})
+    return rows
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -424,8 +511,33 @@ def phase_kernels():
                                   8, 128, offs.tolist(), True, gen,
                                   timed=True)
     cases += list(jamba.values())
+    # the split-KV decode variant's edges: offset 0 (only key 0 visible),
+    # last visible keys that end a split (64 keys a split at both serve
+    # shapes), ragged Skv, GQA groups of 1, 2, 4, 8 and 16,
+    # hd 64, and a non-causal decode
+    cases += [
+        kernel_case("decode_offset0", 8, 1, 512, 16, 2, 128, [0] * 8, True,
+                    gen),
+        kernel_case("decode_split_ends", 8, 1, 512, 16, 2, 128,
+                    [31, 63, 95, 127, 255, 287, 479, 511], True, gen),
+        kernel_case("jamba_decode_split_ends", 8, 1, kv_len, 32, 8, 128,
+                    [63, 127, 383, 511, 543, 0, 64, 447], True, gen),
+        kernel_case("decode_ragged_37_gqa8", 3, 1, 37, 8, 1, 128,
+                    [36, 0, 20], True, gen),
+        kernel_case("decode_ragged_545_gqa1", 4, 1, 545, 4, 4, 128,
+                    [544, 100, 0, 511], True, gen),
+        kernel_case("decode_gqa2", 8, 1, 300, 8, 4, 128,
+                    [299, 150, 31, 32, 0, 64, 255, 256], True, gen),
+        kernel_case("decode_gqa4_hd64", 8, 1, 512, 16, 4, 64,
+                    [511, 37, 200, 16, 300, 128, 64, 400], True, gen),
+        kernel_case("decode_gqa16", 2, 1, 1000, 16, 1, 128, [999, 500], True,
+                    gen),
+        kernel_case("decode_noncausal", 8, 1, 512, 16, 2, 128, [0] * 8,
+                    False, gen)]
     for c in cases:
         emit("kernels", **c)
+    emit("kernels", kernel="flash_attention", case="split_sweep",
+         rows=split_sweep(gen))
     return prefill, decode, jamba
 
 
@@ -480,6 +592,8 @@ def int8_case(kind, name, nb, gen, n=2, dtype="float32", timed=False):
           f"plain version (max |diff| {err})")
     if timed:
         out["ms"] = cuda_ms(lambda: fn(*args), 50)
+        out["device_ms"] = graph_ms(lambda: fn(*args))
+        out["host_us"] = host_us(lambda: fn(*args))
         out["plain_ms"] = cuda_ms(lambda: plain(*args), 10)
         # no single PyTorch call computes any of the three functions
         out["library_ms"] = None
@@ -746,7 +860,12 @@ def wkv_case(name, shape, gen, dtype="float32", chunk=64, decay="drawn",
            "state_max_abs_err": d_s.max().item(),
            "out_mean_abs_plain": mag_o.mean().item(),
            "worst_err_over_bound": max((d_o / bound_o).max().item(),
-                                       (d_s / bound_s).max().item())}
+                                       (d_s / bound_s).max().item()),
+           "state_err_over_bound": (d_s / bound_s).max().item(),
+           # S 1 runs the step kernel, longer S the staged one
+           "ptxas": case_ptxas("wkv6", f"{WKV_KERNELS[S == 1]}<"
+                               f"{'bf16' if dt == torch.bfloat16 else 'f32'},"
+                               f"{hd}>")}
     check(bool(torch.isfinite(got_o).all().item())
           and bool(torch.isfinite(got_s).all().item()),
           f"wkv6 {name}: output or state not finite")
@@ -755,8 +874,11 @@ def wkv_case(name, shape, gen, dtype="float32", chunk=64, decay="drawn",
           f"{out['worst_err_over_bound']}x (out {out['out_max_abs_err']}, "
           f"state {out['state_max_abs_err']})")
     if timed:
-        out["ms"] = cuda_ms(lambda: ops.wkv6(r, k, v, logw, u, s0, chunk),
-                            50)
+        def call():
+            return ops.wkv6(r, k, v, logw, u, s0, chunk)
+        out["ms"] = cuda_ms(call, 50)
+        out["device_ms"] = graph_ms(call)
+        out["host_us"] = host_us(call)
         out["plain_ms"] = cuda_ms(
             lambda: ref.wkv6_plain(r, k, v, logw, u, s0, chunk), 5)
         # no single PyTorch call computes the WKV recurrence
@@ -789,6 +911,17 @@ def phase_wkv_kernels():
                        decay="strong"),
               wkv_case("decode_f32_hd16", (3, 1, 4, 16), gen,
                        with_s0=True)]
+    # the staged chunk (16 steps) against S: a last chunk of 4 (S 100) or
+    # 5 (S 37) steps, one step; every hd in both dtypes, with and without
+    # s0; the strong decay in bf16 from a carried state
+    extra += [wkv_case(f"S{S}_hd{hd}_{dt}{'_s0' if s0 else ''}",
+                       (2, S, 3, hd), gen, dtype=dt, chunk=c, with_s0=s0)
+              for S, c in ((100, 20), (37, 37), (1, 64))
+              for hd in (16, 32, 64) for dt in ("float32", "bfloat16")
+              for s0 in ((False, True) if S == 100 else (S == 1,))]
+    extra.append(wkv_case("strong_decay_bf16_s0", (2, 100, 3, 64), gen,
+                          dtype="bfloat16", chunk=20, decay="strong",
+                          with_s0=True))
     ptxas = ptxas_summary(_build.library_path("wkv6").with_suffix(".log"))
     for c in [prefill, decode] + extra:
         emit("kernels", **c)
@@ -1004,6 +1137,11 @@ def scan_case(name, shape, gen, dtype="float32", with_h0=False,
           f"{SCAN_TOL} x max(1, max |h|) = {SCAN_TOL * scale}")
     if timed:
         out["ms"] = cuda_ms(lambda: ops.mamba_scan(a, b, h0), 20)
+        # a prefill output is 2 GiB: few calls in the graph
+        out["device_ms"] = graph_ms(lambda: ops.mamba_scan(a, b, h0),
+                                    5 if S > 1 else 50)
+        out["host_us"] = host_us(lambda: ops.mamba_scan(a, b, h0),
+                                 20 if S > 1 else 200)
         out["plain_ms"] = cuda_ms(lambda: ref.mamba_scan_plain(a, b, h0),
                                   3 if S > 1 else 50)
         # no single PyTorch call computes a linear recurrence
@@ -1147,6 +1285,7 @@ def phase_jamba_serve():
     check(launches == expected, f"kernel launches {launches}, expected "
           f"{expected} ({n_mamba} mamba and {n_attn} attention layers x "
           f"{steps} steps)")
+    counters = check_split_counters("jamba_serve")
     check(all(bool(f.item()) for f in finite), "a logit is not finite")
     toks = torch.stack(tokens, dim=1).cpu()
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all().item()),
@@ -1183,7 +1322,7 @@ def phase_jamba_serve():
          generated_tok_s=JAMBA_BATCH * steps / wall, wall_s=wall,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          launches=launches, expected_launches=expected,
-         row0_tokens=toks[0].tolist())
+         split_counter_buffers=counters, row0_tokens=toks[0].tolist())
     del params, state, logits
     torch.cuda.empty_cache()
     return launches
@@ -1377,8 +1516,9 @@ def phase_serve():
     check(launches == layers * calls,
           f"flash kernel launched {launches} times, expected "
           f"{layers} x {calls}")
+    counters = check_split_counters("serve")
     emit("serve", args=" ".join(SERVE_ARGS), launches=launches,
-         expected_launches=layers * calls,
+         expected_launches=layers * calls, split_counter_buffers=counters,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          summary=summary,
          request0_tokens=sorted(results, key=lambda r: r.rid)[0].tokens)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the chunk matmul and the flash-attention kernel of this tree
-against those of another tree of the repo (e.g. the parent commit), on
-one card, in turns: other, this, this, other, each in its own process.
+"""Time the chunk matmul, the flash-attention kernel and the RWKV-6 WKV
+kernel of this tree against those of another tree of the repo (e.g. the
+parent commit), on one card, in turns: other, this, this, other, each in
+its own process.
 
   git archive <parent> | tar -x -C .smoke_archive/parent
   python3 kernel_ab.py --other .smoke_archive/parent [--out FILE]
@@ -13,11 +14,15 @@ calls on a host clock for the host time) the cases of ``chip_smoke.py``'s
 kernel phases that ride on these two kernels: the chunk matmul as the
 fused ring calls it (``_chunk_mm``, so a tree that copies transposed
 operands pays its copies) at the train phase's shapes, and the flash
-kernel at the paged and jamba serve shapes; beside them the one PyTorch
-call that computes the same function (``torch.matmul``,
-``scaled_dot_product_attention``). Inputs come from fixed seeds, so
-every process sees the same ones. Prints one JSON line per process
-(and writes them all to ``--out`` when given). Needs a CUDA card.
+kernel at the paged and jamba serve shapes (prefill and decode), and the
+WKV kernel at the rwkv serve shapes (prefill and decode); beside the
+first two the one PyTorch call that computes the same function
+(``torch.matmul``, ``scaled_dot_product_attention``; none computes the
+WKV). Inputs come from fixed seeds, so every process sees the same ones,
+and the WKV's outputs and final state are compared bit for bit across
+the trees by digest. Prints one JSON line per process and one per WKV
+shape saying whether the bits agree (and writes the runs to ``--out``
+when given). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -78,6 +83,33 @@ def flash_cases(gen):
              off([512, 520, 530, 543, 515, 525, 535, 540]))]
 
 
+def wkv_cases(gen):
+    """(name, r, k, v, logw, u, s0) at chip_smoke.py's timed WKV shapes
+    (rwkv6-3b: 40 heads of 64, batch 8): the bf16 prefill over 512
+    tokens from zero state and a decode step from a drawn state."""
+    import torch
+
+    def inputs(S, with_s0):
+        shape = (8, S, 40, 64)
+        r, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(3))
+        logw = -torch.exp(torch.randn(shape, generator=gen, device="cuda")
+                          - 0.5)
+        u = torch.randn(40, 64, generator=gen, device="cuda")
+        s0 = (torch.randn(8, 40, 64, 64, generator=gen, device="cuda")
+              if with_s0 else None)
+        return r, k, v, logw, u, s0
+    return [("prefill", *inputs(512, False)), ("decode", *inputs(1, True))]
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes: equal digests, equal bits."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
 def time_tree(tree: Path) -> dict:
     import torch
     import torch.nn.functional as F
@@ -89,7 +121,8 @@ def time_tree(tree: Path) -> dict:
     out = {"tree": str(tree), "gpu": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip(), "matmul_chunk": {}, "flash_attention": {}}
+        text=True).stdout.strip(), "matmul_chunk": {}, "flash_attention": {},
+        "wkv6": {}}
     for name, a, b in matmul_cases(gen):
         out["matmul_chunk"][name] = {
             **timed(lambda: cm._chunk_mm(a, b), lambda: torch.matmul(a, b)),
@@ -105,6 +138,15 @@ def time_tree(tree: Path) -> dict:
             lambda: ops.flash_attention(q, k, v, off),
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    for name, r, k, v, logw, u, s0 in wkv_cases(gen):
+        def call():
+            return ops.wkv6(r, k, v, logw, u, s0)
+        o, st = call()
+        out["wkv6"][name] = {"ms": cuda_ms(call, ITERS),
+                             "device_ms": graph_ms(call, ITERS),
+                             "host_us": host_us(call),
+                             "out_sha256": digest(o),
+                             "state_sha256": digest(st)}
     return out
 
 
@@ -137,6 +179,13 @@ def main() -> int:
             return r.returncode
         runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
+    # the WKV's fp32 final state, and its outputs, bit for bit across the
+    # trees (the same per-element update chain in both kernels)
+    for name in runs[0]["wkv6"]:
+        print(json.dumps({"wkv6": name, **{
+            f"{what}_equal_other": len({r["wkv6"][name][f"{what}_sha256"]
+                                        for r in runs}) == 1
+            for what in ("state", "out")}}), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(runs, indent=1))

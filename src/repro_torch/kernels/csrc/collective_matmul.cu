@@ -139,23 +139,9 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
       : "r"(a));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred (the
-// source size is 0 and nothing is read)
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool pred) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N_PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N_PENDING));
-}
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
 // issue the cp.async loads of the slab at k0 into one ring stage
 __device__ __forceinline__ void load_slab_async(

@@ -20,7 +20,7 @@
 // window, hd 128) does ~64 flops per byte it must move, jamba's prompt
 // (Sq 512 over 544 keys, GQA 4) ~200, both under the H100's ~295 bf16
 // flops/byte ridge, so the bound is memory; decode (Sq 1) is far below
-// it. Two variants, chosen by the wrapper from the shapes:
+// it. Three variants, chosen by the wrapper from the shapes:
 //   - prefill, hd 128 and Sq >= 64 with H / Hk dividing 64
 //     (``flash_attention_fwd_bf16_tma``): one CTA per (2T query tokens,
 //     kv head, batch row) serves all G = H / Hk query heads of the kv
@@ -37,17 +37,29 @@
 //     transpose bit). Causal q tiles launch heaviest first, and kv tiles
 //     above the diagonal are never loaded. ~99 KB of shared memory, one
 //     CTA of 288 threads per SM;
-//   - everything else (decode, short queries, hd 16/32/64): one thread
-//     block per (q tile, head, batch row), a loop inside the block walks
-//     the kv tiles (the TPU grid's sequential minor axis); Q/K/V tiles in
-//     padded shared memory, m/l/acc in fp32 registers; both products on
-//     mma.sync m16n8k16; four warps per block, 16 query rows each;
-//     decode (Sq 1) runs the same block with one live row.
-// Both: masked scores are -1e30 as in the JAX code, and their p is set
+//   - decode, Sq 1 with hd 64 or 128 and H / Hk <= 16
+//     (``flash_attention_decode_bf16``): split-KV. A decode step reads
+//     each K/V byte once and does ~2 flops per byte, so bytes bind, but
+//     at the serve shapes (2-9 MB) the bound is under a microsecond and
+//     latency sets the time. One CTA per (key split, kv head, batch row)
+//     serves the whole GQA group, so each K/V byte is read once per group
+//     (the mma.sync kernel below read it once per q head, in 4-warp
+//     blocks with one live row, walking its tiles one load after
+//     another); the split's K and V are all in flight at once (cp.async),
+//     splits wholly past the causal offset load nothing, and the last CTA
+//     of each (b, kv head) merges the splits' (m, l, acc) in the same
+//     launch (see the section below);
+//   - everything else (short queries, hd 16/32, larger GQA groups): one
+//     thread block per (q tile, head, batch row), a loop inside the block
+//     walks the kv tiles (the TPU grid's sequential minor axis); Q/K/V
+//     tiles in padded shared memory, m/l/acc in fp32 registers; both
+//     products on mma.sync m16n8k16; four warps per block, 16 query rows
+//     each.
+// All: masked scores are -1e30 as in the JAX code, and their p is set
 // to exactly 0, so stale or scratch KV rows (finite) contribute nothing;
 // P is rounded to bf16 for the P.V product, the one place these kernels
-// round where the TPU kernel does not. Not yet done: split-kv for
-// decode, other head dims and dtypes in the prefill variant.
+// round where the TPU kernel does not. Not yet done: other head dims and
+// dtypes in the prefill and decode variants.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -477,6 +489,331 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// -- the decode variant: split-KV, one K/V read per GQA group -----------------
+//
+// Sq == 1, hd 64 or 128, G = H / Hk <= 16. Grid (key split, kv head, batch
+// row); a CTA of four warps serves the G query heads of its kv head over
+// the keys [split * L, split * L + L):
+//   1. cp.async issues the group's Q rows, then the split's visible K rows
+//      and V rows (two commit groups) into padded shared memory; rows past
+//      the last visible key are zero-filled, a split wholly past it loads
+//      nothing;
+//   2. S = Q K^T on mma.sync m16n8k16 with the G query rows as the M side
+//      (rows G..15 zero), warp w taking the key tiles w, w + 4, ...; scaled
+//      into log2 units and masked (-1e30) into shared memory;
+//   3. a softmax pass, eight threads a row: the row max m, p = 2^(s - m)
+//      (exactly 0 where masked) rounded to bf16 for P V, l = the sum of
+//      the fp32 p;
+//   4. O = P V on mma.sync, warp w taking the head-dim columns [w hd / 4,
+//      (w + 1) hd / 4) over every key of the split (V's B fragments by
+//      ldmatrix.trans);
+//   5. one split: out = O / max(l, 1e-20). Several: (m, l, O) go to the
+//      fp32 workspace, and the CTA that finishes last for its (b, kv head),
+//      found by an atomic counter that it resets to 0 (the wrapper keeps
+//      one counter buffer a stream, so the launches sharing one run in
+//      order), merges them:
+//      m* = max m_s, out = sum 2^(m_s - m*) O_s / max(sum 2^(m_s - m*) l_s,
+//      1e-20) (the TPU kernel's _finish, over the splits).
+// wgmma would need 64 query rows: at G <= 16 three quarters or more of
+// every tile would be padding, so both products stay on mma.sync.
+constexpr int D_THREADS = 128;               // four warps
+constexpr int D_ROWS = 16;                   // the m16 tile: G <= 16 rows
+constexpr int D_MAX_KEYS = 128;              // keys per split, at most
+
+__host__ __device__ constexpr int d_ld(int keys) { return keys + 8; }
+__host__ __device__ constexpr int d_smem(int hd, int keys) {
+  return (D_ROWS + 2 * keys) * (hd + 8) * 2     // Q, K, V (bf16, padded)
+         + D_ROWS * d_ld(keys) * 4              // S (fp32)
+         + D_ROWS * d_ld(keys) * 2              // P (bf16)
+         + 2 * D_ROWS * 4;                      // row m, l
+}
+
+// four 8x8 b16 matrices, transposed: lane l gives the address of row l % 8
+// of matrix l / 8 and receives elements (2 (l % 4) .. +1, l / 4) of each
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r,
+                                              const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(D_THREADS)
+flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const int* __restrict__ q_offset,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ part, int* __restrict__ counters,
+                          int Skv, int H, int Hk, int keys, int causal,
+                          float scale_log2) {
+  using namespace hopper;
+  constexpr int LD = HD + 8;                 // Q/K/V row stride (elements)
+  constexpr int KS = HD / 16;                // k16 steps over hd
+  constexpr int VPR = HD / 8;                // 16-byte vectors per row
+  constexpr int NT_O = HD / 32;              // n8 tiles of a warp's O slice
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last_flag;
+  const int SLD = d_ld(keys);                // S and P row stride
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + D_ROWS * LD;
+  __nv_bfloat16* Vs = Ks + keys * LD;
+  float* Ss = reinterpret_cast<float*>(Vs + keys * LD);
+  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(Ss + D_ROWS * SLD);
+  float* row_m = reinterpret_cast<float*>(Ps + D_ROWS * SLD);
+  float* row_l = row_m + D_ROWS;
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x;
+  const int G = H / Hk;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pair = b * Hk + kvh;
+  const __nv_bfloat16* qg = q + (static_cast<size_t>(b) * H + kvh * G) * HD;
+  __nv_bfloat16* og = out + (static_cast<size_t>(b) * H + kvh * G) * HD;
+
+  // the group's query rows (rows G..15 zero), then the split's K and V
+  for (int i = tid; i < D_ROWS * VPR; i += D_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    cp_async16(Qs + r * LD + c, qg + (r < G ? r : 0) * HD + c, r < G);
+  }
+  const int k0 = split * keys;
+  int k1 = min(k0 + keys, Skv);
+  if (causal) k1 = min(k1, q_offset[b] + 1);
+  const int n = k1 - k0;                       // visible keys of the split
+  const int n16 = n > 0 ? (n + 15) & ~15 : 0;  // rounded up to a k16 step
+  const size_t kv_row = static_cast<size_t>(Hk) * HD;
+  const size_t kv0 = (static_cast<size_t>(b) * Skv + k0) * kv_row + kvh * HD;
+  for (int i = tid; i < n16 * VPR; i += D_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    cp_async16(Ks + r * LD + c, k + kv0 + (r < n ? r : 0) * kv_row + c,
+               r < n);
+  }
+  cp_async_commit();
+  for (int i = tid; i < n16 * VPR; i += D_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    cp_async16(Vs + r * LD + c, v + kv0 + (r < n ? r : 0) * kv_row + c,
+               r < n);
+  }
+  cp_async_commit();
+
+  // this split's partial: acc [G][HD], then (m, l) [G] after all the accs
+  const size_t slot = static_cast<size_t>(pair) * nsplit + split;
+  float* pacc = part + slot * G * HD;
+  float2* pml = reinterpret_cast<float2*>(
+      part + static_cast<size_t>(gridDim.z) * Hk * nsplit * G * HD);
+
+  if (n <= 0) {                                // nothing visible
+    cp_async_wait<0>();
+    if (nsplit > 1) {
+      if (tid < G) pml[slot * G + tid] = make_float2(NEG_INF, 0.f);
+    } else {
+      for (int i = tid; i < G * HD / 2; i += D_THREADS)
+        reinterpret_cast<uint32_t*>(og)[i] = 0u;
+      return;
+    }
+  } else {
+    cp_async_wait<1>();                        // Q and K have landed
+    __syncthreads();
+    const int n_tiles = n16 / 8;
+    if (warp < n_tiles) {
+      uint32_t qf[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const __nv_bfloat16* p0 = Qs + g * LD + ks * 16 + t4 * 2;
+        qf[ks][0] = ld32(p0);
+        qf[ks][1] = ld32(p0 + 8 * LD);
+        qf[ks][2] = ld32(p0 + 8);
+        qf[ks][3] = ld32(p0 + 8 * LD + 8);
+      }
+      for (int nt = warp; nt < n_tiles; nt += 4) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const __nv_bfloat16* kr = Ks + (nt * 8 + g) * LD + ks * 16 + t4 * 2;
+          mma_16816(s, qf[ks], ld32(kr), ld32(kr + 8));
+        }
+        const int c = nt * 8 + t4 * 2;         // keys k0 + c, k0 + c + 1
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[e] = c + (e & 1) < n ? s[e] * scale_log2 : NEG_INF;
+        *reinterpret_cast<float2*>(Ss + g * SLD + c) = make_float2(s[0], s[1]);
+        *reinterpret_cast<float2*>(Ss + (g + 8) * SLD + c) =
+            make_float2(s[2], s[3]);
+      }
+    }
+    cp_async_wait<0>();                        // V has landed
+    __syncthreads();
+
+    // softmax: row tid / 8 over columns tid % 8, + 8, ...; rows past G are
+    // computed (their Q is zero) and never stored
+    {
+      const int r = tid >> 3, c0 = tid & 7;
+      float mx = NEG_INF;
+      for (int c = c0; c < n16; c += 8) mx = fmaxf(mx, Ss[r * SLD + c]);
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      float ls = 0.f;
+      for (int c = c0; c < n16; c += 8) {
+        const float sv = Ss[r * SLD + c];
+        const float p = sv == NEG_INF ? 0.f : exp2f(sv - mx);
+        ls += p;
+        Ps[r * SLD + c] = __float2bfloat16_rn(p);
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        ls += __shfl_xor_sync(0xffffffffu, ls, o);
+      if (c0 == 0) {
+        row_m[r] = mx;
+        row_l[r] = ls;
+      }
+    }
+    __syncthreads();
+
+    // O = P V over this warp's head-dim columns
+    float o[NT_O][4];
+#pragma unroll
+    for (int dt = 0; dt < NT_O; ++dt)
+      o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    const int col0 = warp * (HD / 4);
+    // lane l reads row (l / 8 % 2) * 8 + l % 8 of the k16 step, columns
+    // + (l / 16) * 8: matrices (k 0-7, n), (k 8-15, n), (k 0-7, n + 8), ...
+    const __nv_bfloat16* vr = Vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                              col0 + (lane >> 4) * 8;
+    for (int kk = 0; kk < n16 / 16; ++kk) {
+      uint32_t a[4];
+      const __nv_bfloat16* p0 = Ps + g * SLD + kk * 16 + t4 * 2;
+      a[0] = ld32(p0);
+      a[1] = ld32(p0 + 8 * SLD);
+      a[2] = ld32(p0 + 8);
+      a[3] = ld32(p0 + 8 * SLD + 8);
+#pragma unroll
+      for (int dp = 0; dp < NT_O; dp += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vr + kk * 16 * LD + dp * 8);
+        mma_16816(o[dp], a, bv[0], bv[1]);
+        mma_16816(o[dp + 1], a, bv[2], bv[3]);
+      }
+    }
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = g + 8 * hr;
+      if (r >= G) continue;
+      if (nsplit == 1) {
+        const float inv = 1.f / fmaxf(row_l[r], 1e-20f);
+        __nv_bfloat16* orow = og + r * HD + col0 + t4 * 2;
+#pragma unroll
+        for (int dt = 0; dt < NT_O; ++dt)
+          *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+              pack_f32(o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
+      } else {
+        float* prow = pacc + r * HD + col0 + t4 * 2;
+#pragma unroll
+        for (int dt = 0; dt < NT_O; ++dt)
+          *reinterpret_cast<float2*>(prow + dt * 8) =
+              make_float2(o[dt][2 * hr], o[dt][2 * hr + 1]);
+      }
+    }
+    if (nsplit == 1) return;
+    if (tid < G) pml[slot * G + tid] = make_float2(row_m[tid], row_l[tid]);
+  }
+
+  // the last CTA of this (b, kv head) to finish merges the splits
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last_flag = atomicAdd(&counters[pair], 1) == nsplit - 1;
+  __syncthreads();
+  if (!last_flag) return;
+  __threadfence();
+  const float2* ml = pml + static_cast<size_t>(pair) * nsplit * G;
+  const float* acc0 = part + static_cast<size_t>(pair) * nsplit * G * HD;
+  // per row r = tid / 8 (< G): m* and 1 / max(sum 2^(m_s - m*) l_s,
+  // 1e-20), the eight lanes of a row taking every eighth split with a
+  // running rescale, then combined by shuffles; no branch on a loaded
+  // value, so the loads of several splits are in flight at once
+  {
+    const int r = tid >> 3, sub = tid & 7;
+    float mx = NEG_INF, den = 0.f;
+    if (r < G) {
+#pragma unroll 4
+      for (int s = sub; s < nsplit; s += 8) {
+        const float2 e = __ldcg(&ml[s * G + r]);
+        const float m_new = e.y > 0.f ? fmaxf(mx, e.x) : mx;
+        den = den * exp2f(mx - m_new) +
+              (e.y > 0.f ? e.y * exp2f(e.x - m_new) : 0.f);
+        mx = m_new;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, mx, o);
+      const float od = __shfl_xor_sync(0xffffffffu, den, o);
+      const float m_new = fmaxf(mx, om);
+      den = den * exp2f(mx - m_new) + od * exp2f(om - m_new);
+      mx = m_new;
+    }
+    if (sub == 0 && r < G) {
+      row_m[r] = mx;
+      row_l[r] = 1.f / fmaxf(den, 1e-20f);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD / 4; i += D_THREADS) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    const float mx = row_m[r];
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    // an empty split's acc was never written: its loaded value is
+    // selected away, never multiplied
+#pragma unroll 4
+    for (int s = 0; s < nsplit; ++s) {
+      const float2 e = __ldcg(&ml[s * G + r]);
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(
+          acc0 + (static_cast<size_t>(s) * G + r) * HD + c));
+      const bool live = e.y > 0.f;
+      const float w = live ? exp2f(e.x - mx) : 0.f;
+      acc.x = fmaf(w, live ? a.x : 0.f, acc.x);
+      acc.y = fmaf(w, live ? a.y : 0.f, acc.y);
+      acc.z = fmaf(w, live ? a.z : 0.f, acc.z);
+      acc.w = fmaf(w, live ? a.w : 0.f, acc.w);
+    }
+    const float inv = row_l[r];
+    *reinterpret_cast<uint2*>(og + r * HD + c) =
+        make_uint2(pack_f32(acc.x * inv, acc.y * inv),
+                   pack_f32(acc.z * inv, acc.w * inv));
+  }
+  if (tid == 0) counters[pair] = 0;            // ready for the next launch
+}
+
+template <int HD>
+cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          const void* q_offset, void* out, void* part,
+                          void* counters, int B, int Skv, int H, int Hk,
+                          int keys, int causal, float scale,
+                          cudaStream_t stream) {
+  auto kern = flash_decode_split_kernel<HD>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        d_smem(HD, D_MAX_KEYS));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((Skv + keys - 1) / keys, Hk, B);
+  kern<<<grid, D_THREADS, d_smem(HD, keys), stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<int*>(counters), Skv, H, Hk,
+      keys, causal, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_offset, void* out, int B, int Sq, int Skv,
@@ -577,4 +914,36 @@ extern "C" int flash_attention_fwd_bf16_tma(const void* q, const void* k,
       static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hk, causal,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The decode variant (Sq 1, hd 64 or 128, H / Hk <= 16): split-KV with
+// `keys` keys a split (a multiple of 16, at most 128). part: the fp32
+// workspace of ceil(Skv / keys) * B * H * (hd + 2) floats, counters: B * Hk
+// ints, zero before the first launch and left zero by every launch (both
+// unused, and may be null, when one split covers Skv). Same other
+// arguments as flash_attention_fwd_bf16 but Sq. Returns
+// cudaErrorInvalidValue for what it does not take, else cudaGetLastError()
+// after the launch.
+extern "C" int flash_attention_decode_bf16(const void* q, const void* k,
+                                           const void* v,
+                                           const void* q_offset, void* out,
+                                           void* part, void* counters, int B,
+                                           int Skv, int H, int Hk, int hd,
+                                           int keys, int causal, float scale,
+                                           void* stream) {
+  if (B <= 0 || Skv <= 0 || Hk <= 0 || H % Hk != 0 || H / Hk > D_ROWS ||
+      keys < 16 || keys > D_MAX_KEYS || keys % 16 != 0 ||
+      (Skv > keys && (part == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64:
+      return launch_decode<64>(q, k, v, q_offset, out, part, counters, B, Skv,
+                               H, Hk, keys, causal, scale, s);
+    case 128:
+      return launch_decode<128>(q, k, v, q_offset, out, part, counters, B,
+                                Skv, H, Hk, keys, causal, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
-// (collective_matmul.cu, flash_attention.cu), in inline PTX:
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (collective_matmul.cu, flash_attention.cu, wkv6.cu), in inline PTX:
+//   - cp.async: 16-byte copies from global to shared memory, optionally
+//     zero-filled, in commit groups;
 //   - mbarrier: init, arrive (local and on a peer CTA of the cluster),
 //     arrive with an expected transaction byte count, parity wait;
 //   - TMA: 2-D and 4-D tiled loads into shared memory (optionally
@@ -35,6 +37,27 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- cp.async -----------------------------------------------------------------
+
+// 16 bytes global -> shared, asynchronously (L2 only); zero-filled when
+// !pred (the source size is 0 and nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but the N most recent commit groups of this thread have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // -- mbarrier -----------------------------------------------------------------

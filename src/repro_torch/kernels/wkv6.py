@@ -44,6 +44,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _new_outputs(r: torch.Tensor, B: int, H: int, hd: int):
+    return (torch.empty_like(r),
+            torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device))
 
 
 def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,7 +59,8 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v: [B,S,H,hd] float32 or bfloat16 (one type); logw:
     [B,S,H,hd] float32; u: [H,hd] float32; s0: [B,H,hd,hd] float32 or
-    None (zeros); all contiguous on one card, hd in ``HEAD_DIMS``.
+    None (zeros); all contiguous and 16-byte aligned on one card, hd in
+    ``HEAD_DIMS``.
     Returns (out [B,S,H,hd] in r's type, final state [B,H,hd,hd]
     float32)."""
     if r.dim() != 4:
@@ -74,13 +82,11 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if s0 is not None:
         _check("s0", s0, torch.float32, (B, H, hd, hd), dev)
     fn = getattr(_lib(), KERNELS[r.dtype])
-    out = torch.empty_like(r)
-    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                 u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                 out.data_ptr(), state.data_ptr(), B, S, H, hd, stream)
+    out, state = _new_outputs(r, B, H, hd)
+    err = _build.launch(dev, fn, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        logw.data_ptr(), u.data_ptr(),
+                        None if s0 is None else s0.data_ptr(),
+                        out.data_ptr(), state.data_ptr(), B, S, H, hd)
     if err != 0:
         raise RuntimeError(f"{KERNELS[r.dtype]} launch failed: CUDA error "
                            f"{err}")

@@ -205,20 +205,22 @@ def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(rng):
 
 
 class _FakeCuda:
-    """Stands in for a contiguous CUDA tensor on a machine without one."""
+    """Stands in for a CUDA tensor (contiguous and aligned unless told
+    otherwise) on a machine without one."""
 
-    def __init__(self, *shape, dtype=torch.float32):
+    def __init__(self, *shape, dtype=torch.float32, ptr=0, contiguous=True):
         self.shape, self.dtype = torch.Size(shape), dtype
         self.device = torch.device("cuda", 0)
+        self.ptr, self.contiguous = ptr, contiguous
 
     def dim(self):
         return len(self.shape)
 
     def is_contiguous(self):
-        return True
+        return self.contiguous
 
     def data_ptr(self):
-        return 0
+        return self.ptr
 
 
 def test_cuda_tensor_launches_or_raises(monkeypatch):
@@ -242,6 +244,79 @@ def test_cuda_tensor_launches_or_raises(monkeypatch):
     finally:
         wkv6_mod._lib.cache_clear()
     assert ops.wkv6.launches == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_wrapper_launches_through_build_launch(dtype, with_s0,
+                                                    monkeypatch):
+    """The wrapper hands its kernel's C entry point to ``_build.launch``
+    (which launches on the device's current stream, switching the
+    current device only when it is another) with the pointers, None for
+    an absent s0, and (B, S, H, hd)."""
+    import types
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import wkv6 as wkv6_mod
+
+    fns = {"wkv6_fwd_bf16": object(), "wkv6_fwd_f32": object()}
+    calls = []
+    monkeypatch.setattr(wkv6_mod, "_lib",
+                        lambda: types.SimpleNamespace(**fns))
+    monkeypatch.setattr(wkv6_mod, "_new_outputs", lambda r, B, H, hd: (
+        _FakeCuda(*r.shape, dtype=r.dtype, ptr=4096),
+        _FakeCuda(B, H, hd, hd, ptr=8192)))
+    monkeypatch.setattr(_build, "launch", lambda device, fn, *a:
+                        calls.append((device, fn, a)) or 0)
+    B, S, H, hd = 8, 512, 40, 64
+    r = _FakeCuda(B, S, H, hd, dtype=dtype, ptr=16)
+    s0 = _FakeCuda(B, H, hd, hd, ptr=32) if with_s0 else None
+    out, state = wkv6_fwd(r, r, r, _FakeCuda(B, S, H, hd, ptr=48),
+                          _FakeCuda(H, hd, ptr=64), s0)
+    (device, fn, args), = calls
+    assert device == torch.device("cuda", 0)
+    assert fn is fns["wkv6_fwd_bf16" if dtype == torch.bfloat16
+                     else "wkv6_fwd_f32"]
+    assert args == (16, 16, 16, 48, 64, 32 if with_s0 else None, 4096, 8192,
+                    B, S, H, hd)
+    assert out.dtype == dtype and state.shape == (B, H, hd, hd)
+
+
+def _wkv_fakes(**over):
+    B, S, H, hd = 2, 100, 4, 64
+    t = {"r": _FakeCuda(B, S, H, hd, dtype=torch.bfloat16),
+         "k": _FakeCuda(B, S, H, hd, dtype=torch.bfloat16),
+         "v": _FakeCuda(B, S, H, hd, dtype=torch.bfloat16),
+         "logw": _FakeCuda(B, S, H, hd), "u": _FakeCuda(H, hd),
+         "s0": _FakeCuda(B, H, hd, hd)}
+    t.update(over)
+    return t
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"r": _FakeCuda(2, 100, 4, 64, dtype=torch.float16)}, "must be one of"),
+    ({"r": _FakeCuda(2, 100, 4, 128, dtype=torch.bfloat16)}, "head dim"),
+    ({"k": _FakeCuda(2, 100, 4, 64)}, "k must be torch.bfloat16"),
+    ({"logw": _FakeCuda(2, 100, 4, 64, dtype=torch.bfloat16)},
+     "logw must be torch.float32"),
+    ({"u": _FakeCuda(4, 32)}, r"u must be \(4, 64\)"),
+    ({"s0": _FakeCuda(2, 4, 64, 32)}, r"s0 must be \(2, 4, 64, 64\)"),
+    ({"v": _FakeCuda(2, 100, 4, 64, dtype=torch.bfloat16,
+                     contiguous=False)}, "v must be contiguous"),
+    ({"logw": _FakeCuda(2, 100, 4, 64, ptr=8)}, "logw must be 16-byte aligned"),
+    ({"s0": _FakeCuda(2, 4, 64, 64, ptr=4)}, "s0 must be 16-byte aligned"),
+])
+def test_wkv6_wrapper_refuses_cuda_tensors_the_kernel_does_not_take(
+        over, match, monkeypatch):
+    """The kernel wrapper never falls back: a CUDA tensor it cannot take
+    raises before anything is built or launched."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("a kernel was built"))
+    monkeypatch.setattr(_build, "launch",
+                        lambda *a: pytest.fail("a kernel was launched"))
+    t = _wkv_fakes(**over)
+    with pytest.raises(ValueError, match=match):
+        wkv6_fwd(t["r"], t["k"], t["v"], t["logw"], t["u"], t["s0"])
 
 
 # -- the model --------------------------------------------------------------
