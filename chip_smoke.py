@@ -77,9 +77,27 @@ non-zero:
                 margin within ROUTER_STEPS bf16 steps), then logits
                 within 0.1 of the CPU run forced onto the card's
                 routing, and greedy tokens equal up to near-ties.
+ 11. peft_train -- PEFT / FCDP-Comm on the train path: qwen2.5-3b at
+                full width and depth 2 on the 4 ranks of phase 5, the
+                trunk frozen and LoRA adapters of rank 8 on wq/wk/wv/wo,
+                grad_clip 1e9: 2 steps each of zero3, zeropp, fcdp and
+                mics, 3 of fcdp with int8 qwZ/qgZ (on the adapters) and
+                2 of the mixed arm (trunk fcdp, '*lora*=zero3'). Checks
+                finite losses the ranks agree on, the modes' step-0
+                loss and grad norm equal, every frozen shard unchanged
+                bit for bit and some lora_b moved, a trainable fraction
+                under 1 %, fcdp's and the mixed arm's pod all-gather
+                bytes at most 1 % of zero3's, fcdp's caches in pinned
+                host memory, and the int8 launches equal to the plans
+                (and > 0); reports bytes, peaks and step times.
+ 12. peft_parity -- peft_smoke's model (d_model 256), rank 8, fp32: the
+                4-rank fcdp+int8 and mixed PEFT steps on the card and on
+                the CPU from the same weights: loss and grad norm within
+                tolerance, the same bytes, the plans' int8 launches on
+                the card and none on the CPU.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
-plain versions at the train phase's shapes, the chunk-matmul kernel
+plain versions at the train and PEFT phases' shapes, the chunk-matmul kernel
 of the fused ring within tolerance of its plain version (and bit for bit
 column-independent, its wgmma + TMA variant bit-equal to its mma.sync
 one) at the train phase's shapes, mode 'both''s transposed operands read
@@ -609,11 +627,14 @@ def phase_int8_kernels():
     = 22,016 blocks; bf16, as qwZ quantizes it), its pod-gathered
     stage-1 view (2 x 22,016 blocks: qwZ's dequantize on arrival, qgZ's
     quantize and n = 2 dequant-accumulate), the embedding shard
-    (151,936 x 2048 / 4 = 303,872 blocks), and a ragged block count.
+    (151,936 x 2048 / 4 = 303,872 blocks), the PEFT phase's LoRA adapter
+    (one rank's shard of a rank-8 ``wq_lora_a``: 2048 x 8 / 4 = 16
+    blocks, and its stage-1 view of 32), and a ragged block count.
     Returns {kind: timed main-shape case}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     w_nb, e_nb = 2048 * 11008 // 4 // 256, 151936 * 2048 // 4 // 256
+    a_nb = 2048 * PEFT_RANK // 4 // 256
     main = {
         "quantize": int8_case("quantize", "mlp_shard_bf16", w_nb, gen,
                               dtype="bfloat16", timed=True),
@@ -629,6 +650,14 @@ def phase_int8_kernels():
         int8_case("dequantize", "embed_stage1", 2 * e_nb, gen, timed=True),
         int8_case("dequant_accumulate", "embed_stage1_grad", e_nb, gen,
                   timed=True),
+        int8_case("quantize", "peft_adapter_shard_bf16", a_nb, gen,
+                  dtype="bfloat16", timed=True),
+        int8_case("quantize", "peft_adapter_stage1_grad_bf16", 2 * a_nb, gen,
+                  dtype="bfloat16"),
+        int8_case("dequantize", "peft_adapter_stage1", 2 * a_nb, gen,
+                  timed=True),
+        int8_case("dequant_accumulate", "peft_adapter_stage1_grad", a_nb,
+                  gen, timed=True),
         int8_case("quantize", "ragged_f32", 4099, gen),
         int8_case("dequantize", "ragged", 4099, gen),
         int8_case("dequant_accumulate", "ragged_n3", 4099, gen, n=3)]
@@ -1627,7 +1656,8 @@ def phase_parity():
 
 # -- phases 5 and 6 ------------------------------------------------------------
 
-def _train_job(cfg, seq, batch, runs, dtype="bfloat16", **kw):
+def _train_job(cfg, seq, batch, runs, dtype="bfloat16", grad_clip=1.0,
+               **kw):
     from repro_torch.configs.base import (OptimizerConfig, RunConfig,
                                           ShapeCell, SystemConfig)
     from repro_torch.launch.mesh import train_mesh_shape
@@ -1635,7 +1665,8 @@ def _train_job(cfg, seq, batch, runs, dtype="bfloat16", **kw):
     run = RunConfig(model=cfg, shape=ShapeCell("train", "train", seq, batch),
                     system=SystemConfig(dtype=dtype),
                     optimizer=OptimizerConfig(lr=3e-4, total_steps=100,
-                                              warmup_steps=10))
+                                              warmup_steps=10,
+                                              grad_clip=grad_clip))
     return TrainJob(run=run, mesh=train_mesh_shape(4, True), runs=runs,
                     seed=0, **kw)
 
@@ -1727,7 +1758,7 @@ def phase_train():
          seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
          backend=ranks[0]["backend"], wall_s=wall,
          kernel_launches_total=launches, fused=fused, modes=summary)
-    return launches
+    return launches, fc["bytes_per_step"]
 
 
 def _run_key(run):
@@ -1837,6 +1868,159 @@ def phase_train_parity():
          runs=report, wall_s={"cuda": t_g, "cpu": t_c})
 
 
+# -- phases 11 and 12: PEFT / FCDP-Comm ------------------------------------------
+
+PEFT_RANK = 8              # the paper's section V-D LoRA rank, on wq/wk/wv/wo
+PEFT_MIXED = (("*lora*", "zero3"),)
+# peft_smoke's model (benchmarks/harness/workloads.py): wide enough at
+# rank 8 for the adapters' per-layer shards (512 elements) to carry int8
+PEFT_SMOKE = dict(name="smoke-dense-peft", family="dense", num_layers=2,
+                  d_model=256, num_heads=4, num_kv_heads=2, d_ff=1024,
+                  vocab_size=256)
+
+
+def _peft_key(run):
+    if run["mode_overrides"]:
+        return "mixed"
+    return "int8" if run["param_compress"] != "none" else run["mode"]
+
+
+def phase_peft_train(train_fcdp_bytes):
+    """PEFT / FCDP-Comm at full width, depth 2, 4 ranks on the card: the
+    trunk frozen, LoRA adapters of rank 8 on wq/wk/wv/wo trained under
+    zero3, zeropp, fcdp and mics, fcdp with int8 qwZ/qgZ, and the mixed
+    arm (trunk fcdp, adapters zero3); grad_clip far above the norm."""
+    import math
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import ModeRun, spawn
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=TRAIN_DEPTH)
+    peft = dict(peft=True, lora_rank=PEFT_RANK)
+    runs = [ModeRun(m, steps=2, **peft)
+            for m in ("zero3", "zeropp", "fcdp", "mics")] + [
+        ModeRun("fcdp", "int8_pod", "int8_pod", steps=3, **peft),
+        ModeRun("fcdp", steps=2, mode_overrides=PEFT_MIXED, **peft)]
+    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs, grad_clip=1e9)
+    t0 = time.perf_counter()
+    ranks = spawn(job, timeout_s=900)
+    wall = time.perf_counter() - t0
+    by = {_peft_key(r["run"]): [rk["runs"][i] for rk in ranks]
+          for i, r in enumerate(ranks[0]["runs"])}
+    summary = {}
+    for name, rs in by.items():
+        r0 = rs[0]
+        losses = [m["loss"] for m in r0["metrics"]]
+        check(all(math.isfinite(v) for v in losses),
+              f"peft {name}: a loss is not finite: {losses}")
+        check(all(r["metrics"] == r0["metrics"] for r in rs),
+              f"peft {name}: the ranks disagree on the metrics")
+        check(all(r["frozen_unchanged"] for r in rs),
+              f"peft {name}: a frozen shard changed")
+        check(any(r["lora_b_moved"] for r in rs),
+              f"peft {name}: every lora_b is still zero")
+        for r in rs:
+            for s, launched in enumerate(r["launches"]):
+                check(launched == r["int8_plan"],
+                      f"peft {name} step {s}: int8 launches {launched} != "
+                      f"the plans' {r['int8_plan']}")
+            check(not any(r["mm_launches"]),
+                  f"peft {name}: the fused ring ran on a frozen leaf")
+        summary[name] = {
+            "loss": losses,
+            "grad_norm": [m["grad_norm"] for m in r0["metrics"]],
+            "bytes_per_step": r0["bytes"][0],
+            "int8_launches_per_rank_step": r0["launches"][0],
+            "int8_plan": r0["int8_plan"],
+            "cached_bytes": r0["cached"][0],
+            "cache_places": r0["cache_places"][0],
+            "trainable_frac": r0["params_trainable"] / r0["params_total"],
+            "peak_mem_gib": [r["peak_mem_bytes"] / 2**30 for r in rs],
+            "step_s": [r["step_s"] for r in rs]}
+    z3, fc, q8, mx = (summary[k] for k in ("zero3", "fcdp", "int8",
+                                           "mixed"))
+    for name, m in summary.items():
+        check(m["trainable_frac"] < 0.01,
+              f"peft {name}: trainable fraction {m['trainable_frac']}")
+        if name != "int8":
+            check(_rel(m["loss"][0], z3["loss"][0]) <= LOSS_RTOL
+                  and _rel(m["grad_norm"][0], z3["grad_norm"][0])
+                  <= GNORM_RTOL,
+                  f"peft {name} step 0 ({m['loss'][0]}, {m['grad_norm'][0]})"
+                  f" != zero3's ({z3['loss'][0]}, {z3['grad_norm'][0]})")
+    check(_rel(q8["loss"][0], fc["loss"][0]) <= INT8_DRIFT,
+          f"peft int8 step-0 loss {q8['loss'][0]} drifts from fcdp "
+          f"{fc['loss'][0]}")
+    check(all(v > 0 for v in q8["int8_launches_per_rank_step"].values()),
+          "the peft int8 run launched an int8 kernel no time")
+    pod = {k: m["bytes_per_step"].get("all_gather/pod", 0.0)
+           for k, m in summary.items()}
+    for name in ("fcdp", "mixed"):
+        check(pod[name] <= 0.01 * pod["zero3"],
+              f"peft {name} pod all-gather {pod[name]} B > 1 % of zero3's "
+              f"{pod['zero3']} B")
+    check(fc["cache_places"] == {"host": [("cpu", True)]},
+          f"peft fcdp caches must lie in pinned host memory: "
+          f"{fc['cache_places']}")
+    launches = {k: sum(sum(step[k] for step in r["launches"])
+                       for rs in by.values() for r in rs)
+                for k in QUANT_NAMES}
+    emit("peft_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, lora_rank=PEFT_RANK,
+         mesh=job.mesh.shape, backend=ranks[0]["backend"], wall_s=wall,
+         pod_all_gather_bytes=pod,
+         pod_all_gather_vs_zero3_peft={k: pod[k] / pod["zero3"]
+                                       for k in pod},
+         pod_all_gather_vs_train_fcdp={
+             k: pod[k] / train_fcdp_bytes["all_gather/pod"] for k in pod},
+         kernel_launches_total=launches, modes=summary)
+    return launches
+
+
+def phase_peft_parity():
+    """fcdp PEFT + int8 and the mixed arm at peft_smoke's width, rank 8,
+    fp32, the same 4-rank steps on the card (kernels) and on the CPU
+    (plain versions) from the same weights (drawn on the CPU)."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch.train import ModeRun, spawn
+
+    peft = dict(peft=True, lora_rank=PEFT_RANK, dtype="float32")
+    runs = [ModeRun("fcdp", "int8_pod", "int8_pod", **peft),
+            ModeRun("fcdp", mode_overrides=PEFT_MIXED, **peft)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        job = _train_job(ModelConfig(**PEFT_SMOKE), 64, 8, runs,
+                         dtype="float32", grad_clip=1e9, device=dev,
+                         draw_device="cpu")
+        t0 = time.perf_counter()
+        rs = spawn(job, timeout_s=300)[0]["runs"]
+        out[dev] = (rs, time.perf_counter() - t0)
+    (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
+    report = {}
+    for name, g, c in zip(("int8", "mixed"), gs, cs):
+        mg, mc = g["metrics"][0], c["metrics"][0]
+        check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
+              f"peft {name}: card loss {mg['loss']} != CPU {mc['loss']}")
+        check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
+              f"peft {name}: card grad norm {mg['grad_norm']} != CPU "
+              f"{mc['grad_norm']}")
+        check(g["bytes"] == c["bytes"],
+              f"peft {name}: card and CPU moved different bytes")
+        check(g["launches"][0] == g["int8_plan"] and not any(
+            c["launches"][0].values()) and c["calls"][0] == c["int8_plan"],
+              f"peft {name}: int8 launches: card must launch the plans' "
+              "count, the CPU none")
+        report[name] = {"loss": {"cuda": mg["loss"], "cpu": mc["loss"]},
+                        "grad_norm": {"cuda": mg["grad_norm"],
+                                      "cpu": mc["grad_norm"]},
+                        "int8_launches_cuda": g["launches"][0],
+                        "bytes": g["bytes"][0]}
+    check(all(v > 0 for v in report["int8"]["int8_launches_cuda"].values()),
+          "the peft parity run launched an int8 kernel no time")
+    emit("peft_parity", model=PEFT_SMOKE["name"], dtype="float32",
+         lora_rank=PEFT_RANK, runs=report, wall_s={"cuda": t_g, "cpu": t_c})
+
+
 def main() -> int:
     try:
         import torch
@@ -1878,8 +2062,10 @@ def main() -> int:
     phase_rwkv_parity()
     jamba_launches = phase_jamba_serve()
     phase_jamba_parity()
-    train_launches = phase_train()
+    train_launches, train_fcdp_bytes = phase_train()
     phase_train_parity()
+    peft_launches = phase_peft_train(train_fcdp_bytes)
+    phase_peft_parity()
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
@@ -1896,7 +2082,8 @@ def main() -> int:
         "jamba_launches": jamba_launches["flash_attention"],
         "jamba_shapes": {n: entry(c) for n, c in flash_jamba.items()}}] + [{
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
-            "replaces": QUANT_TPU_KERNELS[k], "launches": train_launches[k],
+            "replaces": QUANT_TPU_KERNELS[k],
+            "launches": train_launches[k] + peft_launches[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
                              if e["kernel"] == QUANT_NAMES[k]}}

@@ -92,7 +92,20 @@ class SystemConfig:
     collective matmul (backward replays the unfused one), "both" fuses
     the backward too (``kernels/collective_matmul.py``). There is no
     ``quant_impl`` or ``fused_impl``: the device of a tensor picks each
-    kernel or its plain version (``kernels/ops.py``)."""
+    kernel or its plain version (``kernels/ops.py``).
+
+    PEFT / FCDP-Comm, as in the JAX package: ``peft`` freezes every
+    weight of the model and injects trainable LoRA adapters
+    (``<t>_lora_a`` [in, r], ``<t>_lora_b`` [r, out]) next to each
+    ``lora_targets`` projection (``core/peft.py``); ``lora_rank`` is r;
+    the adapter term is scaled by ``lora_alpha`` / r (None: alpha =
+    2r, scale 2.0). A strategy with the frozen cached layout (fcdp)
+    stores the frozen trunk pod-replicated, so only the adapters cross
+    'pod'. ``mode_overrides`` assigns leaves other strategies: ordered
+    ``(path glob, mode)`` rules or ``"glob=mode"`` strings, fnmatch'd
+    against each leaf's dotted path, first match wins; a rule naming an
+    unknown strategy raises here, one that matches no leaf raises where
+    the bundle resolves the strategies (``core/strategy.py``)."""
     dtype: str = "bfloat16"
     serve_frozen: bool = True
     mode: str = "fcdp"
@@ -103,8 +116,18 @@ class SystemConfig:
     master_dtype: str = "float32"
     opt_state_dtype: str = "float32"
     fused_matmul: str = "none"         # none | ag_matmul | both
+    peft: bool = False
+    lora_rank: int = 8
+    lora_targets: Tuple[str, ...] = ("wq", "wk", "wv", "wo")
+    lora_alpha: Optional[float] = None
+    mode_overrides: Tuple[Tuple[str, str], ...] = ()
 
     def __post_init__(self):
+        if self.mode_overrides:
+            # deferred: the strategy registry imports the mesh helpers
+            from repro_torch.core.strategy import normalize_mode_overrides
+            object.__setattr__(self, "mode_overrides",
+                               normalize_mode_overrides(self.mode_overrides))
         for knob in ("dtype", "master_dtype", "opt_state_dtype"):
             if getattr(self, knob) not in DTYPES:
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r}; "

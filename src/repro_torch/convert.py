@@ -20,6 +20,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, SystemConfig
 from repro_torch.core.partition import (tree_items, tree_map,
                                         tree_map_with_path)
+from repro_torch.core.peft import apply_lora
 from repro_torch.models.lm import LM
 
 
@@ -32,14 +33,19 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def params_from_jax(tree, cfg: ModelConfig,
-                    dtype: Optional[torch.dtype] = None, device=None):
+                    dtype: Optional[torch.dtype] = None, device=None,
+                    sys: Optional[SystemConfig] = None):
     """The port's parameter dict for ``cfg`` from the JAX package's
     nested dict of numpy arrays, on ``device`` (None means ``cuda``, and
     raises without one). Every leaf of the port's defs must be present
-    with its shape, and no other leaf; ``dtype`` casts (None keeps the
-    source type)."""
+    with its shape, and no other leaf: under ``sys.peft`` the defs hold
+    the LoRA adapters too. ``dtype`` casts (None keeps the source
+    type)."""
     device = resolve_device(device)
-    defs = LM(cfg, SystemConfig()).defs
+    sys = sys or SystemConfig()
+    defs = LM(cfg, sys).defs
+    if sys.peft:
+        defs = apply_lora(defs, sys)
     full = _checked(tree, defs)
 
     def one(path, d):
@@ -61,8 +67,10 @@ def state_from_jax(tree, device=None):
 
 def shards_from_jax(tree, bundle):
     """This rank's shards of the JAX package's full parameters, for a
-    train ``bundle`` on a live mesh: each leaf cut by its storage spec,
-    in the system's dtype, on the bundle's device, requiring grad."""
+    train ``bundle`` on a live mesh (adapters included under PEFT): each
+    leaf cut by its storage spec (a frozen leaf's pod-replicated one
+    under fcdp), in the system's dtype, on the bundle's device,
+    requiring grad where the leaf is trainable."""
     full = _checked(tree, bundle.defs)
     dtype = bundle.run.system.torch_dtype
     return tree_map_with_path(

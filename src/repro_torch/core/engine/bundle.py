@@ -5,28 +5,36 @@ Serving runs on one rank with whole weights: the FCDP gather and the
 strategy decisions are the identity there, and the steps consume the
 full parameter dict directly.
 
+The def tree is classified as the JAX bundle does it: under
+``SystemConfig.peft`` every weight is frozen and LoRA adapters are
+injected (``core/peft.py``); a serve bundle freezes every weight; an
+optional ``defs_fn`` transforms the result (the all-trainable reference
+arm: ``peft.unfreeze_all``). The per-leaf strategies are resolved at
+construction (``core/strategy.resolve_strategies``): on the base tree,
+non-strict under ``peft``, and again, strict, on the classified tree.
+
 Training runs on a (pod, data, model) mesh, one process per rank. Given
-a mesh, the bundle resolves the strategy once and derives, per leaf in
-tree order, its gather plan, storage and optimizer specs and
-replication factor, as the JAX bundle does. Given a live ``RankMesh`` it
+a mesh, the bundle derives, per leaf in tree order, its gather plan,
+storage and optimizer specs and replication factor, as the JAX bundle
+does. Given a live ``RankMesh`` it
 also knows this rank's coordinates: ``init_all_params`` and
 ``shard_batch`` hand out this rank's shards and batch rows. Steps run
 eagerly; there is nothing to compile.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig
+from repro_torch.core import peft
 from repro_torch.core.partition import (block_index, init_leaf, init_params,
-                                        shard_of, tree_items, tree_map,
+                                        label_tree, shard_of, tree_items,
                                         tree_map_with_path)
 from repro_torch.core.residency import split_train_indices
-from repro_torch.core.strategy import resolve_strategy, spec_axes
+from repro_torch.core.strategy import resolve_strategies, spec_axes
 from repro_torch.launch.mesh import MeshShape, fsdp_axes
 from repro_torch.models.lm import LM
 
@@ -34,17 +42,27 @@ from repro_torch.models.lm import LM
 class StepBundle:
     """Everything needed to run one cell: ``device=None`` means
     ``cuda``, and raises without one. ``mesh`` (a ``MeshShape``, or this
-    rank's live ``RankMesh``) makes it a train bundle."""
+    rank's live ``RankMesh``) makes it a train bundle. ``defs_fn``
+    transforms the classified def tree (see the module note)."""
 
-    def __init__(self, run: RunConfig, device=None, mesh=None):
+    def __init__(self, run: RunConfig, device=None, mesh=None,
+                 defs_fn=None):
         self.run = run
+        sys = run.system
         self.device = resolve_device(device)
-        self.model = LM(run.model, run.system)
-        defs = self.model.defs
-        if run.shape.kind != "train" and run.system.serve_frozen:
+        self.model = LM(run.model, sys)
+        base, self.strategy = resolve_strategies(sys, self.model.defs,
+                                                 strict=not sys.peft)
+        defs = base
+        if sys.peft:
+            defs = peft.apply_lora(defs, sys)
+        elif run.shape.kind != "train" and sys.serve_frozen:
             # serving: every weight frozen (the FCDP-Comm cached layout)
-            defs = tree_map(lambda d: dataclasses.replace(d, frozen=True),
-                            defs)
+            defs = peft.freeze_all(defs)
+        if defs_fn is not None:
+            defs = defs_fn(defs)
+        if defs is not base:
+            defs, self.strategy = resolve_strategies(sys, label_tree(defs))
         self.defs = defs
         self.mesh = mesh
         if mesh is not None:
@@ -55,7 +73,6 @@ class StepBundle:
         ms = mesh if isinstance(mesh, MeshShape) else mesh.mesh_shape
         self.mesh_shape = ms
         self.coords = None if isinstance(mesh, MeshShape) else mesh.coords
-        self.strategy = resolve_strategy(sys.mode)
         self.plans = self.strategy.plan_tree(
             self.defs, ms, sys.min_shard_size,
             compress_bwd=(sys.grad_compress == "int8_pod"),
@@ -88,29 +105,28 @@ class StepBundle:
         """Parameter dict (nested like ``defs``) in the system's dtype,
         drawn from ``torch.Generator(draw_device).manual_seed(seed)``
         (``draw_device`` defaults to this bundle's device) in tree order.
-        A train bundle draws each full leaf and keeps this rank's shard,
-        on its device, as a leaf tensor that requires grad; every rank
-        draws the same full weights."""
+        A train bundle draws each full leaf and keeps this rank's shard
+        on its device (``shard``); every rank draws the same full
+        weights."""
         dtype = self.run.system.torch_dtype
         if self.mesh is None:
             return init_params(self.defs, seed, self.device, dtype=dtype)
         gen_dev = torch.device(draw_device or self.device)
         gen = torch.Generator(device=gen_dev).manual_seed(seed)
-        specs = dict(zip(self.paths, self.leaf_specs))
+        return tree_map_with_path(
+            lambda path, d: self.shard(path, init_leaf(gen, d, dtype,
+                                                       gen_dev)),
+            self.defs)
 
-        def one(path, d):
-            full = init_leaf(gen, d, dtype, gen_dev)
-            return self.shard(path, full, specs[path])
-        return tree_map_with_path(one, self.defs)
-
-    def shard(self, path: str, full: torch.Tensor, spec=None) -> torch.Tensor:
-        """This rank's shard of the full leaf ``path``, on the bundle's
-        device, as a leaf tensor that requires grad."""
-        if spec is None:
-            spec = self.leaf_specs[self.paths.index(path)]
-        block = shard_of(full, spec, self.mesh_shape, self.coords)
+    def shard(self, path: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the full leaf ``path`` under its storage
+        spec, on the bundle's device, as a leaf tensor that requires
+        grad when the leaf is trainable."""
+        i = self.paths.index(path)
+        block = shard_of(full, self.leaf_specs[i], self.mesh_shape,
+                         self.coords)
         return block.to(self.device, copy=True).contiguous() \
-            .requires_grad_(True)
+            .requires_grad_(self.plan_leaves[i].residency.trainable)
 
     def split(self, params):
         """Flat (train leaves, frozen leaves) in tree order."""

@@ -7,7 +7,9 @@ One step: the loss over this rank's batch rows (the forward gathers
 every weight through its plan), its backward (the gathers' backwards
 reduce-scatter the gradients onto the shards), the loss terms summed
 over the data-parallel axes, then the optimizer epilogue: global-norm
-clip and AdamW on the shards. With ``RunConfig.microbatch`` = nm >= 2
+clip and AdamW on the shards. Under PEFT only the trainable leaves (the
+adapters) get gradients, a clip norm term and optimizer state; the
+frozen trunk is read, never updated. With ``RunConfig.microbatch`` = nm >= 2
 the rank's rows are split into nm microbatches whose gradients add up
 in the parameter dtype and are divided by nm, as the JAX scan does.
 """
@@ -37,7 +39,9 @@ class TrainStep:
         self.nm = run.microbatch or 0
         self.gather = ParamGather(coll, bundle.plans)
         defs = [bundle.def_leaves[i] for i in bundle.train_idx]
-        self.wd_mask = [len(d.shape) >= 2 for d in defs]
+        # no weight decay on vectors and on the LoRA adapters
+        self.wd_mask = [len(d.shape) >= 2 and "_lora_" not in d.label
+                        for d in defs]
         self.reps = [bundle.rep_factors[i] for i in bundle.train_idx]
         self.dp_axes = fsdp_axes(bundle.mesh_shape)
 

@@ -36,6 +36,16 @@ With no 'pod' axis (one pod) the cache boundary moves after stage 2
 host. The embedding, final norm and head are used outside the layers;
 as in the JAX package, autograd keeps their gathered weights.
 
+A frozen leaf (PEFT) is gathered like the JAX package's invariant
+gather: its shard does not require grad, so no gradient flows into it
+and it has no ``SumOver`` sum. The backward still reads its weight (the
+input gradient of the projections it feeds) from the same sources.
+Under fcdp the frozen trunk is stored pod-replicated, so it has no stage
+1 and ``cache_after == 2``: its fully gathered weight waits on the host
+tier and the backward copies it back with no 'data' regather (the
+"fully cached" of FCDP). Under zero3 a frozen leaf stays dcn_sharded
+and is regathered over 'pod' in the backward.
+
 A fused plan (``GatherPlan.is_fused``: an output projection under
 ``SystemConfig.fused_matmul``) never makes the full weight: stage 2
 returns a ``FusedParam`` holding the stage-1 result, and
@@ -213,7 +223,7 @@ class ParamGather:
             self._entries[_key(full)] = (full, _Saved(
                 self._rebuilder(w.detach(), stage1.detach(), full.detach(),
                                 plan, cast)))
-        if plan.sync_axes:
+        if plan.sync_axes and plan.residency.receives_gradient:
             full = SumOver.apply(full, self.coll, plan.sync_axes)
         return full
 

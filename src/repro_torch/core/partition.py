@@ -42,6 +42,9 @@ class ParamDef:
     # plan rule in core/strategy.residency gates further)
     fusable: bool = False
     label: str = ""               # dotted path, filled by label_tree
+    # the leaf's strategy group (a registered mode name), set by
+    # core/strategy.resolve_strategies; None: SystemConfig.mode
+    strategy: Optional[str] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.dims):

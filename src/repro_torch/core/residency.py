@@ -20,11 +20,19 @@ the JAX package's ``core/residency.py`` defines it.
   cache+backward   where the cached gather product waits between forward
                    and backward ('regather' | 'device' | 'host') and
                    hence what the backward reads (``backward_source``)
-  update class     'trainable'. Frozen classes (PEFT, FCDP-Comm) are
-                   not ported yet; the strategies refuse a frozen leaf.
+  update class     'trainable' (gradient and optimizer state),
+                   'frozen' (no update, the strategy's own layout: a
+                   zero3 trunk is still rebuilt over 'pod' every step,
+                   as DeepSpeed treats a frozen trunk), or
+                   'frozen_cached' (frozen under a strategy with the
+                   frozen cached layout: FCDP-Comm's pod-replicated
+                   trunk, which never crosses 'pod')
 
 ``core/strategy.py`` emits residencies; ``GatherPlan`` is derived from
-one and carries it.
+one and carries it. A non-trainable leaf never quantizes its stage-1
+gather, never compresses a gradient reduce and never fuses its stage 2
+(enforced at construction): it receives no gradient, and its weights
+stay exact.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ from typing import List, Optional, Tuple
 STORAGE_TIERS = ("dcn_sharded", "pod_replicated", "replicated")
 FUSED_MODES = ("none", "ag_matmul", "both")
 CACHE_TIERS = ("regather", "device", "host")
-UPDATE_CLASSES = ("trainable",)
+UPDATE_CLASSES = ("trainable", "frozen", "frozen_cached")
 
 
 @dataclass(frozen=True)
@@ -84,10 +92,48 @@ class ParamResidency:
         if self.fused != "none" and len(self.stage2_axes) != 1:
             raise ValueError("a fused stage 2 rings over exactly one intra "
                              f"axis, not {self.stage2_axes!r}")
+        if self.update != "trainable":
+            if self.quantized_gather:
+                raise ValueError(
+                    f"{self.update!r} leaf cannot quantize its stage-1 "
+                    "gather: its weights stay exact")
+            if self.quantized_reduce:
+                raise ValueError(
+                    f"{self.update!r} leaf cannot compress a gradient "
+                    "reduce: it receives no gradient")
+            if self.fused != "none":
+                raise ValueError(
+                    f"{self.update!r} leaf cannot fuse its stage-2 gather "
+                    "into a collective matmul: its weights stay exact")
 
     @property
     def trainable(self) -> bool:
         return self.update == "trainable"
+
+    @property
+    def frozen(self) -> bool:
+        """Any non-trainable class."""
+        return self.update != "trainable"
+
+    @property
+    def invariant_gather(self) -> bool:
+        """Frozen leaves gather with no gradient flowing back (the JAX
+        package's invariant all-gather)."""
+        return self.frozen
+
+    @property
+    def occupies_ring_slot(self) -> bool:
+        """Whether a stage-1 prefetch ring would spend a slot on this
+        leaf: only a leaf with a stage-1 gather to overlap."""
+        return self.is_gathered and bool(self.stage1_axes)
+
+    @property
+    def receives_gradient(self) -> bool:
+        return self.trainable
+
+    @property
+    def has_optimizer_state(self) -> bool:
+        return self.trainable
 
     @property
     def is_gathered(self) -> bool:
@@ -106,6 +152,24 @@ class ParamResidency:
         if self.cache == "regather":
             return "regather"
         return f"{self.cache}_cache"
+
+
+def update_class(pdef, frozen_cached_layout: bool = False) -> str:
+    """A ParamDef's update class under a strategy whose
+    ``frozen_cached_layout`` is given: the one place ``ParamDef.frozen``
+    is read."""
+    if not getattr(pdef, "frozen", False):
+        return "trainable"
+    return "frozen_cached" if frozen_cached_layout else "frozen"
+
+
+def split_frozen_indices(defs) -> Tuple[List[int], List[int]]:
+    """Flat indices of (trainable, frozen) ParamDefs of a leaf
+    sequence."""
+    train, frozen = [], []
+    for i, d in enumerate(defs):
+        (train if update_class(d) == "trainable" else frozen).append(i)
+    return train, frozen
 
 
 def split_train_indices(residencies) -> Tuple[List[int], List[int]]:

@@ -23,18 +23,29 @@ The built-ins are the paper's comparison set:
   mics    pod-replicated ('data',) sharding; no stage 1       (MiCS)
 
 Plans are derived from the mesh's axis names and sizes
-(``launch.mesh.MeshShape``), never from a process group. Every leaf is
-trainable in this port so far: a frozen leaf (PEFT, FCDP-Comm's cached
-layout) raises. Per-tensor overrides (composites), hier and the
-prefetch/async/cross-step streams come later.
+(``launch.mesh.MeshShape``), never from a process group. Frozen leaves
+(PEFT) get a non-trainable update class: fcdp stores them in its frozen
+cached layout (pod-replicated, over the intra axes only: FCDP-Comm),
+the other modes in their own layout; none of them quantizes or fuses a
+frozen leaf.
+
+Resolution is per leaf (``resolve_strategies``): a leaf's
+``ParamDef.strategy`` tag wins, else the first ``SystemConfig.
+mode_overrides`` rule whose glob matches its dotted path, else
+``SystemConfig.mode``. A uniform assignment gives back the plain
+singleton; a mixed one a ``CompositeStrategy`` that hands every
+per-leaf decision to the leaf's own strategy. hier, ``fsdp_scope`` and
+the prefetch/async/cross-step streams come later.
 """
 from __future__ import annotations
 
+import dataclasses
+import fnmatch
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Type, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Type, Union
 
-from repro_torch.core.residency import ParamResidency
+from repro_torch.core.residency import ParamResidency, update_class
 from repro_torch.launch.mesh import fsdp_axes, intra_fsdp_axes
 
 INTER_AXIS = "pod"     # the slow mesh axis name
@@ -108,6 +119,9 @@ class ShardingStrategy:
     # where the stage-1 result waits for the backward:
     # 'regather' (recompute both stages), 'device', 'host' (pinned)
     cache_placement: str = "regather"
+    # frozen (FCDP-Comm) leaves are stored in the pod-replicated cached
+    # layout
+    frozen_cached_layout: bool = False
     # whether the stage-1 gather may carry int8 (qwZ); strategies with no
     # stage 1 decline structurally
     supports_quantized_gather: bool = True
@@ -117,17 +131,19 @@ class ShardingStrategy:
     supports_fused_matmul: bool = True
 
     # -- storage layout -----------------------------------------------------
-    def storage_fsdp_axes(self, mesh) -> Tuple[str, ...]:
-        """Mesh axes the fsdp dim shards over in storage: full ZeRO-3
-        sharding."""
+    def storage_fsdp_axes(self, mesh, frozen: bool) -> Tuple[str, ...]:
+        """Mesh axes the fsdp dim shards over in storage: the
+        pod-replicated cached layout for a frozen leaf under a strategy
+        with ``frozen_cached_layout`` (FCDP-Comm), full ZeRO-3 sharding
+        otherwise (the baselines rebuild a frozen trunk over 'pod' every
+        step, as DeepSpeed does: that asymmetry is the paper's PEFT
+        result)."""
+        if frozen and self.frozen_cached_layout:
+            return intra_fsdp_axes(mesh)
         return fsdp_axes(mesh)
 
     def effective_fsdp_axes(self, pdef, mesh) -> Tuple[str, ...]:
-        if pdef.frozen:
-            raise ValueError(
-                f"{pdef.label or pdef.shape}: frozen leaves (PEFT / "
-                "FCDP-Comm) are not ported to the train path yet")
-        return self.storage_fsdp_axes(mesh)
+        return self.storage_fsdp_axes(mesh, pdef.frozen)
 
     def _spec_with_axes(self, pdef, mesh, axes: Tuple[str, ...],
                         min_shard_size: int = 0) -> Tuple:
@@ -158,15 +174,14 @@ class ShardingStrategy:
                   fused_matmul: str = "none") -> ParamResidency:
         """The full lifecycle matching ``storage_spec``. A def with a
         'stack' dim gets the fsdp dim index of its per-layer view."""
+        upd = update_class(pdef, self.frozen_cached_layout)
         d = pdef.fsdp_dim
         axes = self.effective_fsdp_axes(pdef, mesh)
         if d is None or pdef.size() < min_shard_size:
-            return ParamResidency("replicated", self.cache_placement,
-                                  "trainable")
+            return ParamResidency("replicated", self.cache_placement, upd)
         degree = math.prod(mesh.shape[a] for a in axes) if axes else 1
         if not axes or pdef.shape[d] % degree != 0:
-            return ParamResidency("replicated", self.cache_placement,
-                                  "trainable")
+            return ParamResidency("replicated", self.cache_placement, upd)
         inter = tuple(a for a in axes if a == INTER_AXIS)
         intra = tuple(a for a in axes if a != INTER_AXIS)
         tier = "dcn_sharded" if inter else "pod_replicated"
@@ -175,12 +190,14 @@ class ShardingStrategy:
         cache_after = 1 if inter else 2
         body_dim = d - 1 if ("stack" in pdef.dims and
                              pdef.dims.index("stack") < d) else d
-        # leaves whose per-slice shard is smaller than one quant block
-        # stay exact: the padded block and scale would cost more wire
-        # bytes than bf16
+        # frozen leaves stay exact; so do leaves whose per-slice shard is
+        # smaller than one quant block: the padded block and scale would
+        # cost more wire bytes than bf16
         stack = (pdef.shape[pdef.dims.index("stack")]
                  if "stack" in pdef.dims else 1)
-        quantizable = (bool(inter) and pdef.size() // (degree * stack)
+        trainable = upd == "trainable"
+        quantizable = (bool(inter) and trainable
+                       and pdef.size() // (degree * stack)
                        >= QUANT_MIN_SHARD_ELEMS)
         # gather-fused collective matmul: the def opts in (an output
         # projection consumed through models/layers.matmul), its per-layer
@@ -189,18 +206,18 @@ class ShardingStrategy:
         # split), and stage 2 runs per use: after a stage-1 cache
         # (cache_after 1) or as a regather. A cache_after-2 device or host
         # placement caches the fully gathered weight, so no per-use stage
-        # 2 is left to fuse.
+        # 2 is left to fuse. A frozen leaf declines (it stays exact).
         body_rank = len(pdef.shape) - (1 if "stack" in pdef.dims else 0)
         intra_deg = math.prod(mesh.shape[a] for a in intra) if intra else 1
         fusable = (fused_matmul != "none"
                    and self.supports_fused_matmul
-                   and pdef.fusable
+                   and pdef.fusable and trainable
                    and body_rank == 2 and body_dim == 1
                    and len(intra) == 1 and intra_deg > 1
                    and (cache_after == 1
                         or self.cache_placement == "regather"))
         return ParamResidency(
-            tier, self.cache_placement, "trainable",
+            tier, self.cache_placement, upd,
             fsdp_dim=body_dim, stage1_axes=inter, stage2_axes=intra,
             cache_after=cache_after,
             quantized_gather=(param_compress and quantizable
@@ -259,9 +276,12 @@ class ZeroPP(ShardingStrategy):
 
 class FCDP(ShardingStrategy):
     """Full sharding; stage-1 result cached in pinned host memory,
-    backward re-runs stage 2 only (the paper)."""
+    backward re-runs stage 2 only (the paper). Frozen leaves are stored
+    in the cached layout (FCDP-Comm): pod-replicated, so stage 1 is
+    empty and the fully gathered weight waits on the host."""
     name = "fcdp"
     cache_placement = "host"
+    frozen_cached_layout = True
 
 
 class MiCS(ShardingStrategy):
@@ -273,8 +293,91 @@ class MiCS(ShardingStrategy):
     cache_placement = "regather"
     supports_quantized_gather = False
 
-    def storage_fsdp_axes(self, mesh) -> Tuple[str, ...]:
+    def storage_fsdp_axes(self, mesh, frozen: bool) -> Tuple[str, ...]:
         return intra_fsdp_axes(mesh)
+
+
+class CompositeStrategy(ShardingStrategy):
+    """Per-leaf strategy dispatch behind the whole-model surface, built
+    by ``resolve_strategies`` when a model mixes strategy groups (PEFT's
+    mixed arm: the frozen trunk on fcdp, the adapters on zero3). Every
+    per-leaf decision (storage and optimizer specs, residency, gather
+    plan) goes to the strategy named by the leaf's ``ParamDef.strategy``
+    tag, the default for an untagged leaf; so each group gates qwZ and
+    the fused matmul by its own attributes."""
+
+    name = "composite"
+
+    def __init__(self, default: ShardingStrategy,
+                 groups: Dict[str, ShardingStrategy]):
+        self.default = default
+        self.groups = dict(groups)
+
+    def _for(self, pdef) -> ShardingStrategy:
+        tag = getattr(pdef, "strategy", None)
+        if not tag:
+            return self.default
+        return self.groups.get(tag) or get_strategy(tag)
+
+    def group_names(self) -> Tuple[str, ...]:
+        return tuple(sorted(self.groups))
+
+    def storage_fsdp_axes(self, mesh, frozen: bool) -> Tuple[str, ...]:
+        # no leaf in sight: the default group's answer
+        return self.default.storage_fsdp_axes(mesh, frozen)
+
+    def effective_fsdp_axes(self, pdef, mesh) -> Tuple[str, ...]:
+        return self._for(pdef).effective_fsdp_axes(pdef, mesh)
+
+    def storage_spec(self, pdef, mesh, min_shard_size: int = 0) -> Tuple:
+        return self._for(pdef).storage_spec(pdef, mesh, min_shard_size)
+
+    def opt_spec(self, pdef, mesh, min_shard_size: int = 0) -> Tuple:
+        return self._for(pdef).opt_spec(pdef, mesh, min_shard_size)
+
+    def residency(self, pdef, mesh, min_shard_size: int = 0,
+                  compress_bwd: bool = False,
+                  param_compress: bool = False,
+                  fused_matmul: str = "none") -> ParamResidency:
+        return self._for(pdef).residency(pdef, mesh, min_shard_size,
+                                         compress_bwd, param_compress,
+                                         fused_matmul)
+
+    def gather_plan(self, pdef, mesh, min_shard_size: int = 0,
+                    compress_bwd: bool = False,
+                    param_compress: bool = False,
+                    fused_matmul: str = "none") -> GatherPlan:
+        return self._for(pdef).gather_plan(pdef, mesh, min_shard_size,
+                                           compress_bwd, param_compress,
+                                           fused_matmul)
+
+    @property
+    def cache_placement(self) -> str:
+        # whole-model view only; the placement travels per plan
+        return self.default.cache_placement
+
+    @property
+    def supports_quantized_gather(self) -> bool:
+        return any(s.supports_quantized_gather for s in self.groups.values())
+
+    @property
+    def supports_fused_matmul(self) -> bool:
+        return any(s.supports_fused_matmul for s in self.groups.values())
+
+    def __repr__(self) -> str:
+        return (f"<CompositeStrategy default={self.default.name!r} "
+                f"groups={self.group_names()}>")
+
+
+def leaf_group(strategy, pdef) -> str:
+    """A leaf's group: its strategy tag, else the composite's default,
+    else the (uniform) strategy's own name."""
+    tag = getattr(pdef, "strategy", None)
+    if tag:
+        return tag
+    if isinstance(strategy, CompositeStrategy):
+        return strategy.default.name
+    return strategy.name
 
 
 _REGISTRY: Dict[str, ShardingStrategy] = {}
@@ -310,3 +413,95 @@ def resolve_strategy(mode: Union[str, ShardingStrategy]) -> ShardingStrategy:
     if isinstance(mode, ShardingStrategy):
         return mode
     return get_strategy(mode)
+
+
+# -- per-leaf resolution (SystemConfig.mode_overrides, ParamDef.strategy) -------
+
+def parse_mode_override(spec: str) -> Tuple[str, str]:
+    """``'<path glob>=<mode>'`` (the command line's form) as a
+    ``(pattern, mode)`` rule."""
+    pattern, sep, mode = str(spec).partition("=")
+    pattern, mode = pattern.strip(), mode.strip()
+    if not sep or not pattern or not mode:
+        raise ValueError(
+            f"malformed mode override {spec!r}; expected "
+            "'<path-glob>=<mode>' (e.g. '*lora*=zero3')")
+    return pattern, mode
+
+
+def normalize_mode_overrides(
+        overrides: Sequence[Any]) -> Tuple[Tuple[str, str], ...]:
+    """``SystemConfig.mode_overrides`` as ``(pattern, mode)`` pairs, in
+    order, from pairs or ``'pattern=mode'`` strings; raises naming the
+    rule for a malformed rule or an unregistered mode."""
+    rules = []
+    for rule in tuple(overrides or ()):
+        if isinstance(rule, str):
+            pattern, mode = parse_mode_override(rule)
+        else:
+            try:
+                pattern, mode = rule
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"malformed mode_overrides rule {rule!r}; expected "
+                    "(pattern, mode) or 'pattern=mode'") from None
+            if not (isinstance(pattern, str) and isinstance(mode, str)
+                    and pattern.strip() and mode.strip()):
+                raise ValueError(
+                    f"malformed mode_overrides rule {rule!r}; pattern and "
+                    "mode must be non-empty strings")
+            pattern, mode = pattern.strip(), mode.strip()
+        if mode not in _REGISTRY:
+            raise ValueError(
+                f"mode_overrides rule {pattern!r}={mode!r} names an "
+                f"unknown strategy; registered: {sorted(_REGISTRY)}")
+        rules.append((pattern, mode))
+    return tuple(rules)
+
+
+def resolve_strategies(sys, defs, *, strict: bool = True):
+    """The per-leaf strategy assignment of a labelled ParamDef tree:
+    ``(defs, strategy)``. Per leaf, its ``ParamDef.strategy`` tag wins,
+    else the first ``sys.mode_overrides`` rule whose glob matches its
+    dotted label (``fnmatch``; ``*`` crosses dots), else ``sys.mode``.
+    With no rule and no tag the tree and the mode's singleton come back
+    unchanged; otherwise every leaf is tagged, and a uniform assignment
+    still gives the singleton, a mixed one a ``CompositeStrategy``.
+
+    ``strict`` raises for a rule that is the first match of no leaf (a
+    mistyped glob). The bundle resolves the base tree non-strict under
+    ``peft`` (a rule for the adapters, ``'*lora*'``, matches nothing
+    before they are injected) and strict after injection. Hits count by
+    label only, so a tag shadowing a rule does not kill the rule."""
+    from repro_torch.core.partition import tree_items, tree_map_with_path
+    rules = normalize_mode_overrides(getattr(sys, "mode_overrides", ()))
+    leaves = [d for _, d in tree_items(defs)]
+    if not rules and not any(d.strategy for d in leaves):
+        return defs, get_strategy(sys.mode)
+    default = get_strategy(sys.mode)
+    hits = [0] * len(rules)
+
+    def tag(_, d):
+        rule_name = None
+        for ri, (pattern, mode) in enumerate(rules):
+            if fnmatch.fnmatchcase(d.label, pattern):
+                rule_name = mode
+                hits[ri] += 1
+                break
+        if d.strategy:
+            get_strategy(d.strategy)            # an unknown tag raises
+            return d
+        return dataclasses.replace(d, strategy=rule_name or default.name)
+
+    tagged = tree_map_with_path(tag, defs)
+    for (pattern, mode), n in zip(rules, hits):
+        if n == 0 and strict:
+            raise ValueError(
+                f"mode_overrides rule {pattern!r}={mode!r} matched zero "
+                "parameters (patterns are fnmatch globs against dotted "
+                "label paths, e.g. 'blocks.*.attn.*_lora_*')")
+    groups = {d.strategy: get_strategy(d.strategy)
+              for _, d in tree_items(tagged)}
+    if len(groups) == 1 and default.name in groups:
+        return tagged, default
+    return tagged, CompositeStrategy(default, groups)

@@ -39,6 +39,7 @@ from repro_torch.core.engine import StepBundle
 from repro_torch.core.engine.train import (int8_launch_plan,
                                            matmul_chunk_launch_plan)
 from repro_torch.core.partition import tree_items
+from repro_torch.core.peft import unfreeze_all
 from repro_torch.core.strategy import strategy_names
 from repro_torch.data.pipeline import DataConfig, ShardedLoader, SyntheticPackedLM
 from repro_torch.kernels import ops
@@ -51,9 +52,12 @@ TIMEOUT = timedelta(seconds=900)
 
 @dataclass(frozen=True)
 class ModeRun:
-    """One run of the job: the strategy, int8, dtype, loss-chunk and
-    fused-matmul knobs of the system, the microbatch count, and its
-    steps."""
+    """One run of the job: the strategy (``mode``, and the per-leaf
+    ``mode_overrides`` rules), int8, dtype, loss-chunk and fused-matmul
+    knobs of the system, PEFT (``peft``: frozen trunk and LoRA adapters
+    of rank ``lora_rank`` scaled by ``lora_alpha`` / rank; with
+    ``all_trainable`` every leaf of that tree trains, the reference
+    arm), the microbatch count, and its steps."""
     mode: str
     param_compress: str = "none"
     grad_compress: str = "none"
@@ -64,6 +68,11 @@ class ModeRun:
     master_dtype: str = "float32"
     opt_state_dtype: str = "float32"
     fused_matmul: str = "none"
+    peft: bool = False
+    lora_rank: int = 8
+    lora_alpha: Optional[float] = None
+    mode_overrides: tuple = ()
+    all_trainable: bool = False
 
 
 @dataclass
@@ -94,16 +103,22 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
                                dtype=mr.dtype, loss_chunk=mr.loss_chunk,
                                master_dtype=mr.master_dtype,
                                opt_state_dtype=mr.opt_state_dtype,
-                               fused_matmul=mr.fused_matmul)
+                               fused_matmul=mr.fused_matmul, peft=mr.peft,
+                               lora_rank=mr.lora_rank,
+                               lora_alpha=mr.lora_alpha,
+                               mode_overrides=mr.mode_overrides)
     run = dataclasses.replace(job.run, system=sysc,
                               microbatch=mr.microbatch)
-    bundle = StepBundle(run, device=device, mesh=mesh)
+    bundle = StepBundle(run, device=device, mesh=mesh,
+                        defs_fn=unfreeze_all if mr.all_trainable else None)
     if job.params is not None:
         from repro_torch.convert import shards_from_jax
         params = shards_from_jax(job.params, bundle)
     else:
         params = bundle.init_all_params(job.seed, job.draw_device)
-    train, _ = bundle.split(params)
+    train, frozen = bundle.split(params)
+    # host copies: the check must not add to the peak device memory
+    frozen0 = [t.detach().to("cpu", copy=True) for t in frozen]
     opt = init_opt_state(train, sysc)
     step = bundle.make_train_step(coll)
     loader = ShardedLoader(SyntheticPackedLM(run.model, run.shape,
@@ -118,7 +133,10 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
            "launches": [], "calls": [], "step_s": [], "cached": [],
            "cache_places": [], "int8_plan": int8_launch_plan(bundle),
            "mm_launches": [], "mm_calls": [],
-           "mm_plan": matmul_chunk_launch_plan(bundle)}
+           "mm_plan": matmul_chunk_launch_plan(bundle),
+           "params_total": sum(d.size() for d in bundle.def_leaves),
+           "params_trainable": sum(bundle.def_leaves[i].size()
+                                   for i in bundle.train_idx)}
     for s in range(mr.steps):
         batch = (bundle.shard_batch(job.batches[s]) if job.batches
                  else loader.get(s))
@@ -155,9 +173,15 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
     if job.return_params:
         out["final_params"] = {path: t.detach().cpu().float().numpy()
                                for path, t in tree_items(params)}
+    if frozen:
+        out["frozen_unchanged"] = all(
+            torch.equal(a, b.detach().cpu()) for a, b in zip(frozen0, frozen))
+        out["lora_b_moved"] = any(
+            bool(t.detach().abs().max() > 0)
+            for path, t in tree_items(params) if path.endswith("_lora_b"))
     if device.type == "cuda":
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
-    del params, opt, step
+    del params, opt, step, frozen0
     return out
 
 
@@ -252,20 +276,26 @@ def spawn(job: TrainJob, rdzv_dir: Optional[str] = None,
 def build_run(args) -> RunConfig:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cell = ShapeCell("train", "train", args.seq_len, args.batch)
+    lora = {}
+    if args.lora_targets:
+        lora["lora_targets"] = tuple(t.strip() for t in
+                                     args.lora_targets.split(",")
+                                     if t.strip())
     sysc = SystemConfig(mode=args.mode, param_compress=args.param_compress,
                         grad_compress=args.grad_compress,
                         fused_matmul=args.fused_matmul,
-                        min_shard_size=8 if args.smoke else 2048)
+                        min_shard_size=8 if args.smoke else 2048,
+                        peft=args.peft, lora_rank=args.lora_rank,
+                        lora_alpha=args.lora_alpha,
+                        mode_overrides=tuple(args.mode_override), **lora)
     return RunConfig(model=cfg, shape=cell, system=sysc,
                      optimizer=OptimizerConfig(
                          lr=args.lr, total_steps=args.steps,
                          warmup_steps=max(args.steps // 20, 1)))
 
 
-def main(argv=None):
-    """Train under torchrun (``RANK``/``WORLD_SIZE``/``LOCAL_WORLD_SIZE``/
-    ``MASTER_ADDR``/``MASTER_PORT`` from its environment). Rank 0 prints one line per
-    step and a JSON summary; returns this rank's result."""
+def parser() -> argparse.ArgumentParser:
+    """The command line of ``main``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
@@ -277,6 +307,22 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--mode", default="fcdp", choices=strategy_names())
+    ap.add_argument("--mode-override", action="append", default=[],
+                    metavar="GLOB=MODE",
+                    help="per-tensor strategy rule matched against dotted "
+                         "parameter paths, first match wins; repeatable "
+                         "(e.g. --mode-override '*lora*=zero3')")
+    ap.add_argument("--peft", action="store_true",
+                    help="FCDP-Comm: freeze the trunk and train LoRA "
+                         "adapters; only they cross 'pod' under fcdp")
+    ap.add_argument("--lora-rank", type=int, default=8,
+                    help="LoRA adapter rank r (with --peft)")
+    ap.add_argument("--lora-alpha", type=float, default=None,
+                    help="the adapter term is scaled by alpha/rank "
+                         "(default: 2*rank, scale 2.0)")
+    ap.add_argument("--lora-targets", default=None, metavar="NAME[,NAME...]",
+                    help="projections to inject adapters next to "
+                         "(default: wq,wk,wv,wo)")
     ap.add_argument("--param-compress", default="none",
                     choices=["none", "int8_pod"])
     ap.add_argument("--grad-compress", default="none",
@@ -288,16 +334,28 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    """Train under torchrun (``RANK``/``WORLD_SIZE``/``LOCAL_WORLD_SIZE``/
+    ``MASTER_ADDR``/``MASTER_PORT`` from its environment). Rank 0 prints one line per
+    step and a JSON summary; returns this rank's result."""
+    args = parser().parse_args(argv)
 
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    job = TrainJob(run=build_run(args),
+    run = build_run(args)
+    sysc = run.system
+    job = TrainJob(run=run,
                    mesh=train_mesh_shape(world, args.multi_pod),
                    runs=[ModeRun(args.mode, args.param_compress,
                                  args.grad_compress, args.steps,
                                  microbatch=args.microbatch,
-                                 fused_matmul=args.fused_matmul)],
+                                 fused_matmul=args.fused_matmul,
+                                 peft=sysc.peft, lora_rank=sysc.lora_rank,
+                                 lora_alpha=sysc.lora_alpha,
+                                 mode_overrides=sysc.mode_overrides)],
                    device=args.device, seed=args.seed)
     t0 = time.perf_counter()
     res = run_job(job, rank, world, local_world, "env://")
@@ -314,6 +372,8 @@ def main(argv=None):
             "int8_calls_per_step": r["calls"][-1],
             "fused_matmul": args.fused_matmul,
             "matmul_chunk_calls_per_step": r["mm_calls"][-1],
+            "peft": args.peft, "mode_overrides": sysc.mode_overrides,
+            "trainable_frac": r["params_trainable"] / r["params_total"],
             "wall_s": time.perf_counter() - t0}))
     return res
 

@@ -9,6 +9,13 @@ the function the JAX package's ``attention_block`` computes with
 ``chunked_causal_attention``. The kernel reads kv heads by index, so
 K/V are never expanded to the q heads.
 
+LoRA adapters (PEFT) ride in as ``lora``, the sublayer's
+``<t>_lora_a`` / ``<t>_lora_b`` leaves, with ``lora_scale`` = alpha /
+rank: ``((x @ a) @ b) * scale`` in the projection's type is added to q,
+k and v after their bias and before RoPE, and to the output projection's
+result, as the JAX package's ``attention_block`` adds them. These are
+small matrix products outside any kernel in both packages.
+
 The train branch (``attention_train``) differentiates
 ``chunked_causal_attention``, plain PyTorch under autograd, as the JAX
 package's train path does: the flash kernel is forward-only in both
@@ -109,8 +116,26 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions):
-    """q [B,S,H,hd], k and v [B,S,KVH,hd], RoPE applied to q and k."""
+def _lora_term(x, lora, name, scale):
+    """The adapter term of projection ``name`` on its input x, or None
+    without adapters for it."""
+    a = lora.get(f"{name}_lora_a") if lora else None
+    if a is None:
+        return None
+    return ((x @ a) @ lora[f"{name}_lora_b"]) * scale
+
+
+def _add_lora(y, x, lora, name, scale):
+    """y, the output of projection ``name`` on x, plus its adapter term
+    in y's type."""
+    t = _lora_term(x, lora, name, scale)
+    return y if t is None else y + t.to(y.dtype)
+
+
+def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora=None,
+             lora_scale=2.0):
+    """q [B,S,H,hd], k and v [B,S,KVH,hd], RoPE applied to q and k; the
+    adapter terms go in before RoPE."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = x @ wq
@@ -122,6 +147,9 @@ def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions):
         k = k + bk
     if bv is not None:
         v = v + bv
+    q = _add_lora(q, x, lora, "wq", lora_scale)
+    k = _add_lora(k, x, lora, "wk", lora_scale)
+    v = _add_lora(v, x, lora, "wv", lora_scale)
     q = apply_rope(q.reshape(B, S, cfg.num_heads, hd), positions,
                    cfg.rope_theta)
     k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions,
@@ -130,22 +158,26 @@ def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions):
 
 
 def attention_train(x, wq, wk, wv, wo, bq, bk, bv, cfg,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor, lora=None,
+                    lora_scale: float = 2.0) -> torch.Tensor:
     """Causal self-attention sublayer of the train step, under autograd.
     x: [B, S, D]; positions: [1, S]. K/V are expanded to the q heads
     (q head h reads kv head h // n_rep), as the JAX package does."""
     B, S, _ = x.shape
-    q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions)
+    q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora,
+                       lora_scale)
     n_rep = cfg.num_heads // cfg.num_kv_heads
     out = chunked_causal_attention(q, k.repeat_interleave(n_rep, dim=2),
                                    v.repeat_interleave(n_rep, dim=2))
-    return matmul(out.reshape(B, S, -1), wo)
+    out = out.reshape(B, S, -1)
+    return _add_lora(matmul(out, wo), out, lora, "wo", lora_scale)
 
 
 def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
                     positions: torch.Tensor,
                     paged_kv: Optional[Tuple] = None,
-                    kv_cache: Optional[Tuple] = None, causal: bool = True):
+                    kv_cache: Optional[Tuple] = None, causal: bool = True,
+                    lora=None, lora_scale: float = 2.0):
     """Full attention sublayer.
 
     x: [B, S, D]. wq: [D, H*hd]; wk/wv: [D, KVH*hd]; wo: [H*hd, D].
@@ -169,7 +201,8 @@ def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
     v_cache, idx) or None).
     """
     B, S, D = x.shape
-    q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions)
+    q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora,
+                       lora_scale)
 
     new_cache = None
     if kv_cache is not None:
@@ -199,4 +232,6 @@ def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
     else:
         q_offset = torch.zeros(B, dtype=torch.int32, device=x.device)
     out = ops.flash_attention(q, k, v, q_offset, causal)
-    return matmul(out.reshape(B, S, -1), wo), new_cache
+    out = out.reshape(B, S, -1)
+    return _add_lora(matmul(out, wo), out, lora, "wo", lora_scale), \
+        new_cache

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, SystemConfig
 from repro_torch.core.partition import ParamDef, label_tree
+from repro_torch.core.peft import lora_scale
 from repro_torch.models import stack as stk
 from repro_torch.models.layers import (chunked_softmax_xent, embed_lookup,
                                        rms_norm)
@@ -45,6 +46,8 @@ class LM:
         self.cfg, self.sys = cfg, sys
         self.plan, self.n_groups = layer_plan(cfg)
         self.defs = label_tree(self._build_defs())
+        # the attention adapters' scale, where the params hold adapters
+        self.lora_scale = lora_scale(sys)
 
     def _build_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -81,7 +84,7 @@ class LM:
         positions = torch.arange(S, device=ids.device)[None, :]
         x = stk.apply_stack_train(cfg, self.plan, self.n_groups,
                                   params["blocks"], plans["blocks"], x,
-                                  positions, gather)
+                                  positions, gather, self.lora_scale)
         x = rms_norm(x, gather(params["final_norm"], plans["final_norm"],
                                torch.float32), cfg.norm_eps)
         head = gather(params["head"], plans["head"])
@@ -103,7 +106,7 @@ class LM:
         Returns (last-token logits [B, V], new state)."""
         S = ids.shape[1]
         x = self._embed(params, ids)
-        ctx = {"prefill": True,
+        ctx = {"prefill": True, "lora_scale": self.lora_scale,
                "positions": torch.arange(S, device=ids.device)[None, :]}
         x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
                                    params["blocks"], x, ctx, state)
@@ -114,8 +117,9 @@ class LM:
         V], new state)."""
         x = self._embed(params, tok)
         x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
-                                   params["blocks"], x, {"decode": True},
-                                   state)
+                                   params["blocks"], x,
+                                   {"decode": True,
+                                    "lora_scale": self.lora_scale}, state)
         return self._final(params, x[:, 0]), state
 
     # -- paged serving (continuous batching) ---------------------------------
@@ -131,7 +135,7 @@ class LM:
         ``state`` are updated in place. Returns (logits [B, V], state)."""
         x = self._embed(params, tok)
         ctx = {"paged": True, "positions": lengths[:, None],
-               "page_table": table}
+               "page_table": table, "lora_scale": self.lora_scale}
         x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
                                    params["blocks"], x, ctx, state)
         return self._final(params, x[:, 0]), state
@@ -146,7 +150,8 @@ class LM:
         x = self._embed(params, ids)
         positions = pos0[:, None] + torch.arange(
             S, dtype=pos0.dtype, device=pos0.device)[None, :]
-        ctx = {"paged": True, "positions": positions, "page_table": table}
+        ctx = {"paged": True, "positions": positions, "page_table": table,
+               "lora_scale": self.lora_scale}
         x, state = stk.apply_stack(self.cfg, self.plan, self.n_groups,
                                    params["blocks"], x, ctx, state)
         x_last = x[torch.arange(x.shape[0], device=x.device), last_idx.long()]

@@ -107,15 +107,18 @@ def apply_sublayer(kind: str, cfg, p, x, ctx: Dict[str, Any], state=None):
     and the recurrent sublayers over their state (prefill starts from
     zero state and does not read the one passed, as in the JAX
     package); with neither, rwkv runs over the whole sequence and keeps
-    no state. The MoE's aux loss is not computed (serving)."""
+    no state. The MoE's aux loss is not computed (serving). ctx
+    "lora_scale" scales the attention adapters (PEFT), where there are
+    any."""
     if kind == "attn":
+        scale = ctx.get("lora_scale", 2.0)
         if ctx.get("paged"):
             return sl.attn_paged(cfg, p, x, state, ctx["positions"],
-                                 ctx["page_table"])
+                                 ctx["page_table"], scale)
         if ctx.get("decode"):
-            return sl.attn_decode(cfg, p, x, state)
+            return sl.attn_decode(cfg, p, x, state, scale)
         if ctx.get("prefill") and state is not None:
-            return sl.attn_apply(cfg, p, x, ctx["positions"], state)
+            return sl.attn_apply(cfg, p, x, ctx["positions"], state, scale)
         raise ValueError("attention without a cache is the train branch "
                          "(apply_stack_train)")
     if kind == "mlp":
@@ -178,11 +181,17 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
 
 def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                       n_groups: int, stacked_params, stacked_plans, x,
-                      positions, gather):
+                      positions, gather, lora_scale: float = 2.0):
     """The train forward of the stack: layer l gathers the shards
     ``leaf[l]`` through their plans (norm scales straight to fp32,
-    where ``rms_norm`` reads them) and applies the group. Returns x."""
-    import torch
+    where ``rms_norm`` reads them) and applies the group. Returns x.
+    The JAX package differentiates its layer scan's carry at every
+    layer, even when no gradient flows into the stack's input (a frozen
+    embedding under PEFT); so does this loop, which makes the first
+    layer's frozen weights needed, and rebuilt, in the backward there
+    too."""
+    if not x.requires_grad:
+        x = x.detach().requires_grad_(True)
     for layer in range(n_groups):
         with gather.layer():
             for i, kinds in enumerate(plan):
@@ -194,7 +203,7 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                                    torch.float32 if n == "norm" else None)
                          for n, t in shards.items()}
                     if kind == "attn":
-                        x = sl.attn_train(cfg, p, x, positions)
+                        x = sl.attn_train(cfg, p, x, positions, lora_scale)
                     elif kind == "mlp":
                         x = sl.mlp_apply(cfg, p, x)
                     else:

@@ -56,16 +56,27 @@ def attn_init_paged_state(cfg, n_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
-def attn_paged(cfg, p, x, state, positions, table):
+def _lora_kwargs(p, lora_scale: float) -> Dict:
+    """The adapter leaves of a sublayer dict (PEFT) and their scale
+    (``core.peft.lora_scale``), as ``attention_block``'s keywords; none
+    without adapters. Only attention consumes adapters, as in the JAX
+    package: one injected next to an MLP projection goes unused."""
+    lora = {k: v for k, v in p.items() if "_lora_" in k}
+    return {"lora": lora, "lora_scale": lora_scale} if lora else {}
+
+
+def attn_paged(cfg, p, x, state, positions, table, lora_scale=2.0):
     """Attention over the paged KV cache: one decode token (x: [B,1,D])
     or one prefill chunk (x: [B,C,D]) per call. positions: [B,S] per-row
     absolute positions; table: [B, max_pages] page ids. The pools in
-    ``state`` are updated in place."""
+    ``state`` are updated in place. ``lora_scale``: the adapters'
+    scale, where ``p`` holds adapters (as in every attn_*)."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     y, (pk, pv) = attn_mod.attention_block(
         h, p["wq"], p["wk"], p["wv"], p["wo"],
         p.get("bq"), p.get("bk"), p.get("bv"), cfg, positions,
-        paged_kv=(state["k"], state["v"], table))
+        paged_kv=(state["k"], state["v"], table),
+        **_lora_kwargs(p, lora_scale))
     return x + y, {"k": pk, "v": pv}
 
 
@@ -80,7 +91,7 @@ def attn_init_state(cfg, batch: int, max_len: int,
             "idx": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def attn_apply(cfg, p, x, positions, state):
+def attn_apply(cfg, p, x, positions, state, lora_scale=2.0):
     """Attention over the contiguous cache from its ``idx`` on: the
     prompt in prefill (positions [1, S] from 0, as the JAX package's
     prefill passes them) or one token in decode (positions [1, 1] =
@@ -90,22 +101,24 @@ def attn_apply(cfg, p, x, positions, state):
     y, _ = attn_mod.attention_block(
         h, p["wq"], p["wk"], p["wv"], p["wo"],
         p.get("bq"), p.get("bk"), p.get("bv"), cfg, positions,
-        kv_cache=(state["k"], state["v"], state["idx"]))
+        kv_cache=(state["k"], state["v"], state["idx"]),
+        **_lora_kwargs(p, lora_scale))
     return x + y, state
 
 
-def attn_decode(cfg, p, x, state):
+def attn_decode(cfg, p, x, state, lora_scale=2.0):
     """One-token decode over the contiguous cache. x: [B,1,D]."""
-    return attn_apply(cfg, p, x, state["idx"].view(1, 1), state)
+    return attn_apply(cfg, p, x, state["idx"].view(1, 1), state,
+                      lora_scale)
 
 
-def attn_train(cfg, p, x, positions):
+def attn_train(cfg, p, x, positions, lora_scale=2.0):
     """Causal self-attention sublayer of the train step (under
     autograd)."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     return x + attn_mod.attention_train(
         h, p["wq"], p["wk"], p["wv"], p["wo"], p.get("bq"), p.get("bk"),
-        p.get("bv"), cfg, positions)
+        p.get("bv"), cfg, positions, **_lora_kwargs(p, lora_scale))
 
 
 def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:

@@ -196,3 +196,78 @@ def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") == second
     src.write_text('#include "shared.cuh"\n// edited\n')
     assert _build.library_path("k") not in (first, second)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _one_rank_env(monkeypatch):
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": str(_free_port())}.items():
+        monkeypatch.setenv(k, v)
+
+
+PEFT_FLAGS = ["--arch", "qwen2.5-3b", "--smoke", "--peft", "--lora-rank", "2",
+              "--mode-override", "*lora*=zero3", "--device", "cpu"]
+
+
+def test_train_launcher_parses_peft_and_builds_the_composite():
+    """``--peft --lora-rank 2 --mode-override '*lora*=zero3'``: the trunk
+    frozen on fcdp, the adapters trainable on zero3, on the 4-rank
+    multi-pod mesh."""
+    from repro_torch.core.strategy import CompositeStrategy, leaf_group
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import train_mesh_shape
+    run = launcher.build_run(launcher.parser().parse_args(
+        PEFT_FLAGS + ["--multi-pod"]))
+    sysc = run.system
+    assert (sysc.peft, sysc.lora_rank, sysc.lora_alpha, sysc.lora_targets,
+            sysc.mode_overrides) == (True, 2, None, ("wq", "wk", "wv", "wo"),
+                                     (("*lora*", "zero3"),))
+    b = StepBundle(run, device="cpu", mesh=train_mesh_shape(4, True))
+    assert isinstance(b.strategy, CompositeStrategy)
+    assert b.strategy.group_names() == ("fcdp", "zero3")
+    assert {leaf_group(b.strategy, b.def_leaves[i])
+            for i in b.train_idx} == {"zero3"}
+    assert all("_lora_" in b.paths[i] for i in b.train_idx)
+    frozen = [b.plan_leaves[i].residency for i in b.frozen_idx]
+    assert {r.update for r in frozen} == {"frozen_cached"}
+    args = launcher.parser().parse_args(
+        PEFT_FLAGS + ["--lora-alpha", "8", "--lora-targets", "wq, wo"])
+    sysc = launcher.build_run(args).system
+    assert (sysc.lora_alpha, sysc.lora_targets) == (8.0, ("wq", "wo"))
+
+
+def test_train_launcher_runs_a_peft_step_on_the_cpu(monkeypatch, capsys):
+    """One CPU rank trains the adapters: the JSON line reports the
+    trainable fraction; the frozen trunk is left as it was."""
+    from repro_torch.launch import train as launcher
+    _one_rank_env(monkeypatch)
+    res = launcher.main(PEFT_FLAGS + ["--steps", "2", "--batch", "2",
+                                      "--seq-len", "32"])
+    r = res["runs"][0]
+    assert all(np.isfinite(m["loss"]) for m in r["metrics"])
+    assert r["frozen_unchanged"] and r["lora_b_moved"]
+    assert 0 < r["params_trainable"] < 0.1 * r["params_total"]
+    assert '"trainable_frac"' in capsys.readouterr().out
+
+
+def test_train_launcher_raises_when_peft_finds_no_target(monkeypatch):
+    from repro_torch.launch import train as launcher
+    _one_rank_env(monkeypatch)
+    with pytest.raises(ValueError, match="no LoRA injection sites"):
+        launcher.main(["--arch", "qwen2.5-3b", "--smoke", "--peft",
+                       "--lora-targets", "q_proj", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [["--peft"], ["--lora-rank", "8"],
+                                   ["--mode-override", "*lora*=zero3"]])
+def test_serve_launcher_refuses_the_peft_flags(flags):
+    with pytest.raises(SystemExit):
+        serve_launcher.main(["--arch", "qwen2.5-3b", "--device", "cpu"]
+                            + flags)

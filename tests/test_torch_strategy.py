@@ -146,14 +146,6 @@ def test_mics_declines_qwz_but_has_no_stage1():
     assert p.sync_axes == ("pod",)
 
 
-def test_frozen_leaves_are_refused():
-    """PEFT / FCDP-Comm is not ported: a frozen leaf raises instead of
-    being laid out as if it were trainable."""
-    frozen = ParamDef((4, 64, 64), ("stack", "fsdp", "tp"), frozen=True)
-    with pytest.raises(ValueError, match="frozen"):
-        get_strategy("fcdp").residency(frozen, MESH, 8)
-
-
 def test_registry_and_config_validation():
     assert strategy_names() == MODES
     with pytest.raises(ValueError, match="unknown system mode"):
@@ -249,7 +241,7 @@ def test_fused_gate_declines_like_jax():
     table has a projection's dims), an input-dim-sharded matrix, a 1-D
     leaf, an elementwise-consumed leaf without the opt-in, and a
     single-pod fcdp/zeropp leaf whose cache is the fully gathered weight
-    (cache_after 2). Frozen leaves are refused by the port altogether."""
+    (cache_after 2), and a frozen leaf (PEFT), under every mode."""
     jm3 = _jax_mesh((2, 2, 2), ("pod", "data", "model"))
     jm2 = _jax_mesh((4, 2), ("data", "model"))
     cases = [
@@ -262,7 +254,8 @@ def test_fused_gate_declines_like_jax():
          JParamDef((6, 128), (None, "fsdp")), MESH3, jm3),
         ("fcdp", _proj(), _jproj(), MESH2, jm2),
         ("zeropp", _proj(), _jproj(), MESH2, jm2),
-    ]
+    ] + [(mode, _proj(frozen=True), _jproj(frozen=True), MESH3, jm3)
+         for mode in MODES]
     for mode, d, jd, mesh, jm in cases:
         want = j_get_strategy(mode).gather_plan(jd, jm, 0,
                                                 fused_matmul="ag_matmul")
@@ -271,9 +264,6 @@ def test_fused_gate_declines_like_jax():
         assert not want.is_fused and not got.is_fused, (mode, d)
     assert get_strategy("fcdp").gather_plan(_proj(), MESH2, 0).cache_after \
         == 2
-    with pytest.raises(ValueError, match="frozen"):
-        get_strategy("fcdp").gather_plan(_proj(frozen=True), MESH3, 0,
-                                         fused_matmul="ag_matmul")
 
 
 def test_fused_strategy_opt_out():

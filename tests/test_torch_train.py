@@ -33,6 +33,14 @@ do, while each package's int8 step equals its exact step on them. So
 the bf16 int8 run is held to the bf16 exact run (drift), the byte table
 and the int8 call counts, and the fp32 one to the JAX step.
 
+The reference and the port run one after the other, never at once: a
+JAX step running in one thread while another drives the spawned ranks
+crashed the test process under pytest-xdist (a segmentation fault in
+the JAX half's ``np.asarray``). The results are computed once per test
+session (``shared_result``): under xdist the first worker that needs
+them computes them while the others wait on a file lock, so no two
+workers run the 4-rank job at once.
+
 Byte counts per step and (op, axis) are held exactly to the JAX
 package's ``collect_collectives`` of the same step and to the table
 below (bytes per device per step; an all-gather counts its output
@@ -42,8 +50,11 @@ forward gathers of ``wo`` and ``w_out`` (2 layers x (4,096 + 8,192)
 bytes) leave ``all_gather/data`` for ``ppermute/data``; 'both' also
 moves the backward gathers and the dw reduce-scatters into the ring.
 """
-import concurrent.futures
+import fcntl
 import functools
+import os
+import pickle
+import traceback
 
 import jax
 import numpy as np
@@ -171,11 +182,37 @@ def _jax_init_tree():
     return jax.tree.unflatten(b.treedef, leaves)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both packages' results per run id: the port's four ranks run in
-    the background while the JAX steps run here."""
+def shared_result(tmp_path_factory, name, compute):
+    """``compute()``'s result, computed once per test session. Under
+    pytest-xdist the first worker to take the lock (a file in the
+    session's base temporary directory, which every worker shares)
+    computes and pickles it, and the others wait and read it; a failure
+    is shared the same way."""
+    if os.environ.get("PYTEST_XDIST_WORKER") is None:
+        return compute()
+    root = tmp_path_factory.getbasetemp().parent
+    done = root / f"{name}.pickle"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not done.exists():
+            try:
+                out = ("ok", compute())
+            except Exception:
+                out = ("error", traceback.format_exc())
+            part = done.with_suffix(".part")
+            part.write_bytes(pickle.dumps(out))
+            part.rename(done)
+        status, value = pickle.loads(done.read_bytes())
+    if status != "ok":
+        raise RuntimeError(f"{name} failed where it was computed:\n{value}")
+    return value
+
+
+def _compute_runs(tmp_path_factory):
+    """Both packages' results per run id: the JAX steps first, then the
+    port's four ranks."""
     batch = make_batch()
+    ref = {rid: _jax_run(RUNS[rid], batch) for rid in JAX_IDS}
     job = TrainJob(
         run=RunConfig(model=ModelConfig(**DENSE),
                       shape=ShapeCell("t", "train", SEQ, BATCH),
@@ -185,13 +222,15 @@ def runs(tmp_path_factory):
         params=_jax_init_tree(),
         batches=[batch] * max(r.steps for r in RUNS.values()),
         return_params=True)
-    rdzv = str(tmp_path_factory.mktemp("rdzv"))
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        port = pool.submit(spawn, job, rdzv)
-        ref = {rid: _jax_run(RUNS[rid], batch) for rid in JAX_IDS}
-        ranks = port.result(timeout=900)
+    ranks = spawn(job, str(tmp_path_factory.mktemp("rdzv")), timeout_s=900)
     return {rid: (ref.get(rid), [rk["runs"][i] for rk in ranks])
             for i, rid in enumerate(RUNS)}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return shared_result(tmp_path_factory, "torch_train_runs",
+                         lambda: _compute_runs(tmp_path_factory))
 
 
 def assemble(shards, spec, mesh):
