@@ -95,9 +95,31 @@ non-zero:
                 the CPU from the same weights: loss and grad norm within
                 tolerance, the same bytes, the plans' int8 launches on
                 the card and none on the CPU.
+ 13. tp_train -- tensor parallelism over 'model': qwen2.5-3b at full
+                width and depth 2, seq 512, global batch 8, on the
+                launcher's 8-rank mesh (pod 2 x data 2 x model 2) sharing
+                the card (gloo): one step each of zero3, fcdp, fcdp with
+                int8 qwZ/qgZ and the int8 TP activation all-reduce, and
+                fcdp with the gather-fused matmul, and 2 steps of fcdp
+                with the int8 activation all-reduce. Checks finite
+                losses the ranks agree on, zero3's, fcdp's and the fused
+                run's step-0 loss and grad norm equal, the int8 runs
+                within 0.08 of fcdp, every rank's int8 and chunk-matmul
+                launches equal to the plans (the activation
+                all-reduce's included), fcdp's pod all-gather below
+                zero3's, and the int8 activation all-reduce moving about
+                half the bf16 psum's bytes; reports bytes per (op, axis),
+                peaks and step times.
+ 14. tp_parity -- tests/test_torch_tp.py's DENSE model at (2, 2, 2),
+                fp32: the 8-rank fcdp step with the int8 activation
+                all-reduce and the fcdp + ag_matmul step on the card and
+                on the CPU from the same weights: loss and grad norm
+                within tolerance, the same bytes, the plans' launches on
+                the card and none on the CPU.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
-plain versions at the train and PEFT phases' shapes, the chunk-matmul kernel
+plain versions at the train and PEFT phases' shapes and at the int8 TP
+activation all-reduce's, the chunk-matmul kernel
 of the fused ring within tolerance of its plain version (and bit for bit
 column-independent, its wgmma + TMA variant bit-equal to its mma.sync
 one) at the train phase's shapes, mode 'both''s transposed operands read
@@ -629,12 +651,17 @@ def phase_int8_kernels():
     quantize and n = 2 dequant-accumulate), the embedding shard
     (151,936 x 2048 / 4 = 303,872 blocks), the PEFT phase's LoRA adapter
     (one rank's shard of a rank-8 ``wq_lora_a``: 2048 x 8 / 4 = 16
-    blocks, and its stage-1 view of 32), and a ragged block count.
-    Returns {kind: timed main-shape case}."""
+    blocks, and its stage-1 view of 32), the int8 TP activation
+    all-reduce of phase tp_train (one rank's [2, 512, 2048] activation:
+    quantize 8,192 bf16 blocks, dequant-accumulate n = 2 sources of
+    4,096, requantize the 4,096 fp32 ones, dequantize the gathered
+    8,192), and a ragged block count. Returns {kind: timed main-shape
+    case}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     w_nb, e_nb = 2048 * 11008 // 4 // 256, 151936 * 2048 // 4 // 256
     a_nb = 2048 * PEFT_RANK // 4 // 256
+    t_nb = TRAIN_BATCH // 4 * TRAIN_SEQ * 2048 // 256
     main = {
         "quantize": int8_case("quantize", "mlp_shard_bf16", w_nb, gen,
                               dtype="bfloat16", timed=True),
@@ -658,6 +685,15 @@ def phase_int8_kernels():
                   timed=True),
         int8_case("dequant_accumulate", "peft_adapter_stage1_grad", a_nb,
                   gen, timed=True),
+        # the int8 TP activation all-reduce at tp_train's activation:
+        # one rank's [2, 512, 2048] bf16 = 8,192 blocks in 2 chunks
+        int8_case("quantize", "tp_act_bf16", t_nb, gen, dtype="bfloat16",
+                  timed=True),
+        int8_case("dequant_accumulate", "tp_act_reduce", t_nb // 2, gen,
+                  timed=True),
+        int8_case("quantize", "tp_act_requant_f32", t_nb // 2, gen,
+                  timed=True),
+        int8_case("dequantize", "tp_act_gather", t_nb, gen, timed=True),
         int8_case("quantize", "ragged_f32", 4099, gen),
         int8_case("dequantize", "ragged", 4099, gen),
         int8_case("dequant_accumulate", "ragged_n3", 4099, gen, n=3)]
@@ -783,7 +819,8 @@ def phase_mm_kernels():
     """The chunk-matmul kernel at the train phase's shapes (qwen2.5-3b,
     mesh pod 2 x data 2: a rank holds 2 sequences x 512 = 1,024 tokens;
     the ring over data has n = 2 chunks of half of d_model's 2,048
-    columns): wo's chunk, w_out's chunk, mode 'both''s dx and dw chunks
+    columns): wo's chunk, w_out's chunk, both at phase tp_train's
+    (2, 2, 2) too (their input dims halved), mode 'both''s dx and dw chunks
     of w_out with ``chunk.T`` and ``x2.T`` read in place (as the ring
     hands them over), and test_fused_matmul.py's ragged shapes in bf16
     and f32. Also the transposes the parent copied to contiguous, timed
@@ -797,6 +834,11 @@ def phase_mm_kernels():
     g2 = torch.randn(tok, d, generator=gen, device="cuda").bfloat16()
     main = mm_case("w_out_chunk", tok, f, d // 2, gen, timed=True, x=x2)
     timed = [mm_case("wo_chunk", tok, d, d // 2, gen, timed=True),
+             # tp_train's ring chunks at (2, 2, 2): wo's and w_out's
+             # input dims halved over 'model'
+             mm_case("tp2_wo_chunk", tok, d // 2, d // 2, gen, timed=True),
+             mm_case("tp2_w_out_chunk", tok, f // 2, d // 2, gen,
+                     timed=True),
              mm_case("both_dx_w_out", tok, d // 2, f, gen, timed=True,
                      x=g2[:, :d // 2], w=chunk.t()),
              mm_case("both_dw_w_out", f, tok, d // 2, gen, timed=True,
@@ -1657,18 +1699,18 @@ def phase_parity():
 # -- phases 5 and 6 ------------------------------------------------------------
 
 def _train_job(cfg, seq, batch, runs, dtype="bfloat16", grad_clip=1.0,
-               **kw):
+               mesh=(2, 2, 1), **kw):
     from repro_torch.configs.base import (OptimizerConfig, RunConfig,
                                           ShapeCell, SystemConfig)
-    from repro_torch.launch.mesh import train_mesh_shape
+    from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.train import TrainJob
     run = RunConfig(model=cfg, shape=ShapeCell("train", "train", seq, batch),
                     system=SystemConfig(dtype=dtype),
                     optimizer=OptimizerConfig(lr=3e-4, total_steps=100,
                                               warmup_steps=10,
                                               grad_clip=grad_clip))
-    return TrainJob(run=run, mesh=train_mesh_shape(4, True), runs=runs,
-                    seed=0, **kw)
+    return TrainJob(run=run, mesh=MeshShape(("pod", "data", "model"), mesh),
+                    runs=runs, seed=0, **kw)
 
 
 def _rel(a, b):
@@ -2021,6 +2063,192 @@ def phase_peft_parity():
          lora_rank=PEFT_RANK, runs=report, wall_s={"cuda": t_g, "cpu": t_c})
 
 
+# -- phases 13 and 14: tensor parallelism over 'model' ---------------------------
+
+# tests/test_torch_tp.py's DENSE model (tests/test_system.py's)
+TP_PARITY_MODEL = dict(name="t-dense", family="dense", num_layers=2,
+                       d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                       vocab_size=256, qkv_bias=True)
+# the int8 activation all-reduce against the exact run, per step
+# (tests/test_substrate.py's bound)
+ACT_DRIFT = 0.08
+
+
+def _tp_key(run):
+    key = run["mode"]
+    if run["param_compress"] != "none":
+        key += "_int8_pod"
+    if run["act_psum"] != "bf16":
+        key += "_act_" + run["act_psum"]
+    if run["fused_matmul"] != "none":
+        key += "_" + run["fused_matmul"]
+    return key
+
+
+def _tp_checks(name, rs):
+    """Finite losses the ranks agree on, and the int8 and chunk-matmul
+    launches of every rank and step equal to the plans."""
+    import math
+    r0 = rs[0]
+    losses = [m["loss"] for m in r0["metrics"]]
+    check(all(math.isfinite(v) for v in losses),
+          f"tp {name}: a loss is not finite: {losses}")
+    check(all(r["metrics"] == r0["metrics"] for r in rs),
+          f"tp {name}: the ranks disagree on the metrics")
+    for r in rs:
+        for s, launched in enumerate(r["launches"]):
+            check(launched == r["int8_plan"],
+                  f"tp {name} step {s}: int8 launches {launched} != the "
+                  f"plans' {r['int8_plan']}")
+        check(r["mm_launches"] == [r["mm_plan"]] * len(r["metrics"]),
+              f"tp {name}: matmul_chunk launches {r['mm_launches']} != the "
+              f"plans' {r['mm_plan']} per step")
+
+
+def phase_tp_train():
+    """The train path tensor-parallel: qwen2.5-3b at full width, depth 2,
+    seq 512, global batch 8, on the launcher's 8-rank mesh (pod 2, data
+    2, model 2) sharing the card (gloo): zero3, fcdp, fcdp with the int8
+    TP activation all-reduce (2 steps), fcdp with int8 qwZ/qgZ and act
+    int8, and fcdp with the gather-fused matmul."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import train_mesh_shape
+    from repro_torch.launch.train import ModeRun, spawn
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=TRAIN_DEPTH)
+    mesh = train_mesh_shape(8, True)
+    check(mesh.shape == {"pod": 2, "data": 2, "model": 2},
+          f"the launcher's 8-rank mesh is {mesh.shape}")
+    runs = [ModeRun("zero3"), ModeRun("fcdp"),
+            ModeRun("fcdp", act_psum="int8", steps=2),
+            ModeRun("fcdp", "int8_pod", "int8_pod", act_psum="int8"),
+            ModeRun("fcdp", fused_matmul="ag_matmul")]
+    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs,
+                     mesh=mesh.axis_sizes)
+    t0 = time.perf_counter()
+    ranks = spawn(job, timeout_s=900)
+    wall = time.perf_counter() - t0
+    check(all(rk["backend"] == "gloo" for rk in ranks),
+          "8 ranks on one card must talk through gloo")
+    by = {_tp_key(r["run"]): [rk["runs"][i] for rk in ranks]
+          for i, r in enumerate(ranks[0]["runs"])}
+    summary = {}
+    for name, rs in by.items():
+        _tp_checks(name, rs)
+        r0 = rs[0]
+        summary[name] = {
+            "loss": [m["loss"] for m in r0["metrics"]],
+            "grad_norm": [m["grad_norm"] for m in r0["metrics"]],
+            "bytes_per_step": r0["bytes"][0],
+            "int8_launches_per_rank_step": r0["launches"][0],
+            "int8_plan": r0["int8_plan"],
+            "int8_act_allreduce_plan": r0["act_int8_plan"],
+            "matmul_chunk_launches_per_rank_step": r0["mm_launches"][0],
+            "cache_places": r0["cache_places"][0],
+            "peak_mem_gib": [r["peak_mem_bytes"] / 2**30 for r in rs],
+            "step_s": [r["step_s"] for r in rs]}
+    z3, fc, a8, q8, ag = (summary[k] for k in (
+        "zero3", "fcdp", "fcdp_act_int8", "fcdp_int8_pod_act_int8",
+        "fcdp_ag_matmul"))
+    for name, m in (("fcdp", fc), ("fcdp_ag_matmul", ag)):
+        check(_rel(m["loss"][0], z3["loss"][0]) <= LOSS_RTOL
+              and _rel(m["grad_norm"][0], z3["grad_norm"][0]) <= GNORM_RTOL,
+              f"tp {name} step 0 ({m['loss'][0]}, {m['grad_norm'][0]}) != "
+              f"zero3's ({z3['loss'][0]}, {z3['grad_norm'][0]})")
+    for name, m in (("act int8", a8), ("int8_pod + act int8", q8)):
+        check(_rel(m["loss"][0], fc["loss"][0]) <= ACT_DRIFT,
+              f"tp {name} step-0 loss {m['loss'][0]} drifts from fcdp "
+              f"{fc['loss'][0]}")
+        check(all(v > 0 for v in m["int8_launches_per_rank_step"].values()),
+              f"tp {name}: an int8 kernel launched no time")
+    check(fc["bytes_per_step"]["all_gather/pod"]
+          < z3["bytes_per_step"]["all_gather/pod"],
+          f"tp pod all-gather: fcdp {fc['bytes_per_step']} zero3 "
+          f"{z3['bytes_per_step']}")
+    check(fc["cache_places"] == {"host": [("cpu", True)]},
+          f"tp fcdp caches must lie in pinned host memory: "
+          f"{fc['cache_places']}")
+    check(ag["matmul_chunk_launches_per_rank_step"] > 0,
+          "tp ag_matmul launched no chunk matmul")
+    # the int8 all-reduce's all-to-all + all-gather against the bf16
+    # psum of the same activations (4 a layer, [2, 512, 2048] bf16)
+    act = TRAIN_BATCH // 4 * TRAIN_SEQ * cfg.d_model * 2
+    n_ar = 4 * TRAIN_DEPTH
+    b8 = a8["bytes_per_step"]
+    int8_share = (b8["all_to_all/model"] + b8["all_gather/model"]) / (
+        n_ar * act)
+    check(0.45 < int8_share < 0.55,
+          f"tp act int8 moves {int8_share} of the bf16 psum's bytes")
+    launches = {k: sum(sum(step[k] for step in r["launches"])
+                       for rs in by.values() for r in rs)
+                for k in QUANT_NAMES}
+    launches["matmul_chunk"] = sum(sum(r["mm_launches"])
+                                   for rs in by.values() for r in rs)
+    emit("tp_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=mesh.shape,
+         backend=ranks[0]["backend"], wall_s=wall,
+         act_int8_bytes_vs_bf16_psum=int8_share,
+         pod_all_gather_fcdp_vs_zero3=(
+             fc["bytes_per_step"]["all_gather/pod"]
+             / z3["bytes_per_step"]["all_gather/pod"]),
+         kernel_launches_total=launches, modes=summary)
+    return launches
+
+
+def phase_tp_parity():
+    """tests/test_torch_tp.py's DENSE model at (2, 2, 2), fp32: fcdp with
+    the int8 TP activation all-reduce and fcdp with the gather-fused
+    matmul, the same 8-rank steps on the card (kernels) and on the CPU
+    (plain versions) from the same weights (drawn on the CPU)."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch.train import ModeRun, spawn
+
+    runs = [ModeRun("fcdp", act_psum="int8", dtype="float32"),
+            ModeRun("fcdp", fused_matmul="ag_matmul", dtype="float32")]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        job = _train_job(ModelConfig(**TP_PARITY_MODEL), 64, 8, runs,
+                         dtype="float32", mesh=(2, 2, 2), device=dev,
+                         draw_device="cpu")
+        t0 = time.perf_counter()
+        rs = spawn(job, timeout_s=300)[0]["runs"]
+        out[dev] = (rs, time.perf_counter() - t0)
+    (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
+    report = {}
+    for name, g, c in zip(("act_int8", "ag_matmul"), gs, cs):
+        mg, mc = g["metrics"][0], c["metrics"][0]
+        check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
+              f"tp {name}: card loss {mg['loss']} != CPU {mc['loss']}")
+        check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
+              f"tp {name}: card grad norm {mg['grad_norm']} != CPU "
+              f"{mc['grad_norm']}")
+        check(g["bytes"] == c["bytes"],
+              f"tp {name}: card and CPU moved different bytes")
+        check(g["launches"][0] == g["int8_plan"]
+              and not any(c["launches"][0].values())
+              and c["calls"][0] == c["int8_plan"],
+              f"tp {name}: int8 launches: card must launch the plans' "
+              "count, the CPU none")
+        check(g["mm_launches"][0] == g["mm_plan"] and c["mm_launches"][0] == 0
+              and c["mm_calls"][0] == c["mm_plan"],
+              f"tp {name}: matmul_chunk launches: card {g['mm_launches']} "
+              f"must be the plans' {g['mm_plan']}, the CPU none")
+        report[name] = {"loss": {"cuda": mg["loss"], "cpu": mc["loss"]},
+                        "grad_norm": {"cuda": mg["grad_norm"],
+                                      "cpu": mc["grad_norm"]},
+                        "int8_launches_cuda": g["launches"][0],
+                        "matmul_chunk_launches_cuda": g["mm_launches"][0],
+                        "bytes": g["bytes"][0]}
+    check(all(v > 0 for v in report["act_int8"]["int8_launches_cuda"]
+              .values()), "the tp parity run launched an int8 kernel no time")
+    check(report["ag_matmul"]["matmul_chunk_launches_cuda"] > 0,
+          "the tp parity run launched no chunk matmul")
+    emit("tp_parity", model=TP_PARITY_MODEL["name"], dtype="float32",
+         mesh={"pod": 2, "data": 2, "model": 2}, runs=report,
+         wall_s={"cuda": t_g, "cpu": t_c})
+
+
 def main() -> int:
     try:
         import torch
@@ -2066,6 +2294,8 @@ def main() -> int:
     phase_train_parity()
     peft_launches = phase_peft_train(train_fcdp_bytes)
     phase_peft_parity()
+    tp_launches = phase_tp_train()
+    phase_tp_parity()
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
@@ -2083,14 +2313,16 @@ def main() -> int:
         "jamba_shapes": {n: entry(c) for n, c in flash_jamba.items()}}] + [{
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
             "replaces": QUANT_TPU_KERNELS[k],
-            "launches": train_launches[k] + peft_launches[k],
+            "launches": train_launches[k] + peft_launches[k]
+            + tp_launches[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
                              if e["kernel"] == QUANT_NAMES[k]}}
             for k, c in int8_main.items()] + [{
         "name": "matmul_chunk", "route": "cuda", "source": MM_SOURCE,
         "replaces": MM_TPU_KERNEL,
-        "launches": train_launches["matmul_chunk"], **entry(mm_main),
+        "launches": train_launches["matmul_chunk"]
+        + tp_launches["matmul_chunk"], **entry(mm_main),
         "shape": mm_main["case"],
         "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}, {
         "name": "wkv6", "route": "cuda", "source": WKV_SOURCE,

@@ -8,6 +8,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.models.common import ACT_PSUM
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -105,7 +107,12 @@ class SystemConfig:
     ``(path glob, mode)`` rules or ``"glob=mode"`` strings, fnmatch'd
     against each leaf's dotted path, first match wins; a rule naming an
     unknown strategy raises here, one that matches no leaf raises where
-    the bundle resolves the strategies (``core/strategy.py``)."""
+    the bundle resolves the strategies (``core/strategy.py``).
+
+    ``act_psum`` is the transport of the tensor-parallel activation
+    all-reduces over 'model' (``models/common.py``): "bf16", exact (in
+    the activations' type), or "int8", block-quantized
+    (``core/act_compress.py``); inert at tp 1."""
     dtype: str = "bfloat16"
     serve_frozen: bool = True
     mode: str = "fcdp"
@@ -121,6 +128,7 @@ class SystemConfig:
     lora_targets: Tuple[str, ...] = ("wq", "wk", "wv", "wo")
     lora_alpha: Optional[float] = None
     mode_overrides: Tuple[Tuple[str, str], ...] = ()
+    act_psum: str = "bf16"             # bf16 | int8
 
     def __post_init__(self):
         if self.mode_overrides:
@@ -137,6 +145,9 @@ class SystemConfig:
                 raise ValueError(
                     f"unknown {knob} {getattr(self, knob)!r}; "
                     "known: none, int8_pod")
+        if self.act_psum not in ACT_PSUM:
+            raise ValueError(f"unknown act_psum {self.act_psum!r}; "
+                             f"known: {', '.join(ACT_PSUM)}")
         if self.fused_matmul not in ("none", "ag_matmul", "both"):
             raise ValueError(
                 f"unknown fused_matmul {self.fused_matmul!r}; "

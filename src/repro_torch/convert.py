@@ -69,8 +69,11 @@ def shards_from_jax(tree, bundle):
     """This rank's shards of the JAX package's full parameters, for a
     train ``bundle`` on a live mesh (adapters included under PEFT): each
     leaf cut by its storage spec (a frozen leaf's pod-replicated one
-    under fcdp), in the system's dtype, on the bundle's device,
-    requiring grad where the leaf is trainable."""
+    under fcdp; the 'model' coordinate's block of a tensor-parallel
+    leaf), in the system's dtype, on the bundle's device, requiring
+    grad where the leaf is trainable. The JAX tree must come from a
+    bundle on a mesh of the same 'model' size: both pad the q heads and
+    the vocabulary to a multiple of it."""
     full = _checked(tree, bundle.defs)
     dtype = bundle.run.system.torch_dtype
     return tree_map_with_path(

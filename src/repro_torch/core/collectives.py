@@ -7,6 +7,8 @@ tiled like the JAX package's collectives inside ``shard_map``:
   reduce_scatter(x, axis, dim)  sum over ranks, this rank's block of dim
   all_to_all(x, axis)           block j of dim 0 goes to rank j
   all_reduce(x, axes)           sum over ranks
+  all_reduce_max(x, axes)       max over ranks (not counted, as the JAX
+                                package's count leaves pmax out)
   ppermute(x, axis, perm)       x goes from axis index src to dst for
                                 each (src, dst) of perm; returns a handle
                                 whose ``wait()`` gives what arrived, so the
@@ -142,6 +144,19 @@ class Collectives:
         buf = buf.clone() if buf is x else buf
         dist.all_reduce(buf, group=self.mesh.group(axes))
         self._count("psum", axes, buf.numel() * buf.element_size())
+        return buf.to(x.device)
+
+    def all_reduce_max(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Elementwise max over ranks. Not counted: the JAX package's
+        ``collect_collectives`` has no pmax, and its one use (the cross
+        entropy's stability shift) is a [B, S] vector."""
+        axes = _as_axes(axes)
+        if not self._live(axes):
+            return x
+        buf = self._wire(x.contiguous())
+        buf = buf.clone() if buf is x else buf
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX,
+                        group=self.mesh.group(axes))
         return buf.to(x.device)
 
     def ppermute(self, x: torch.Tensor, axis: str,

@@ -35,7 +35,7 @@ from repro_torch.core.partition import (block_index, init_leaf, init_params,
                                         tree_map_with_path)
 from repro_torch.core.residency import split_train_indices
 from repro_torch.core.strategy import resolve_strategies, spec_axes
-from repro_torch.launch.mesh import MeshShape, fsdp_axes
+from repro_torch.launch.mesh import MeshShape, fsdp_axes, tp_degree
 from repro_torch.models.lm import LM
 
 
@@ -50,7 +50,9 @@ class StepBundle:
         self.run = run
         sys = run.system
         self.device = resolve_device(device)
-        self.model = LM(run.model, sys)
+        tp = 1 if mesh is None else tp_degree(getattr(mesh, "mesh_shape",
+                                                      mesh))
+        self.model = LM(run.model, sys, tp)
         base, self.strategy = resolve_strategies(sys, self.model.defs,
                                                  strict=not sys.peft)
         defs = base
@@ -138,8 +140,9 @@ class StepBundle:
     def shard_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """This rank's rows of a global batch (numpy or torch, [B, ...]),
         as tensors on the bundle's device: the rows split over the fsdp
-        axes in the JAX package's order (data-major, pod minor), or all
-        rows when the batch does not split evenly."""
+        axes in the JAX package's order (data-major, pod minor), the same
+        rows on every 'model' rank, or all rows when the batch does not
+        split evenly."""
         ms = self.mesh_shape
         axes = fsdp_axes(ms)
         out = {}

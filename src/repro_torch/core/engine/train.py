@@ -50,7 +50,8 @@ class TrainStep:
         (ce, aux, tokens) as 0-dim tensors. The terms are summed over
         the data-parallel axes; the aux sum only where it is reported
         (not per microbatch, where the JAX step drops it)."""
-        ls, cnt, aux = self.model.loss_fn(params, batch, self.gather)
+        ls, cnt, aux = self.model.loss_fn(params, batch, self.gather,
+                                          self.bundle.defs)
         terms = [ls.detach(), cnt.detach()] + ([aux.detach()]
                                                if report_aux else [])
         tot = self.coll.all_reduce(torch.stack(terms), self.dp_axes)
@@ -95,13 +96,36 @@ def build_train_step(bundle, coll) -> TrainStep:
     return TrainStep(bundle, coll)
 
 
+def _act_allreduces(bundle) -> int:
+    """Tensor-parallel activation all-reduces carried in int8 per
+    (micro)batch: under ``act_psum="int8"`` at tp > 1 each attention
+    and MLP sublayer of each layer reduces its output in the forward
+    (``int8_psum``) and its normed input's gradient in the backward
+    (``int8_bwd_psum``)."""
+    model = bundle.model
+    if bundle.run.system.act_psum != "int8" or model.tp == 1:
+        return 0
+    return 2 * model.n_groups * sum(k in ("attn", "mlp")
+                                    for kinds in model.plan for k in kinds)
+
+
+def act_int8_launch_plan(bundle) -> Dict[str, int]:
+    """How many times one step calls each int8 kernel in the activation
+    all-reduces: each quantizes twice, dequant-accumulates once and
+    dequantizes once. Microbatches multiply."""
+    n = _act_allreduces(bundle) * max(bundle.run.microbatch, 1)
+    return {"quantize": 2 * n, "dequantize": n, "dequant_accumulate": n}
+
+
 def int8_launch_plan(bundle) -> Dict[str, int]:
     """How many times one step calls each int8 kernel, from the plans:
     per stage-1 gather (once per layer for a stacked leaf), qwZ
     quantizes and dequantizes, and the backward's regather (zero3) does
     so again inside the layers; qgZ quantizes and dequant-accumulates
-    once per gather's backward. Microbatches multiply."""
-    out = {"quantize": 0, "dequantize": 0, "dequant_accumulate": 0}
+    once per gather's backward; the activation all-reduces add theirs
+    (``act_int8_launch_plan``). Microbatches multiply."""
+    n = _act_allreduces(bundle)
+    out = {"quantize": 2 * n, "dequantize": n, "dequant_accumulate": n}
     for i in bundle.train_idx:
         d, plan = bundle.def_leaves[i], bundle.plan_leaves[i]
         res = plan.residency

@@ -107,8 +107,8 @@ class SumOver(torch.autograd.Function):
 
 def _one_axis(axes) -> str:
     if len(axes) != 1:
-        raise ValueError(f"a gather stage over several axes {axes} needs "
-                         "tensor parallelism, which is not ported yet")
+        raise ValueError(f"a gather stage over several axes {axes} is not "
+                         "ported")
     return axes[0]
 
 
@@ -203,9 +203,12 @@ class ParamGather:
         self.cache_places = defaultdict(set)
 
     def __call__(self, w: torch.Tensor, plan: GatherPlan,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 over_model: bool = False):
         """The full weight of shard ``w`` in ``dtype`` (None keeps w's),
-        with its gradient summed over the plan's replicated axes; a
+        with its gradient summed over the plan's replicated axes, and
+        over 'model' too with ``over_model`` (a leaf replicated over
+        'model' that meets 'model'-varying values), in one all-reduce; a
         ``FusedParam`` for a fused plan."""
         def cast(t):
             return t if dtype is None else t.to(dtype)
@@ -223,8 +226,9 @@ class ParamGather:
             self._entries[_key(full)] = (full, _Saved(
                 self._rebuilder(w.detach(), stage1.detach(), full.detach(),
                                 plan, cast)))
-        if plan.sync_axes and plan.residency.receives_gradient:
-            full = SumOver.apply(full, self.coll, plan.sync_axes)
+        sync = plan.sync_axes + (("model",) if over_model else ())
+        if sync and plan.residency.receives_gradient:
+            full = SumOver.apply(full, self.coll, sync)
         return full
 
     def _rebuilder(self, w, stage1, full, plan, cast):

@@ -61,9 +61,12 @@ QUANT_MIN_SHARD_ELEMS = 256
 class GatherPlan:
     """The two-stage gather of one leaf: a view of its ParamResidency
     (the one source of its stages, cache tier and qwZ/qgZ gates), plus
-    ``sync_axes``, the mesh axes of size > 1 the leaf's storage is
-    replicated over. Its gradient is summed over them, where the JAX
-    package's varying-axes type system inserts that sum."""
+    ``sync_axes``, the data-parallel mesh axes of size > 1 the leaf's
+    storage is replicated over. Its gradient is summed over them, where
+    the JAX package's varying-axes type system inserts that sum. 'model'
+    is never among them: whether a leaf replicated over 'model' sums its
+    gradient there depends on the values it meets, which the model code
+    decides (``models/sublayers.model_summed``)."""
     residency: ParamResidency
     sync_axes: Tuple[str, ...] = ()
 
@@ -240,7 +243,7 @@ class ShardingStrategy:
                              param_compress, fused_matmul)
         used = spec_axes(self.storage_spec(pdef, mesh, min_shard_size))
         sync = tuple(a for a in mesh.axis_names
-                     if a not in used and mesh.shape[a] > 1)
+                     if a not in used and a != "model" and mesh.shape[a] > 1)
         if res.fused == "both" and sync:
             raise ValueError(
                 f"{self.name}: fused_matmul='both' on a leaf replicated over "

@@ -4,18 +4,18 @@ ranks, as the JAX package's ``launch/mesh.py`` defines it.
 Mesh semantics:
   pod   - crosses the slow inter-node links. FCDP's "inter-node" axis.
   data  - intra-node; batch / ZeRO sharding. FCDP's "intra-node" axis.
-  model - intra-node; tensor parallelism (degree 1 in this port so far).
+  model - intra-node; tensor parallelism (Megatron column/row pairs).
 
 ``MeshShape`` is the axis names and sizes alone: plan derivation
 (``core/strategy.py``) reads nothing else, so plans can be derived and
 tested without starting ranks. ``RankMesh`` is the live mesh of one rank:
-its coordinates, a ``torch.distributed.device_mesh.DeviceMesh`` over the
-same names, and the process group of each axis. Ranks are laid out
-row-major over the axes, as ``DeviceMesh`` and the JAX mesh lay out
-their devices.
+its coordinates and a process group for every set of axes (one axis,
+the fsdp pair ('pod', 'data') once 'model' is live, ...). Ranks are laid
+out row-major over the axes, as the JAX mesh lays out its devices.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import os
 from dataclasses import dataclass
@@ -87,15 +87,19 @@ def tp_degree(mesh) -> int:
 
 
 def train_mesh_shape(world: int, multi_pod: bool) -> MeshShape:
-    """The launcher's mesh over ``world`` ranks at tensor-parallel degree
-    1: (pod 2, data world/2, model 1) with ``multi_pod``, else (data
-    world, model 1)."""
+    """The launcher's mesh over ``world`` ranks, by the JAX package's
+    ``make_smoke_mesh`` rule: with ``multi_pod``, (pod 2, data world/2/m,
+    model m) with m = gcd(world/2, 2); else (data world/m, model m) with
+    m = gcd(world, 2). 8 ranks give (2, 2, 2), 4 give (2, 1, 2)."""
     if multi_pod:
         if world < 2 or world % 2:
             raise ValueError(f"a multi-pod mesh needs an even world size "
                              f">= 2, have {world}")
-        return MeshShape(("pod", "data", "model"), (2, world // 2, 1))
-    return MeshShape(("data", "model"), (world, 1))
+        model = math.gcd(world // 2, 2)
+        return MeshShape(("pod", "data", "model"),
+                         (2, world // 2 // model, model))
+    model = math.gcd(world, 2)
+    return MeshShape(("data", "model"), (world // model, model))
 
 
 class RankMesh:
@@ -103,40 +107,59 @@ class RankMesh:
     initialized, with one process per rank).
 
     backend: ``nccl`` when every rank has a card of its own, ``gloo``
-    otherwise (``collectives.pick_backend``); under gloo the mesh's
-    device type is ``cpu`` because the wire is host memory, whatever
-    device the compute runs on."""
+    otherwise (``collectives.pick_backend``); under gloo the wire is
+    host memory, whatever device the compute runs on.
+
+    Every rank creates the process groups of every set of live axes
+    (axes of size > 1) at construction, in one order: ``new_group`` is
+    collective over the whole world, so no group may be made lazily on
+    the ranks that happen to use it first. A group's ranks are in
+    global (row-major) order, so along one axis the group rank is the
+    rank's coordinate on that axis."""
 
     def __init__(self, shape: MeshShape, backend: str):
-        if tp_degree(shape) != 1:
-            raise ValueError("tensor parallelism (model > 1) is not ported "
-                             "yet; the mesh's model axis must be 1")
         if dist.get_world_size() != shape.world:
             raise ValueError(f"mesh {shape.shape} needs {shape.world} ranks, "
                              f"the process group has "
                              f"{dist.get_world_size()}")
-        from torch.distributed.device_mesh import init_device_mesh
         self.mesh_shape = shape
         self.backend = backend
         self.rank = dist.get_rank()
         self.coords = shape.coords(self.rank)
-        self.device_mesh = init_device_mesh(
-            "cuda" if backend == "nccl" else "cpu", shape.axis_sizes,
-            mesh_dim_names=shape.axis_names)
+        live = tuple(a for a in shape.axis_names if shape.size(a) > 1)
+        self._groups = {}
+        for k in range(1, len(live)):
+            for axes in itertools.combinations(live, k):
+                self._groups[frozenset(axes)] = self._new_groups(axes)
+        if live:
+            self._groups[frozenset(live)] = dist.group.WORLD
+
+    def _new_groups(self, axes: Tuple[str, ...]):
+        """One group per slice of the ranks that differ only along
+        ``axes``; returns this rank's."""
+        ms = self.mesh_shape
+        rest = [a for a in ms.axis_names if a not in axes]
+        slices = {}
+        for r in range(ms.world):
+            c = ms.coords(r)
+            slices.setdefault(tuple(c[a] for a in rest), []).append(r)
+        mine = None
+        for key in sorted(slices):
+            g = dist.new_group(ranks=slices[key])
+            if self.rank in slices[key]:
+                mine = g
+        return mine
 
     def group(self, axes: Tuple[str, ...]):
-        """Process group of the ranks that differ only along ``axes``.
-        One axis: that mesh dimension's group; every axis of size > 1:
-        the world group. (Other combinations need tp > 1.)"""
+        """Process group of the ranks that differ only along ``axes``
+        (axes of size 1 count for nothing)."""
         ms = self.mesh_shape
-        live = tuple(a for a in axes if ms.size(a) > 1)
-        every = tuple(a for a in ms.axis_names if ms.size(a) > 1)
-        if set(live) == set(every):
-            return dist.group.WORLD
-        if len(live) == 1:
-            return self.device_mesh.get_group(live[0])
-        raise ValueError(f"no process group for axes {axes} on mesh "
-                         f"{ms.shape}")
+        live = frozenset(a for a in axes if ms.size(a) > 1)
+        try:
+            return self._groups[live]
+        except KeyError:
+            raise ValueError(f"no process group for axes {axes} on mesh "
+                             f"{ms.shape}") from None
 
 
 def device_for_rank(device: Optional[str], rank: int) -> torch.device:

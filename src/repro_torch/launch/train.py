@@ -1,12 +1,14 @@
 """Training launcher: the sequential FCDP train step on a (pod, data,
-model) mesh, one process per rank (the JAX package's
-``launch/train.py`` without checkpointing, failure injection and the
-heartbeat, which come later).
+model) mesh, tensor-parallel over 'model', one process per rank (the
+JAX package's ``launch/train.py`` without checkpointing, failure
+injection and the heartbeat, which come later).
 
 Under torchrun (world size and rank from its environment)::
 
-  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
       --arch qwen2.5-3b --smoke --multi-pod --device cpu
+
+(8 ranks: a (pod 2, data 2, model 2) mesh, the JAX package's smoke mesh)
 
 or spawned by a caller (``spawn``), which gives the ranks a
 ``FileStore`` rendezvous in a directory of its own and collects one
@@ -20,6 +22,7 @@ import argparse
 import dataclasses
 import json
 import os
+import pickle
 import queue as queue_mod
 import tempfile
 import time
@@ -36,7 +39,8 @@ from repro_torch.configs.base import (OptimizerConfig, RunConfig, ShapeCell,
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.collectives import Collectives, pick_backend
 from repro_torch.core.engine import StepBundle
-from repro_torch.core.engine.train import (int8_launch_plan,
+from repro_torch.core.engine.train import (act_int8_launch_plan,
+                                           int8_launch_plan,
                                            matmul_chunk_launch_plan)
 from repro_torch.core.partition import tree_items
 from repro_torch.core.peft import unfreeze_all
@@ -57,7 +61,9 @@ class ModeRun:
     knobs of the system, PEFT (``peft``: frozen trunk and LoRA adapters
     of rank ``lora_rank`` scaled by ``lora_alpha`` / rank; with
     ``all_trainable`` every leaf of that tree trains, the reference
-    arm), the microbatch count, and its steps."""
+    arm), the transport of the tensor-parallel activation all-reduces
+    (``act_psum``: "bf16" | "int8"), the microbatch count, and its
+    steps."""
     mode: str
     param_compress: str = "none"
     grad_compress: str = "none"
@@ -73,6 +79,7 @@ class ModeRun:
     lora_alpha: Optional[float] = None
     mode_overrides: tuple = ()
     all_trainable: bool = False
+    act_psum: str = "bf16"
 
 
 @dataclass
@@ -106,7 +113,8 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
                                fused_matmul=mr.fused_matmul, peft=mr.peft,
                                lora_rank=mr.lora_rank,
                                lora_alpha=mr.lora_alpha,
-                               mode_overrides=mr.mode_overrides)
+                               mode_overrides=mr.mode_overrides,
+                               act_psum=mr.act_psum)
     run = dataclasses.replace(job.run, system=sysc,
                               microbatch=mr.microbatch)
     bundle = StepBundle(run, device=device, mesh=mesh,
@@ -132,6 +140,7 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
     out = {"run": dataclasses.asdict(mr), "metrics": [], "bytes": [],
            "launches": [], "calls": [], "step_s": [], "cached": [],
            "cache_places": [], "int8_plan": int8_launch_plan(bundle),
+           "act_int8_plan": act_int8_launch_plan(bundle),
            "mm_launches": [], "mm_calls": [],
            "mm_plan": matmul_chunk_launch_plan(bundle),
            "params_total": sum(d.size() for d in bundle.def_leaves),
@@ -201,6 +210,11 @@ def run_job(job: TrainJob, rank: int, world: int, local_world: int,
     device = device_for_rank(job.device, rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    else:
+        # the host's ranks share its cores: one share each, not all of
+        # them each (which oversubscribes the cores local_world times)
+        cores = len(os.sched_getaffinity(0))
+        torch.set_num_threads(max(1, cores // local_world))
     backend = _init_group(rank, world, local_world, init_method, device)
     try:
         mesh = RankMesh(job.mesh, backend)
@@ -214,9 +228,11 @@ def run_job(job: TrainJob, rank: int, world: int, local_world: int,
         dist.destroy_process_group()
 
 
-def _worker(rank: int, world: int, init_method: str, job: TrainJob,
+def _worker(rank: int, world: int, init_method: str, job_path: str,
             results) -> None:
     try:
+        with open(job_path, "rb") as f:
+            job = pickle.load(f)
         # every spawned rank runs on this host
         results.put((rank, run_job(job, rank, world, world, init_method),
                      None))
@@ -230,7 +246,11 @@ def spawn(job: TrainJob, rdzv_dir: Optional[str] = None,
     """Run ``job`` on ``job.mesh.world`` spawned ranks of this machine,
     rendezvous through a ``FileStore`` in a fresh temporary directory
     (under ``rdzv_dir`` when given). Returns the ranks' results in rank
-    order; raises with the first failing rank's traceback."""
+    order; raises with the first failing rank's traceback. The job
+    reaches the ranks through a file in that directory: a large one
+    (the caller's weights and batches) passed as a process argument
+    would hold each start until that rank had imported its modules, so
+    the ranks would start one after another."""
     import torch.multiprocessing as mp
     world = job.mesh.world
     ctx = mp.get_context("spawn")
@@ -238,8 +258,11 @@ def spawn(job: TrainJob, rdzv_dir: Optional[str] = None,
     with tempfile.TemporaryDirectory(prefix="repro_torch_rdzv_",
                                      dir=rdzv_dir) as tmp:
         init_method = f"file://{os.path.join(tmp, 'store')}"
+        job_path = os.path.join(tmp, "job.pickle")
+        with open(job_path, "wb") as f:
+            pickle.dump(job, f)
         procs = [ctx.Process(target=_worker,
-                             args=(r, world, init_method, job, results))
+                             args=(r, world, init_method, job_path, results))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -300,7 +323,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="a (pod 2, data world/2, model 1) mesh")
+                    help="a (pod 2, data world/2/m, model m) mesh, m = "
+                         "gcd(world/2, 2); without it (data world/m, "
+                         "model m), m = gcd(world, 2)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -370,6 +395,7 @@ def main(argv=None):
             "final_loss": r["metrics"][-1]["loss"],
             "bytes_per_step": r["bytes"][-1],
             "int8_calls_per_step": r["calls"][-1],
+            "int8_act_allreduce_plan": r["act_int8_plan"],
             "fused_matmul": args.fused_matmul,
             "matmul_chunk_calls_per_step": r["mm_calls"][-1],
             "peft": args.peft, "mode_overrides": sysc.mode_overrides,

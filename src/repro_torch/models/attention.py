@@ -16,10 +16,12 @@ k and v after their bias and before RoPE, and to the output projection's
 result, as the JAX package's ``attention_block`` adds them. These are
 small matrix products outside any kernel in both packages.
 
-The train branch (``attention_train``) differentiates
-``chunked_causal_attention``, plain PyTorch under autograd, as the JAX
-package's train path does: the flash kernel is forward-only in both
-packages (its Pallas version has no VJP). That function is the
+The train branch (``attention_train``) runs on this rank's q heads
+under tensor parallelism over 'model' (heads padded to a multiple of
+tp, k/v projections whole on every rank, ``slice_expand_kv``) and
+differentiates ``chunked_causal_attention``, plain PyTorch under
+autograd, as the JAX package's train path does: the flash kernel is
+forward-only in both packages (its Pallas version has no VJP). That function is the
 counterpart of a jnp function, not the plain version of a kernel, so
 ``kernels/ref.attention_plain`` is not used for it.
 """
@@ -31,6 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.common import (SERIAL, TPContext, local_head_mask,
+                                       region_vary)
 from repro_torch.models.layers import apply_rope, matmul
 
 
@@ -133,12 +137,15 @@ def _add_lora(y, x, lora, name, scale):
 
 
 def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora=None,
-             lora_scale=2.0):
-    """q [B,S,H,hd], k and v [B,S,KVH,hd], RoPE applied to q and k; the
-    adapter terms go in before RoPE."""
+             lora_scale=2.0, tpc: TPContext = SERIAL):
+    """q [B,S,H_local,hd] (this rank's q heads), k and v [B,S,KVH,hd],
+    RoPE applied to q and k; the adapter terms go in before RoPE. Where
+    the region's input meets a 'model'-sharded weight (x and wq, the wq
+    adapter's product and its ``lora_b``), its gradient is summed over
+    'model' (``region_vary``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
-    q = x @ wq
+    q = region_vary(x, tpc) @ wq
     k = x @ wk
     v = x @ wv
     if bq is not None:
@@ -147,29 +154,77 @@ def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora=None,
         k = k + bk
     if bv is not None:
         v = v + bv
-    q = _add_lora(q, x, lora, "wq", lora_scale)
+    a = lora.get("wq_lora_a") if lora else None
+    if a is not None:
+        q = q + ((region_vary(x @ a, tpc) @ lora["wq_lora_b"])
+                 * lora_scale).to(q.dtype)
     k = _add_lora(k, x, lora, "wk", lora_scale)
     v = _add_lora(v, x, lora, "wv", lora_scale)
-    q = apply_rope(q.reshape(B, S, cfg.num_heads, hd), positions,
+    q = apply_rope(q.reshape(B, S, wq.shape[1] // hd, hd), positions,
                    cfg.rope_theta)
     k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions,
                    cfg.rope_theta)
     return q, k, v.reshape(B, S, cfg.num_kv_heads, hd)
 
 
+def kv_span(h_local: int, n_rep: int, n_kv: int) -> int:
+    """How many kv heads one 'model' rank's q heads read."""
+    if n_rep <= 0:
+        return n_kv
+    aligned = (h_local % n_rep == 0) or (n_rep % h_local == 0)
+    span = max(h_local // n_rep, 1) + (0 if aligned else 1)
+    return min(span, n_kv)
+
+
+def slice_expand_kv(k_all: torch.Tensor, v_all: torch.Tensor, h_local: int,
+                    n_rep: int, tp_rank: int):
+    """This rank's [B,S,h_local,hd] K/V, q head h reading kv head h //
+    n_rep: the (at most ``kv_span``) kv heads its q heads map onto are
+    sliced, expanded, and the local head range cut out, so the expansion
+    over every head never exists."""
+    n_kv = k_all.shape[2]
+    start = tp_rank * h_local
+    span = kv_span(h_local, n_rep, n_kv)
+    first = min(start // n_rep, n_kv - span)
+    off = start - first * n_rep
+
+    def one(t):
+        t = t[:, :, first:first + span]
+        if n_rep > 1:
+            t = t.repeat_interleave(n_rep, dim=2)
+        return t[:, :, off:off + h_local]
+    return one(k_all), one(v_all)
+
+
 def attention_train(x, wq, wk, wv, wo, bq, bk, bv, cfg,
                     positions: torch.Tensor, lora=None,
-                    lora_scale: float = 2.0) -> torch.Tensor:
-    """Causal self-attention sublayer of the train step, under autograd.
-    x: [B, S, D]; positions: [1, S]. K/V are expanded to the q heads
-    (q head h reads kv head h // n_rep), as the JAX package does."""
+                    lora_scale: float = 2.0,
+                    tpc: TPContext = SERIAL) -> torch.Tensor:
+    """Causal self-attention sublayer of the train step, under autograd,
+    on this rank's q heads: x: [B, S, D] (the normed input, after
+    ``tp_region_in``); wq [D, H_local*hd], wo [H_local*hd, D], wk/wv
+    whole. Returns this rank's partial output [B, S, D], before the sum
+    over 'model'. K/V are expanded to the local q heads
+    (``slice_expand_kv``); where k and v are the same on every rank, the
+    slice is where they start to differ, so their gradients are summed
+    over 'model' there (``region_vary``), as the JAX step sums them. The
+    padding heads' outputs are zeroed (``local_head_mask``)."""
     B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
     q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora,
-                       lora_scale)
-    n_rep = cfg.num_heads // cfg.num_kv_heads
-    out = chunked_causal_attention(q, k.repeat_interleave(n_rep, dim=2),
-                                   v.repeat_interleave(n_rep, dim=2))
-    out = out.reshape(B, S, -1)
+                       lora_scale, tpc)
+    h_local = q.shape[2]
+    padded = h_local * tpc.tp
+    if padded % cfg.num_kv_heads:
+        raise ValueError(f"padded heads {padded} not divisible by kv heads "
+                         f"{cfg.num_kv_heads}")
+    k, v = slice_expand_kv(region_vary(k, tpc), region_vary(v, tpc),
+                           h_local, padded // cfg.num_kv_heads, tpc.rank)
+    out = chunked_causal_attention(q, k, v)
+    if padded != cfg.num_heads:
+        mask = local_head_mask(tpc, padded, cfg.num_heads, out.device)
+        out = out * mask[None, None, :, None].to(out.dtype)
+    out = out.reshape(B, S, h_local * hd)
     return _add_lora(matmul(out, wo), out, lora, "wo", lora_scale)
 
 

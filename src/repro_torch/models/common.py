@@ -1,0 +1,168 @@
+"""Tensor parallelism over the mesh's 'model' axis: the context the
+model code carries (the JAX package's ``MeshInfo``), the Megatron pair
+and its relatives as ``torch.autograd.Function``s, and head / vocab
+padding, as the JAX package's ``models/common.py`` defines them.
+
+The JAX step types every value by the mesh axes it varies over, and
+where a value that is the same on every 'model' rank (invariant) meets
+one that differs (varying), it inserts a cast whose backward is a sum
+over 'model'. PyTorch has no such types, so the port puts that cast by
+hand where the JAX step's typing puts it:
+
+  psum_tp(x)       forward all-reduce over 'model', backward identity
+                   (the transpose of a psum is the cast)
+  psum_tp_act(x)   psum_tp of a sublayer's output; with act_psum "int8"
+                   the all-reduce carries int8 blocks
+                   (``core/act_compress.int8_psum``)
+  pvary_tp(x)      the cast itself: forward identity, backward
+                   all-reduce over 'model'
+  region_vary(x)   pvary_tp of a value of a column-parallel region that
+                   meets a 'model'-sharded weight; inside an int8
+                   region the identity (its values already vary)
+  tp_region_in(x)  the entry of a column-parallel region: with act_psum
+                   "int8" the cast whose backward all-reduce carries
+                   int8 (``int8_bwd_psum``), so every value inside the
+                   region varies; with "bf16" the identity, and each
+                   consumer casts where it needs to (``region_vary``)
+  pmax_tp(x)       forward max over 'model', no gradient (the
+                   cross-entropy's stability shift)
+
+A parameter that is replicated over 'model' and used inside the varying
+region has its gradient summed over 'model' too: ``ParamGather`` adds
+'model' to that leaf's sum over its replicated axes, so the sum is one
+all-reduce, as the JAX step's one cast of the weight over all its
+missing axes is (``models/sublayers.model_summed``).
+
+At tp 1 every function here is the identity and issues no collective.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+ACT_PSUM = ("bf16", "int8")
+
+
+@dataclass(frozen=True)
+class TPContext:
+    """What the model code needs to know of tensor parallelism: the
+    degree ``tp``, this rank's coordinate ``rank`` on 'model', the
+    transport of the activation all-reduces (``act_psum``) and the
+    rank's collectives (``coll``: ``core.collectives.Collectives``; None
+    at tp 1)."""
+    tp: int = 1
+    rank: int = 0
+    act_psum: str = "bf16"
+    coll: Optional[object] = None
+
+    def __post_init__(self):
+        if self.act_psum not in ACT_PSUM:
+            raise ValueError(f"unknown act_psum {self.act_psum!r}; known: "
+                             f"{', '.join(ACT_PSUM)}")
+        if self.tp > 1 and self.coll is None:
+            raise ValueError("tensor parallelism needs the rank's "
+                             "collectives")
+
+    @classmethod
+    def of(cls, coll, act_psum: str = "bf16") -> "TPContext":
+        """The context of the rank behind ``coll`` (its mesh's 'model'
+        size and this rank's coordinate on it)."""
+        tp = coll.size("model")
+        return cls(tp, coll.index("model") if tp > 1 else 0, act_psum,
+                   coll if tp > 1 else None)
+
+    @property
+    def int8_act(self) -> bool:
+        return self.act_psum == "int8" and self.tp > 1
+
+
+SERIAL = TPContext()
+
+
+class _PsumTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll):
+        return coll.all_reduce(x, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PvaryTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll):
+        ctx.coll = coll
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_reduce(g, ("model",)), None
+
+
+def psum_tp(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """Sum over 'model' (forward all-reduce, backward identity)."""
+    return _PsumTP.apply(x, tpc.coll) if tpc.tp > 1 else x
+
+
+def psum_tp_act(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """``psum_tp`` of a sublayer's output, carried in int8 blocks under
+    act_psum "int8"."""
+    if tpc.int8_act:
+        from repro_torch.core.act_compress import int8_psum
+        return int8_psum(x, tpc.coll, "model")
+    return psum_tp(x, tpc)
+
+
+def pvary_tp(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """An invariant value entering varying compute: identity forward,
+    the backward sums the gradient over 'model'."""
+    return _PvaryTP.apply(x, tpc.coll) if tpc.tp > 1 else x
+
+
+def region_vary(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """A value of a column-parallel region meeting a 'model'-sharded
+    weight (or the head slice of k/v): ``pvary_tp`` where the region's
+    input is the same on every rank, the identity inside an int8 region,
+    whose input already varies (``tp_region_in``)."""
+    return x if tpc.int8_act else pvary_tp(x, tpc)
+
+
+def tp_region_in(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """The entry of a column-parallel region (a sublayer's normed
+    input): under act_psum "int8" the backward's all-reduce of this
+    tensor's gradient carries int8 blocks (``int8_bwd_psum``) and every
+    value of the region varies over 'model'; otherwise the identity."""
+    if tpc.int8_act:
+        from repro_torch.core.act_compress import int8_bwd_psum
+        return int8_bwd_psum(x, tpc.coll, "model")
+    return x
+
+
+def pmax_tp(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """Max over 'model' of a value carrying no gradient. Like the JAX
+    package's ``collect_collectives``, the byte count leaves it out."""
+    if tpc.tp == 1:
+        return x
+    return tpc.coll.all_reduce_max(x.detach(), ("model",))
+
+
+def pad_heads(n_heads: int, tp: int) -> int:
+    """Heads padded to a multiple of ``tp``."""
+    return -(-n_heads // tp) * tp
+
+
+def pad_vocab(v: int, tp: int) -> int:
+    """Vocabulary padded to a multiple of ``tp``."""
+    return -(-v // tp) * tp
+
+
+def local_head_mask(tpc: TPContext, padded_heads: int, real_heads: int,
+                    device=None) -> torch.Tensor:
+    """[local heads] bool: False for the padding heads, which sit on the
+    last 'model' ranks."""
+    local = padded_heads // tpc.tp
+    idx = tpc.rank * local + torch.arange(local, device=device)
+    return idx < real_heads

@@ -1,7 +1,8 @@
 """Core layers: norms, rotary embeddings, activations, the embedding
 lookup, the output-projection matmul seam and the cross entropy. Same
 arithmetic as the JAX package's ``models/layers.py`` (fp32 upcasts at
-the same places), at tensor-parallel degree 1."""
+the same places); the embedding and the head are vocabulary-sharded over
+'model' (``models/common.py``), whole at tp 1."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -9,6 +10,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.common import (SERIAL, TPContext, pmax_tp, psum_tp,
+                                       pvary_tp)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -64,31 +68,44 @@ def act_fn(name: str):
             "relu": F.relu}[name]
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table: [V, D]; ids: [B, S]. Out-of-range ids give zero rows, as in
-    the JAX package's vocab-sharded lookup."""
-    vocab = table.shape[0]
-    valid = (ids >= 0) & (ids < vocab)
-    x = table[ids.clamp(0, vocab - 1)]
-    return torch.where(valid[..., None], x,
-                       torch.zeros((), dtype=x.dtype, device=x.device))
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 tpc: TPContext = SERIAL) -> torch.Tensor:
+    """table: [V_local, D], this rank's rows of the vocabulary (all of it
+    at tp 1); ids: [B, S] global ids. Ids outside this rank's rows give
+    zero rows, and the sum over 'model' puts every row together
+    (``psum_tp``, in the table's type)."""
+    v_local = table.shape[0]
+    local = ids - tpc.rank * v_local
+    valid = (local >= 0) & (local < v_local)
+    x = table[local.clamp(0, v_local - 1)]
+    x = torch.where(valid[..., None], x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    return psum_tp(x, tpc)
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
-                 mask: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross entropy over logits [..., V] in fp32 (the JAX package's
-    ``tp_softmax_xent`` at tp 1). Returns (sum of losses, count) over the
-    unmasked positions; labels outside [0, vocab_size) count as
-    masked."""
-    v = logits.shape[-1]
+def _xent_terms(logits: torch.Tensor, labels: torch.Tensor,
+                tpc: TPContext) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp over the whole vocabulary, this rank's share of the
+    label's logit) of logits [..., V_local] in fp32: the max (stability
+    only, so exact without a gradient) over 'model' by ``pmax_tp``, the
+    sum of exponentials over 'model' by ``psum_tp``. The label's logit
+    lies on exactly one rank: the others' shares are 0."""
+    v_local = logits.shape[-1]
     lf = logits.float()
-    gmax = lf.amax(dim=-1).detach()          # stability only: exact
-    lse = gmax + torch.log(torch.exp(lf - gmax[..., None]).sum(dim=-1))
-    valid = (labels >= 0) & (labels < v)
-    picked = torch.gather(lf, -1, labels.clamp(0, v - 1)[..., None].long()
-                          )[..., 0]
-    nll = lse - torch.where(valid, picked, torch.zeros_like(picked))
+    gmax = pmax_tp(lf.amax(dim=-1).detach(), tpc)
+    sumexp = psum_tp(torch.exp(lf - gmax[..., None]).sum(dim=-1), tpc)
+    local = labels - tpc.rank * v_local
+    valid = (local >= 0) & (local < v_local)
+    picked = torch.gather(lf, -1, local.clamp(0, v_local - 1)[..., None]
+                          .long())[..., 0]
+    return (gmax + torch.log(sumexp),
+            torch.where(valid, picked, torch.zeros_like(picked)))
+
+
+def _xent_sum(lse, picked_local, labels, vocab_size, mask, tpc):
+    """Sum of losses and count over the unmasked positions; labels
+    outside [0, vocab_size) count as masked."""
+    nll = lse - psum_tp(picked_local, tpc)
     keep = labels < vocab_size
     if mask is not None:
         keep = keep & mask
@@ -96,25 +113,45 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
     return nll.sum(), keep.float().sum()
 
 
-def chunked_softmax_xent(x: torch.Tensor, head_w: torch.Tensor,
-                         labels: torch.Tensor, vocab_size: int, chunk: int,
-                         mask: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Logits ``x @ head_w`` and their cross entropy in sequence chunks,
-    each recomputed in the backward, so the [B, S, V] logits never
-    exist at once (the JAX package's ``chunked_tp_softmax_xent`` at tp
-    1). Unchunked when ``chunk`` does not split S into several chunks."""
+def tp_softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                    vocab_size: int, mask: Optional[torch.Tensor] = None,
+                    tpc: TPContext = SERIAL
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross entropy over this rank's vocabulary columns of the logits
+    [..., V_local] in fp32 (the whole vocabulary at tp 1). Returns (sum
+    of losses, count) over the unmasked positions."""
+    lse, picked = _xent_terms(logits, labels, tpc)
+    return _xent_sum(lse, picked, labels, vocab_size, mask, tpc)
+
+
+def chunked_tp_softmax_xent(x: torch.Tensor, head_w: torch.Tensor,
+                            labels: torch.Tensor, vocab_size: int,
+                            chunk: int,
+                            mask: Optional[torch.Tensor] = None,
+                            tpc: TPContext = SERIAL
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Logits ``x @ head_w`` (this rank's vocabulary columns) and their
+    cross entropy in sequence chunks, each recomputed in the backward,
+    so the [B, S, V_local] logits never exist at once. Unchunked when
+    ``chunk`` does not split S into several chunks. x is the same on
+    every 'model' rank and the logits are not, so x's gradient is summed
+    over 'model' (``pvary_tp``), per chunk as in the JAX package. The
+    recompute re-runs the sum of exponentials over 'model', whose result
+    the backward needs, and not the label logit's sum, whose result it
+    does not: the JAX package's remat re-runs the same one."""
     B, S, _ = x.shape
     if chunk <= 0 or S % chunk or S == chunk:
-        return softmax_xent(x @ head_w, labels, vocab_size, mask)
+        return tp_softmax_xent(pvary_tp(x, tpc) @ head_w, labels,
+                               vocab_size, mask, tpc)
 
-    def f(xc, lc, mc):
-        return softmax_xent(xc @ head_w, lc, vocab_size, mc)
+    def f(xc, lc):
+        return _xent_terms(pvary_tp(xc, tpc) @ head_w, lc, tpc)
     tot = cnt = x.new_zeros((), dtype=torch.float32)
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        s, n = checkpoint(f, x[:, sl], labels[:, sl],
-                          None if mask is None else mask[:, sl],
-                          use_reentrant=False)
+        lse, picked = checkpoint(f, x[:, sl], labels[:, sl],
+                                 use_reentrant=False)
+        s, n = _xent_sum(lse, picked, labels[:, sl], vocab_size,
+                         None if mask is None else mask[:, sl], tpc)
         tot, cnt = tot + s, cnt + n
     return tot, cnt

@@ -14,7 +14,8 @@ from repro_torch.configs.base import ModelConfig, SystemConfig
 from repro_torch.core.partition import ParamDef, label_tree
 from repro_torch.core.peft import lora_scale
 from repro_torch.models import stack as stk
-from repro_torch.models.layers import (chunked_softmax_xent, embed_lookup,
+from repro_torch.models.common import TPContext, pad_vocab
+from repro_torch.models.layers import (chunked_tp_softmax_xent, embed_lookup,
                                        rms_norm)
 
 
@@ -40,11 +41,14 @@ def layer_plan(cfg: ModelConfig) -> Tuple[List[Tuple[str, ...]], int]:
 
 
 class LM:
-    """Defs + serve-step bodies for one decoder-only architecture."""
+    """Defs + step bodies for one decoder-only architecture, at
+    tensor-parallel degree ``tp`` (the train mesh's 'model' size; the
+    vocabulary and the q heads are padded to multiples of it)."""
 
-    def __init__(self, cfg: ModelConfig, sys: SystemConfig):
-        self.cfg, self.sys = cfg, sys
+    def __init__(self, cfg: ModelConfig, sys: SystemConfig, tp: int = 1):
+        self.cfg, self.sys, self.tp = cfg, sys, tp
         self.plan, self.n_groups = layer_plan(cfg)
+        self.vpad = pad_vocab(cfg.vocab_size, tp)
         self.defs = label_tree(self._build_defs())
         # the attention adapters' scale, where the params hold adapters
         self.lora_scale = lora_scale(sys)
@@ -52,12 +56,13 @@ class LM:
     def _build_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
         return {
-            "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("tp", "fsdp"),
+            "embed": ParamDef((self.vpad, cfg.d_model), ("tp", "fsdp"),
                               init="embed"),
             "final_norm": ParamDef((cfg.d_model,), ("fsdp",), init="ones"),
-            "blocks": stk.stack_defs(stk.group_defs(cfg, self.plan),
+            "blocks": stk.stack_defs(stk.group_defs(cfg, self.plan,
+                                                    self.tp),
                                      self.n_groups),
-            "head": ParamDef((cfg.d_model, cfg.vocab_size), ("fsdp", "tp")),
+            "head": ParamDef((cfg.d_model, self.vpad), ("fsdp", "tp")),
         }
 
     # -- shared forward pieces ----------------------------------------------
@@ -70,27 +75,34 @@ class LM:
         return x @ params["head"]
 
     # -- training loss -------------------------------------------------------
-    def loss_fn(self, params, batch, gather):
+    def loss_fn(self, params, batch, gather, defs):
         """This rank's loss over its batch rows: ``params`` are its
         shards, ``gather`` a ``core.fcdp.ParamGather`` holding their
-        plans. batch: ids / labels / mask [B_local, S]. Returns
+        plans, ``defs`` the bundle's classified defs (the adapters
+        included). batch: ids / labels / mask
+        [B_local, S], the same rows on every 'model' rank. Returns
         (loss_sum, token_count, aux_sum); the caller sums them over the
-        ranks."""
+        data-parallel ranks."""
         cfg, plans = self.cfg, gather.plans
+        tpc = TPContext.of(gather.coll, self.sys.act_psum)
+        if tpc.tp != self.tp:
+            raise ValueError(f"the model's defs are for tp {self.tp}, the "
+                             f"mesh's 'model' axis is {tpc.tp}")
         ids, labels = batch["ids"], batch["labels"]
         S = ids.shape[1]
-        x = embed_lookup(gather(params["embed"], plans["embed"]), ids)
+        x = embed_lookup(gather(params["embed"], plans["embed"]), ids, tpc)
         x = x.to(self.sys.torch_dtype)
         positions = torch.arange(S, device=ids.device)[None, :]
         x = stk.apply_stack_train(cfg, self.plan, self.n_groups,
-                                  params["blocks"], plans["blocks"], x,
-                                  positions, gather, self.lora_scale)
+                                  params["blocks"], plans["blocks"],
+                                  defs["blocks"], x, positions, gather,
+                                  self.lora_scale, tpc)
         x = rms_norm(x, gather(params["final_norm"], plans["final_norm"],
                                torch.float32), cfg.norm_eps)
         head = gather(params["head"], plans["head"])
-        loss_sum, cnt = chunked_softmax_xent(
+        loss_sum, cnt = chunked_tp_softmax_xent(
             x, head, labels, cfg.vocab_size, self.sys.loss_chunk,
-            batch.get("mask"))
+            batch.get("mask"), tpc)
         return loss_sum, cnt, torch.zeros((), device=x.device)
 
     # -- serving over the contiguous decode state ----------------------------

@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partition import ParamDef, tree_map
 from repro_torch.models import sublayers as sl
+from repro_torch.models.common import SERIAL, TPContext
 
 KIND_DEFS = {
     "attn": sl.attn_defs,
@@ -32,16 +33,22 @@ KIND_DEFS = {
 RECURRENT_KINDS = ("mamba", "rwkv_tm", "rwkv_cm")
 
 
-def group_defs(cfg: ModelConfig, plan: List[Tuple[str, ...]]
+def group_defs(cfg: ModelConfig, plan: List[Tuple[str, ...]], tp: int = 1
                ) -> Dict[str, Dict[str, Dict[str, ParamDef]]]:
-    """Unstacked defs for one group: {pos{i}: {kind: {param: def}}}."""
+    """Unstacked defs for one group: {pos{i}: {kind: {param: def}}}, at
+    tensor-parallel degree ``tp`` (which pads attention's q heads; only
+    the attention and MLP sublayers run tensor-parallel)."""
     out: Dict[str, Any] = {}
     for i, kinds in enumerate(plan):
         pos = {}
         for kind in kinds:
             if kind not in KIND_DEFS:
                 raise ValueError(f"sublayer kind {kind!r} is not ported yet")
-            pos[kind] = KIND_DEFS[kind](cfg)
+            if tp > 1 and kind not in ("attn", "mlp"):
+                raise ValueError(f"sublayer kind {kind!r} does not run "
+                                 "tensor-parallel yet")
+            pos[kind] = (sl.attn_defs(cfg, tp) if kind == "attn"
+                         else KIND_DEFS[kind](cfg))
         out[f"pos{i}"] = pos
     return out
 
@@ -180,11 +187,14 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
 
 
 def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
-                      n_groups: int, stacked_params, stacked_plans, x,
-                      positions, gather, lora_scale: float = 2.0):
+                      n_groups: int, stacked_params, stacked_plans,
+                      stacked_defs, x, positions, gather,
+                      lora_scale: float = 2.0, tpc: TPContext = SERIAL):
     """The train forward of the stack: layer l gathers the shards
     ``leaf[l]`` through their plans (norm scales straight to fp32,
-    where ``rms_norm`` reads them) and applies the group. Returns x.
+    where ``rms_norm`` reads them; the gradient summed over 'model' too
+    where ``sublayers.model_summed`` says so from the defs) and applies
+    the group, tensor-parallel over 'model' (``tpc``). Returns x.
     The JAX package differentiates its layer scan's carry at every
     layer, even when no gradient flows into the stack's input (a frozen
     embedding under PEFT); so does this loop, which makes the first
@@ -199,13 +209,16 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                 for kind in kinds:
                     shards = stacked_params[key][kind]
                     plans = stacked_plans[key][kind]
+                    defs = stacked_defs[key][kind]
                     p = {n: gather(t[layer], plans[n],
-                                   torch.float32 if n == "norm" else None)
+                                   torch.float32 if n == "norm" else None,
+                                   sl.model_summed(defs, n, tpc))
                          for n, t in shards.items()}
                     if kind == "attn":
-                        x = sl.attn_train(cfg, p, x, positions, lora_scale)
+                        x = sl.attn_train(cfg, p, x, positions, lora_scale,
+                                          tpc)
                     elif kind == "mlp":
-                        x = sl.mlp_apply(cfg, p, x)
+                        x = sl.mlp_apply(cfg, p, x, tpc)
                     else:
                         raise ValueError(f"sublayer kind {kind!r} is not "
                                          "ported to training yet")

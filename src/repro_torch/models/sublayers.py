@@ -5,12 +5,16 @@ Mamba mixer (full-sequence, prefill and decode over the recurrent
 state) and the ssm family's RWKV-6 time-mix and channel-mix. The defs
 carry the JAX package's tensor-parallel tags (q/o head-parallel, k/v
 replicated; mlp in/gate column-, out row-parallel; experts over 'tp';
-mamba's d_inner and the rwkv heads over 'tp'); at tp 1 nothing is
-sharded by them, and the JAX package's tensor-parallel steps of these
-sublayers (``psum_tp``, head padding ``pad_heads`` and its
-``local_head_mask``, the MoE's token split and ``all_to_all`` over
-'model', the channel-mix's ``psum_scatter`` / ``all_gather_invariant``
-pair) are the identity and are left out."""
+mamba's d_inner and the rwkv heads over 'tp').
+
+The train sublayers (``attn_train``, ``mlp_apply``) run tensor-parallel
+over 'model' (``models/common.py``): the q heads padded to a multiple
+of tp (``pad_heads``), the normed input entering the region through
+``tp_region_in`` and the output summed by ``psum_tp_act``; at tp 1 both
+are the identity. Serving runs at tp 1, where the JAX package's
+tensor-parallel steps of the other sublayers (the MoE's token split and
+``all_to_all`` over 'model', the channel-mix's ``psum_scatter`` /
+``all_gather_invariant`` pair) are the identity and are left out."""
 from __future__ import annotations
 
 import math
@@ -23,13 +27,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partition import ParamDef
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import (SERIAL, TPContext, pad_heads,
+                                       psum_tp_act, region_vary,
+                                       tp_region_in)
 from repro_torch.models.layers import act_fn, matmul, rms_norm
 
 
-def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def attn_defs(cfg: ModelConfig, tp: int = 1) -> Dict[str, ParamDef]:
+    """The q heads padded to a multiple of ``tp``."""
     hd = cfg.resolved_head_dim()
     d = cfg.d_model
-    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    qd, kvd = pad_heads(cfg.num_heads, tp) * hd, cfg.num_kv_heads * hd
     out: Dict[str, ParamDef] = {
         "wq": ParamDef((d, qd), ("fsdp", "tp")),
         "wk": ParamDef((d, kvd), ("fsdp", None)),
@@ -112,13 +120,35 @@ def attn_decode(cfg, p, x, state, lora_scale=2.0):
                       lora_scale)
 
 
-def attn_train(cfg, p, x, positions, lora_scale=2.0):
+def attn_train(cfg, p, x, positions, lora_scale=2.0,
+               tpc: TPContext = SERIAL):
     """Causal self-attention sublayer of the train step (under
-    autograd)."""
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
-    return x + attn_mod.attention_train(
+    autograd), tensor-parallel over 'model'."""
+    h = tp_region_in(rms_norm(x, p["norm"], cfg.norm_eps), tpc)
+    y = attn_mod.attention_train(
         h, p["wq"], p["wk"], p["wv"], p["wo"], p.get("bq"), p.get("bk"),
-        p.get("bv"), cfg, positions, **_lora_kwargs(p, lora_scale))
+        p.get("bv"), cfg, positions, tpc=tpc, **_lora_kwargs(p, lora_scale))
+    return x + psum_tp_act(y, tpc)
+
+
+def model_summed(defs: Dict[str, ParamDef], name: str,
+                 tpc: TPContext) -> bool:
+    """Whether the gradient of leaf ``name`` of an attention or MLP
+    sublayer (``defs``: the sublayer's defs) is summed over 'model':
+    where the JAX step's typing casts the weight to 'model'-varying.
+    That is a leaf replicated over 'model' (no 'tp' dim) that meets
+    varying values: inside an int8 region every leaf but the norm scale,
+    which is read before the region begins; otherwise only an adapter's
+    ``lora_b`` whose ``lora_a`` is 'model'-sharded (the row-parallel
+    projection's adapter, whose product varies)."""
+    if tpc.tp == 1 or defs[name].tp_dim is not None or name == "norm":
+        return False
+    if tpc.int8_act:
+        return True
+    if name.endswith("_lora_b"):
+        a = defs.get(name[:-1] + "a")
+        return a is not None and a.tp_dim is not None
+    return False
 
 
 def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -133,13 +163,19 @@ def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
-def mlp_apply(cfg, p, x):
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+def mlp_apply(cfg, p, x, tpc: TPContext = SERIAL):
+    """The GLU (or plain) MLP: in/gate column-parallel, out row-parallel
+    over 'model'. Outside an int8 region the normed input is the same on
+    every rank, and each column-parallel matmul sums its share of the
+    input's gradient over 'model' on its own (two sums, as the JAX step
+    casts the input once per matmul)."""
+    h = tp_region_in(rms_norm(x, p["norm"], cfg.norm_eps), tpc)
+    up = region_vary(h, tpc) @ p["w_in"]
     if "w_gate" in p:
-        z = act_fn(cfg.act)(h @ p["w_gate"]) * (h @ p["w_in"])
+        z = act_fn(cfg.act)(region_vary(h, tpc) @ p["w_gate"]) * up
     else:
-        z = act_fn(cfg.act)(h @ p["w_in"])
-    return x + matmul(z, p["w_out"])
+        z = act_fn(cfg.act)(up)
+    return x + psum_tp_act(matmul(z, p["w_out"]), tpc)
 
 
 # ===========================================================================

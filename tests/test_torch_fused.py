@@ -49,7 +49,7 @@ from repro_torch.core.engine.train import matmul_chunk_launch_plan
 from repro_torch.core.fcdp import AllGather
 from repro_torch.kernels import _build, collective_matmul as cm
 from repro_torch.kernels import ops, ref
-from repro_torch.launch.mesh import MeshShape, RankMesh, train_mesh_shape
+from repro_torch.launch.mesh import MeshShape, RankMesh
 
 SHAPES = [(128, 64, 128), (7, 96, 100), (130, 32, 257), (1, 16, 1)]
 M, K, NC = 6, 16, 8                  # the ring cases: x [M, K], w [K, n NC]
@@ -334,7 +334,8 @@ def test_launch_plan_at_the_smoke_runs_width(fused, want):
     cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2)
     run = RunConfig(model=cfg, shape=ShapeCell("t", "train", 512, 8),
                     system=SystemConfig(fused_matmul=fused))
-    b = StepBundle(run, device="cpu", mesh=train_mesh_shape(4, True))
+    b = StepBundle(run, device="cpu",
+                   mesh=MeshShape(("pod", "data", "model"), (2, 2, 1)))
     assert matmul_chunk_launch_plan(b) == want
     assert sum(p.is_fused for p in b.plan_leaves) == (0 if fused == "none"
                                                        else 2)

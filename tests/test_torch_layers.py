@@ -272,8 +272,8 @@ def test_softmax_xent_matches_jax(chunk, mesh1, rng):
                                                   mask)[0], argnums=(0, 1))(
         jnp.asarray(x), jnp.asarray(head))
     xt, ht = _t(x).requires_grad_(True), _t(head).requires_grad_(True)
-    s, c = layers.chunked_softmax_xent(xt, ht, _t(labels).long(), 256, chunk,
-                                       _t(mask))
+    s, c = layers.chunked_tp_softmax_xent(xt, ht, _t(labels).long(), 256,
+                                          chunk, _t(mask))
     s.backward()
     np.testing.assert_allclose([s.item(), c.item()], want, **TOL)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrad[0]), **TOL)

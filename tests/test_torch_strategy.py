@@ -160,8 +160,16 @@ def test_registry_and_config_validation():
 
 
 def test_mesh_shapes():
-    assert train_mesh_shape(4, True) == MESH
-    assert train_mesh_shape(4, False).shape == {"data": 4, "model": 1}
+    """The launcher's mesh follows the JAX package's ``make_smoke_mesh``:
+    model = gcd(world/2, 2) with a pod axis, gcd(world, 2) without."""
+    assert train_mesh_shape(8, True) == MeshShape(("pod", "data", "model"),
+                                                  (2, 2, 2))
+    assert train_mesh_shape(4, True) == MeshShape(("pod", "data", "model"),
+                                                  (2, 1, 2))
+    assert train_mesh_shape(2, True).shape == {"pod": 2, "data": 1,
+                                               "model": 1}
+    assert train_mesh_shape(4, False).shape == {"data": 2, "model": 2}
+    assert train_mesh_shape(1, False).shape == {"data": 1, "model": 1}
     assert [MESH.coords(r) for r in range(4)] == [
         {"pod": p, "data": d, "model": 0} for p in (0, 1) for d in (0, 1)]
     with pytest.raises(ValueError):
