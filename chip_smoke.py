@@ -116,6 +116,27 @@ non-zero:
                 on the CPU from the same weights: loss and grad norm
                 within tolerance, the same bytes, the plans' launches on
                 the card and none on the CPU.
+ 15. sched_train -- the stage-1 prefetch ring and hier: qwen2.5-3b at
+                full width and depth 2, seq 512, global batch 8, on phase
+                5's 4 ranks: one step each of zero3 at prefetch depth 0
+                (two: the first is the job's warm-up) and 1, fcdp at 0,
+                1 and 2, fcdp at 1 with int8 qwZ/qgZ and
+                with the fused matmul (ag_matmul), mics at 1 (live depth
+                0) and hier. Checks zero3's pod all-gather at depth 1
+                equal to fcdp's and below depth 0's, fcdp's bytes at
+                depths 1 and 2 equal to phase 5's depth-0 ones (op, axis)
+                by (op, axis), hier's pod psum no more than zero3's and
+                its pod reduce-scatter equal to its gather back, the
+                step-0 losses of zero3, fcdp and hier equal, the int8 and
+                chunk-matmul launches equal to the plans, each run's live
+                depth and its ring bytes equal to
+                ``prefetch_buffer_bytes``; reports bytes, peaks, caches
+                and step times.
+ 16. sched_parity -- tests/test_torch_sched.py's DENSE model at
+                (2, 2, 2), fp32: the 8-rank fcdp step at prefetch depth 1
+                and the hier step on the card and on the CPU from the
+                same weights: loss and grad norm within tolerance, the
+                same bytes and ring.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
 plain versions at the train and PEFT phases' shapes and at the int8 TP
@@ -2249,6 +2270,167 @@ def phase_tp_parity():
          wall_s={"cuda": t_g, "cpu": t_c})
 
 
+# -- phases 15 and 16: the stage-1 prefetch ring and hier --------------------------
+
+# zero3_d0 runs first and takes 2 steps: its step 0 pays the job's
+# warm-up (cuBLAS, the allocator), step 1 is the time to compare
+SCHED_RUNS = (("zero3_d0", dict(mode="zero3", steps=2)),
+              ("fcdp_d0", dict(mode="fcdp")),
+              ("zero3_d1", dict(mode="zero3", prefetch_depth=1)),
+              ("fcdp_d1", dict(mode="fcdp", prefetch_depth=1)),
+              ("fcdp_d2", dict(mode="fcdp", prefetch_depth=2)),
+              ("fcdp_d1_int8", dict(mode="fcdp", param_compress="int8_pod",
+                                    grad_compress="int8_pod",
+                                    prefetch_depth=1)),
+              ("fcdp_d1_ag_matmul", dict(mode="fcdp", prefetch_depth=1,
+                                         fused_matmul="ag_matmul")),
+              ("mics_d1", dict(mode="mics", prefetch_depth=1)),
+              ("hier", dict(mode="hier")))
+
+
+def _sched_checks(name, rs, depth):
+    """Finite losses the ranks agree on, the plans' int8 and chunk-matmul
+    launches on every rank, the ring's live depth (``depth``) and its
+    bytes equal to ``prefetch_buffer_bytes``."""
+    _tp_checks(name, rs)
+    for r in rs:
+        steps = len(r["metrics"])
+        check(r["live_depth"] == [depth] * steps,
+              f"sched {name}: live depth {r['live_depth']} != {depth}")
+        check(r["ring_bytes"] == [r["prefetch_buffer_bytes"]] * steps,
+              f"sched {name}: ring bytes {r['ring_bytes']} != "
+              f"prefetch_buffer_bytes {r['prefetch_buffer_bytes']}")
+
+
+def phase_sched_train(train_fcdp_bytes):
+    """The stage-1 prefetch ring and hier on the train path: qwen2.5-3b
+    at full width, depth 2, seq 512, global batch 8, on phase train's 4
+    ranks (pod 2, data 2) sharing the card, a step of each of
+    ``SCHED_RUNS`` (two of the first)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import ModeRun, spawn
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=TRAIN_DEPTH)
+    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                     [ModeRun(**kw) for _, kw in SCHED_RUNS])
+    t0 = time.perf_counter()
+    ranks = spawn(job, timeout_s=900)
+    wall = time.perf_counter() - t0
+    by = {name: [rk["runs"][i] for rk in ranks]
+          for i, (name, _) in enumerate(SCHED_RUNS)}
+    summary = {}
+    for name, kw in SCHED_RUNS:
+        rs = by[name]
+        streams = kw["mode"] not in ("mics", "hier")
+        _sched_checks(name, rs, min(kw.get("prefetch_depth", 0),
+                                    TRAIN_DEPTH) if streams else 0)
+        r0 = rs[0]
+        summary[name] = {
+            "loss": r0["metrics"][0]["loss"],
+            "grad_norm": r0["metrics"][0]["grad_norm"],
+            "bytes_per_step": r0["bytes"][0],
+            "live_depth": r0["live_depth"][0],
+            "ring_bytes": r0["ring_bytes"][0],
+            "prefetch_buffer_bytes": r0["prefetch_buffer_bytes"],
+            "widened_leaves": len(r0["widened"]),
+            "int8_launches_per_rank_step": r0["launches"][0],
+            "matmul_chunk_launches_per_rank_step": r0["mm_launches"][0],
+            "cached_bytes": r0["cached"][0],
+            "cache_places": r0["cache_places"][0],
+            "peak_mem_gib": [r["peak_mem_bytes"] / 2**30 for r in rs],
+            "step_s": [r["step_s"] for r in rs]}
+    b = {k: m["bytes_per_step"] for k, m in summary.items()}
+    check(b["zero3_d1"]["all_gather/pod"] == b["fcdp_d1"]["all_gather/pod"]
+          < b["zero3_d0"]["all_gather/pod"],
+          f"zero3's pod all-gather at depth 1 "
+          f"{b['zero3_d1']['all_gather/pod']} must equal fcdp's "
+          f"{b['fcdp_d1']['all_gather/pod']}, below depth 0's "
+          f"{b['zero3_d0']['all_gather/pod']}")
+    for k in ("fcdp_d0", "fcdp_d1", "fcdp_d2"):
+        check(b[k] == train_fcdp_bytes,
+              f"{k} bytes {b[k]} != phase train's fcdp (depth 0) "
+              f"{train_fcdp_bytes}")
+    h = b["hier"]
+    check(h["psum/pod"] == b["zero3_d0"]["psum/pod"]
+          and h["psum_scatter/pod"] == h["all_gather/pod"] > 0,
+          f"hier pod bytes {h}: its psum must be zero3's "
+          f"{b['zero3_d0']['psum/pod']} (the loss terms and replicated "
+          "leaves), its reduce-scatter its gather back")
+    check(summary["hier"]["widened_leaves"] > 0, "hier widened no leaf")
+    z3 = summary["zero3_d0"]
+    for k in ("zero3_d1", "fcdp_d0", "fcdp_d1", "fcdp_d2", "hier"):
+        m = summary[k]
+        check(_rel(m["loss"], z3["loss"]) <= LOSS_RTOL
+              and _rel(m["grad_norm"], z3["grad_norm"]) <= GNORM_RTOL,
+              f"sched {k} step 0 ({m['loss']}, {m['grad_norm']}) != "
+              f"zero3's ({z3['loss']}, {z3['grad_norm']})")
+    check(_rel(summary["fcdp_d1_int8"]["loss"], z3["loss"]) <= INT8_DRIFT,
+          "sched int8 step-0 loss drifts from zero3's")
+    check(all(v > 0 for v in summary["fcdp_d1_int8"][
+        "int8_launches_per_rank_step"].values()),
+          "sched int8: an int8 kernel launched no time")
+    check(summary["fcdp_d1_ag_matmul"]["matmul_chunk_launches_per_rank_step"]
+          > 0, "sched ag_matmul launched no chunk matmul")
+    check(summary["fcdp_d1"]["cache_places"] == {"host": [("cpu", True)]}
+          and summary["zero3_d1"]["cache_places"].get("device"),
+          "ring-fed caches: fcdp's must lie in pinned host memory, "
+          "zero3's on the device")
+    launches = {k: sum(sum(step[k] for step in r["launches"])
+                       for rs in by.values() for r in rs)
+                for k in QUANT_NAMES}
+    launches["matmul_chunk"] = sum(sum(r["mm_launches"])
+                                   for rs in by.values() for r in rs)
+    emit("sched_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
+         backend=ranks[0]["backend"], wall_s=wall,
+         kernel_launches_total=launches, runs=summary)
+    return launches
+
+
+def phase_sched_parity():
+    """tests/test_torch_sched.py's DENSE model at (2, 2, 2), fp32: fcdp
+    at prefetch depth 1 and hier, the same 8-rank steps on the card and
+    on the CPU from the same weights (drawn on the CPU): loss within
+    tolerance, the same bytes."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch.train import ModeRun, spawn
+
+    runs = [ModeRun("fcdp", prefetch_depth=1, dtype="float32"),
+            ModeRun("hier", dtype="float32")]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        job = _train_job(ModelConfig(**TP_PARITY_MODEL), 64, 8, runs,
+                         dtype="float32", mesh=(2, 2, 2), device=dev,
+                         draw_device="cpu")
+        t0 = time.perf_counter()
+        rs = spawn(job, timeout_s=300)[0]["runs"]
+        out[dev] = (rs, time.perf_counter() - t0)
+    (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
+    report = {}
+    for name, g, c in zip(("fcdp_d1", "hier"), gs, cs):
+        mg, mc = g["metrics"][0], c["metrics"][0]
+        check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
+              f"sched {name}: card loss {mg['loss']} != CPU {mc['loss']}")
+        check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
+              f"sched {name}: card grad norm {mg['grad_norm']} != CPU "
+              f"{mc['grad_norm']}")
+        check(g["bytes"] == c["bytes"],
+              f"sched {name}: card and CPU moved different bytes")
+        check(g["live_depth"] == c["live_depth"]
+              and g["ring_bytes"] == c["ring_bytes"],
+              f"sched {name}: card and CPU rings differ")
+        report[name] = {"loss": {"cuda": mg["loss"], "cpu": mc["loss"]},
+                        "grad_norm": {"cuda": mg["grad_norm"],
+                                      "cpu": mc["grad_norm"]},
+                        "live_depth": g["live_depth"][0],
+                        "ring_bytes": g["ring_bytes"][0],
+                        "bytes": g["bytes"][0]}
+    emit("sched_parity", model=TP_PARITY_MODEL["name"], dtype="float32",
+         mesh={"pod": 2, "data": 2, "model": 2}, runs=report,
+         wall_s={"cuda": t_g, "cpu": t_c})
+
+
 def main() -> int:
     try:
         import torch
@@ -2296,6 +2478,8 @@ def main() -> int:
     phase_peft_parity()
     tp_launches = phase_tp_train()
     phase_tp_parity()
+    sched_launches = phase_sched_train(train_fcdp_bytes)
+    phase_sched_parity()
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
@@ -2314,7 +2498,7 @@ def main() -> int:
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
             "replaces": QUANT_TPU_KERNELS[k],
             "launches": train_launches[k] + peft_launches[k]
-            + tp_launches[k],
+            + tp_launches[k] + sched_launches[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
                              if e["kernel"] == QUANT_NAMES[k]}}
@@ -2322,7 +2506,8 @@ def main() -> int:
         "name": "matmul_chunk", "route": "cuda", "source": MM_SOURCE,
         "replaces": MM_TPU_KERNEL,
         "launches": train_launches["matmul_chunk"]
-        + tp_launches["matmul_chunk"], **entry(mm_main),
+        + tp_launches["matmul_chunk"] + sched_launches["matmul_chunk"],
+        **entry(mm_main),
         "shape": mm_main["case"],
         "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}, {
         "name": "wkv6", "route": "cuda", "source": WKV_SOURCE,

@@ -112,7 +112,13 @@ class SystemConfig:
     ``act_psum`` is the transport of the tensor-parallel activation
     all-reduces over 'model' (``models/common.py``): "bf16", exact (in
     the activations' type), or "int8", block-quantized
-    (``core/act_compress.py``); inert at tp 1."""
+    (``core/act_compress.py``); inert at tp 1.
+
+    ``prefetch_depth`` is the depth k of the stage-1 prefetch ring
+    (``core/schedule.py``): layer i+k's stage-1 ('pod') gather is issued
+    before layer i's compute. 0 is the sequential schedule; a strategy
+    with no stage 1 (mics, hier), a mesh without 'pod' and a stack of
+    fewer layers cap it."""
     dtype: str = "bfloat16"
     serve_frozen: bool = True
     mode: str = "fcdp"
@@ -129,6 +135,7 @@ class SystemConfig:
     lora_alpha: Optional[float] = None
     mode_overrides: Tuple[Tuple[str, str], ...] = ()
     act_psum: str = "bf16"             # bf16 | int8
+    prefetch_depth: int = 0
 
     def __post_init__(self):
         if self.mode_overrides:
@@ -152,6 +159,11 @@ class SystemConfig:
             raise ValueError(
                 f"unknown fused_matmul {self.fused_matmul!r}; "
                 "known: none, ag_matmul, both")
+        depth = self.prefetch_depth
+        if not isinstance(depth, int) or isinstance(depth, bool) \
+                or depth < 0:
+            raise ValueError(
+                f"prefetch_depth must be a non-negative int, got {depth!r}")
 
     @property
     def torch_dtype(self) -> torch.dtype:

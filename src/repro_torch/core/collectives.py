@@ -4,6 +4,10 @@ The operations the train step needs, each over named mesh axes and
 tiled like the JAX package's collectives inside ``shard_map``:
 
   all_gather(x, axis, dim)      blocks of every rank concatenated on dim
+  all_gather_async(x, axis, dim)
+                                the same, returning at once a handle
+                                whose ``wait()`` gives the result (the
+                                stage-1 prefetch ring, ``core/schedule.py``)
   reduce_scatter(x, axis, dim)  sum over ranks, this rank's block of dim
   all_to_all(x, axis)           block j of dim 0 goes to rank j
   all_reduce(x, axes)           sum over ranks
@@ -99,16 +103,27 @@ class Collectives:
 
     # -- operations ----------------------------------------------------------
     def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        return self.all_gather_async(x, axis, dim).wait()
+
+    def all_gather_async(self, x: torch.Tensor, axis: str,
+                         dim: int) -> "Pending":
+        """``all_gather`` issued as async work: returns at once, counted
+        at issue. On gloo the work runs on the group's threads over host
+        buffers that the handle keeps alive until ``wait()``; on NCCL it
+        runs on the group's own stream, and ``wait()`` makes the
+        consumer's stream wait on its end event."""
         axes = _as_axes(axis)
         if not self._live(axes):
-            return x
+            return Pending(None, (x, x), x.device, None)
         n = math.prod(self.mesh.mesh_shape.size(a) for a in axes)
         src = self._wire(x.movedim(dim, 0).contiguous())
         out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
-        dist.all_gather_into_tensor(out, src, group=self.mesh.group(axes))
+        work = dist.all_gather_into_tensor(out, src,
+                                           group=self.mesh.group(axes),
+                                           async_op=True)
         self._count("all_gather", axes, out.numel() * out.element_size())
-        return out.to(x.device).movedim(0, dim)
+        return Pending(work, (src, out), x.device, dim)
 
     def reduce_scatter(self, x: torch.Tensor, axis: str,
                        dim: int) -> torch.Tensor:
@@ -195,3 +210,22 @@ class Hop:
             w.wait()
         self.works = []
         return self.bufs[1].to(self.device)
+
+
+class Pending:
+    """An all-gather in flight: ``wait()`` blocks until it is done and
+    returns the gathered tensor on the caller's device (``dim``: where
+    the blocks go; None for a gather over no live axis, which hands its
+    input back)."""
+
+    def __init__(self, work, bufs, device, dim):
+        self.work, self.bufs, self.device, self.dim = work, bufs, device, dim
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+            self.work = None
+        out = self.bufs[1]
+        if self.dim is None:
+            return out
+        return out.to(self.device).movedim(0, self.dim)

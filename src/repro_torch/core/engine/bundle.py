@@ -16,7 +16,9 @@ non-strict under ``peft``, and again, strict, on the classified tree.
 Training runs on a (pod, data, model) mesh, one process per rank. Given
 a mesh, the bundle derives, per leaf in tree order, its gather plan,
 storage and optimizer specs and replication factor, as the JAX bundle
-does. Given a live ``RankMesh`` it
+does, and per trainable leaf whose optimizer spec is wider than its
+storage (hier, an 'inter_only' leaf) the widening (``widen``). Given a
+live ``RankMesh`` it
 also knows this rank's coordinates: ``init_all_params`` and
 ``shard_batch`` hand out this rank's shards and batch rows. Steps run
 eagerly; there is nothing to compile.
@@ -30,9 +32,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import peft
-from repro_torch.core.partition import (block_index, init_leaf, init_params,
-                                        label_tree, shard_of, tree_items,
-                                        tree_map_with_path)
+from repro_torch.core.partition import (_entry_axes, block_index, init_leaf,
+                                        init_params, label_tree, shard_of,
+                                        tree_items, tree_map_with_path)
 from repro_torch.core.residency import split_train_indices
 from repro_torch.core.strategy import resolve_strategies, spec_axes
 from repro_torch.launch.mesh import MeshShape, fsdp_axes, tp_degree
@@ -92,6 +94,33 @@ class StepBundle:
         self.full_specs = [self.strategy.opt_spec(d, ms, sys.min_shard_size)
                            for d in self.def_leaves]
         self.rep_factors = [self._replication(s) for s in self.full_specs]
+        # train position -> (fsdp dim, widening axes): the optimizer
+        # state's fsdp entry less the storage's, in tiling order
+        self.widen = {}
+        for j, i in enumerate(self.train_idx):
+            dim = self.def_leaves[i].fsdp_dim
+            if dim is None:
+                continue
+            storage = _entry_axes(self.leaf_specs[i][dim])
+            extra = tuple(a for a in _entry_axes(self.full_specs[i][dim])
+                          if a not in storage)
+            if extra:
+                self.widen[j] = (dim, extra)
+
+    def opt_shards(self, train):
+        """This rank's optimizer-layout views of its trainable shards
+        (``split``'s first list): a widened leaf's block of its storage
+        shard along the widening axes (the storage block subdivided
+        over them, first axis major), the shard itself otherwise."""
+        out = []
+        for j, t in enumerate(train):
+            if j in self.widen:
+                dim, extra = self.widen[j]
+                idx, count = block_index(extra, self.mesh_shape, self.coords)
+                step = t.shape[dim] // count
+                t = t.narrow(dim, idx * step, step)
+            out.append(t)
+        return out
 
     def _replication(self, spec) -> float:
         used = spec_axes(spec)

@@ -1,17 +1,23 @@
-"""The sequential FCDP train step of one rank, as the JAX package's
+"""The FCDP train step of one rank, as the JAX package's
 ``core/engine/train.py`` builds it (``_build_parts``' ``accumulate_seq``
 and ``apply_grads``, ``_build_fused``) without the async and cross-step
 streams.
 
 One step: the loss over this rank's batch rows (the forward gathers
-every weight through its plan), its backward (the gathers' backwards
-reduce-scatter the gradients onto the shards), the loss terms summed
-over the data-parallel axes, then the optimizer epilogue: global-norm
-clip and AdamW on the shards. Under PEFT only the trainable leaves (the
-adapters) get gradients, a clip norm term and optimizer state; the
-frozen trunk is read, never updated. With ``RunConfig.microbatch`` = nm >= 2
-the rank's rows are split into nm microbatches whose gradients add up
-in the parameter dtype and are divided by nm, as the JAX scan does.
+every weight through its plan, the layers under the stage-1 prefetch
+ring at ``SystemConfig.prefetch_depth``, ``core/schedule.py``), its
+backward (the gathers' backwards reduce-scatter the gradients onto the
+shards), the loss terms summed over the data-parallel axes, then the
+optimizer epilogue: the widening reduce-scatter of each widened leaf's
+gradient (hier, an 'inter_only' leaf: over the axes its optimizer state
+shards over beyond its storage, which sums it there once), global-norm
+clip, AdamW on the optimizer layout's blocks, and the updated blocks
+gathered back over the widening axes. Under PEFT only the trainable
+leaves (the adapters) get gradients, a clip norm term and optimizer
+state; the frozen trunk is read, never updated. With
+``RunConfig.microbatch`` = nm >= 2 the rank's rows are split into nm
+microbatches whose gradients add up in the parameter dtype and are
+divided by nm, as the JAX scan does.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core.fcdp import ParamGather
+from repro_torch.core.schedule import GatherScheduler
 from repro_torch.launch.mesh import fsdp_axes
 from repro_torch.optim.adamw import adamw_update, clip_by_global_norm
 
@@ -29,7 +36,8 @@ class TrainStep:
     shards and optimizer state in place. metrics: loss, aux_loss,
     grad_norm, tokens (Python floats; with microbatches ``tokens`` is 1,
     as in the JAX step). ``gather`` keeps the cache bytes and places of
-    the last step."""
+    the last step, ``gather.scheduler`` its ring's live depth and
+    bytes."""
 
     def __init__(self, bundle, coll):
         run = bundle.run
@@ -37,7 +45,10 @@ class TrainStep:
         self.model = bundle.model
         self.sys, self.opt_cfg = run.system, run.optimizer
         self.nm = run.microbatch or 0
-        self.gather = ParamGather(coll, bundle.plans)
+        self.gather = ParamGather(coll, bundle.plans, GatherScheduler(
+            bundle.strategy, self.sys, bundle.mesh_shape,
+            bundle.plan_leaves))
+        self.widen = bundle.widen
         defs = [bundle.def_leaves[i] for i in bundle.train_idx]
         # no weight decay on vectors and on the LoRA adapters
         self.wd_mask = [len(d.shape) >= 2 and "_lora_" not in d.label
@@ -81,11 +92,22 @@ class TrainStep:
         else:
             ce, aux, tokens = self._loss_backward(params, batch)
             grads = [p.grad for p in train]
+        for j, (dim, axes) in self.widen.items():
+            for a in axes:          # first axis major, as the opt spec
+                grads[j] = self.coll.reduce_scatter(grads[j], a, dim)
         grads, gnorm = clip_by_global_norm(
             grads, self.reps, self.opt_cfg.grad_clip, self.coll,
             self.dp_axes + ("model",))
-        adamw_update(train, grads, opt_state, self.opt_cfg, self.sys,
+        blocks = [torch.empty_like(g, dtype=p.dtype) if j in self.widen
+                  else p for j, (p, g) in enumerate(zip(train, grads))]
+        adamw_update(blocks, grads, opt_state, self.opt_cfg, self.sys,
                      self.wd_mask)
+        with torch.no_grad():
+            for j, (dim, axes) in self.widen.items():
+                t = blocks[j]
+                for a in reversed(axes):    # inverts the reduce-scatter
+                    t = self.coll.all_gather(t, a, dim)
+                train[j].copy_(t)
         for p in train:
             p.grad = None
         return {"loss": float(ce), "aux_loss": float(aux),
@@ -120,18 +142,23 @@ def act_int8_launch_plan(bundle) -> Dict[str, int]:
 def int8_launch_plan(bundle) -> Dict[str, int]:
     """How many times one step calls each int8 kernel, from the plans:
     per stage-1 gather (once per layer for a stacked leaf), qwZ
-    quantizes and dequantizes, and the backward's regather (zero3) does
-    so again inside the layers; qgZ quantizes and dequant-accumulates
-    once per gather's backward; the activation all-reduces add theirs
+    quantizes and dequantizes, and the backward's regather (zero3 at
+    prefetch depth 0) does so again inside the layers; qgZ quantizes
+    and dequant-accumulates once per gather's backward; the activation
+    all-reduces add theirs
     (``act_int8_launch_plan``). Microbatches multiply."""
     n = _act_allreduces(bundle)
     out = {"quantize": 2 * n, "dequantize": n, "dequant_accumulate": n}
+    ring = GatherScheduler(bundle.strategy, bundle.run.system,
+                           bundle.mesh_shape, bundle.plan_leaves).depth > 0
     for i in bundle.train_idx:
         d, plan = bundle.def_leaves[i], bundle.plan_leaves[i]
         res = plan.residency
         layered = "stack" in d.dims
         uses = d.shape[d.dims.index("stack")] if layered else 1
-        passes = 1 + (layered and res.cache == "regather")
+        # the backward regathers (zero3) unless the ring fed the layer
+        passes = 1 + (layered and res.cache == "regather"
+                      and not (ring and res.occupies_ring_slot))
         if res.quantized_gather:
             out["quantize"] += uses * passes
             out["dequantize"] += uses * passes

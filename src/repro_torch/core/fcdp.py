@@ -9,7 +9,10 @@ over 'pod' (int8 on the 'pod' step under qgZ). A leaf stored replicated
 over some axes (MiCS's pod axis, the small biases everywhere) has its
 gradient summed over them (``SumOver``), where the JAX package's
 varying-axes type system puts that sum: after any cast the consumer
-applies, so a norm scale read in fp32 is summed in fp32.
+applies, so a norm scale read in fp32 is summed in fp32. Its widening
+axes (hier's 'pod', an 'inter_only' leaf's intra axes:
+``GatherPlan.sync_axes`` leaves them out) are summed by the engine's
+reduce-scatter instead.
 
 Inside a layer (``ParamGather.layer()``) no full weight is kept for the
 backward. A ``torch.autograd.graph.saved_tensors_hooks`` pair stands in
@@ -23,7 +26,8 @@ take a weight's address meanwhile and be mistaken for it. Where the
 cache lives is the strategy's placement:
 
   zero3   'regather': the handle holds the storage shard; the backward
-          re-runs both stages (two inter gathers per step)
+          re-runs both stages (two inter gathers per step at prefetch
+          depth 0)
   zeropp  'device':   the stage-1 result stays on the device; the
           backward re-runs stage 2 only
   fcdp    'host':     the stage-1 result is copied to pinned host memory
@@ -59,6 +63,20 @@ the shard itself under mics). The gradient sum over replicated axes
 dw before the reduce-scatter over the ring axis, where the unfused
 step's ``SumOver`` puts it.
 
+A leaf in the stage-1 prefetch ring (``core/schedule.py``: depth k > 0,
+a leaf with a stage 1) is gathered in two calls. ``issue_stage1``
+starts its stage-1 gather as async work k layers ahead and returns a
+``Stage1Slot`` (under qwZ the shard is quantized at issue and
+dequantized at ``wait()``); the layer then consumes the slot through
+``ParamGather.__call__(..., slot=)``, which records the stage-1 gather
+in autograd there (``Stage1Gather``, as at depth 0: its backward is
+the 'pod' reduce-scatter, exact or int8) and runs stage 2 from the slot's
+tensor, or hands it to the fused matmul. The backward rebuilds a
+ring-fed weight from that stage-1 tensor by stage 2 only: fcdp keeps it
+on its host tier, zeropp on the device, and zero3 on the device too,
+as the JAX package's scan carry holds it, so zero3's backward no
+longer regathers over 'pod'.
+
 The copy to the host is a synchronous ``non_blocking`` copy on the
 current stream; overlapping it on a side stream is later work.
 """
@@ -70,8 +88,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.grad_compress import (CompressedStage1Gather,
-                                            QuantizedStage1Gather,
+from repro_torch.core.grad_compress import (QuantizedPending,
+                                            int8_psum_scatter,
                                             quantized_gather)
 from repro_torch.core.strategy import GatherPlan
 
@@ -112,19 +130,60 @@ def _one_axis(axes) -> str:
     return axes[0]
 
 
-def gather_stage1(w: torch.Tensor, plan: GatherPlan, coll) -> torch.Tensor:
-    """Stage 1 (inter) all-gather: shard -> cached shard; qwZ / qgZ when
-    the residency says so. The identity without inter axes."""
+class Stage1Slot:
+    """One leaf's stage-1 gather issued ahead of its layer: ``wait()``
+    gives the stage-1 tensor (outside autograd, once). ``nbytes`` is
+    the size of that tensor."""
+    __slots__ = ("pending", "value", "nbytes")
+
+    def __init__(self, w: torch.Tensor, plan: GatherPlan, coll):
+        axis = _one_axis(plan.inter_axes)
+        w = w.detach()
+        if plan.residency.quantized_gather:
+            self.pending = QuantizedPending(w, coll, axis, plan.fsdp_dim)
+        else:
+            self.pending = coll.all_gather_async(w, axis, plan.fsdp_dim)
+        self.value = None
+        self.nbytes = w.numel() * w.element_size() * coll.size(axis)
+
+    def wait(self) -> torch.Tensor:
+        if self.value is None:
+            self.value, self.pending = self.pending.wait(), None
+        return self.value
+
+
+class Stage1Gather(torch.autograd.Function):
+    """Stage 1 in autograd: the forward hands back a slot's gathered
+    tensor (int8 on the wire under qwZ); the backward is the stage-1
+    gather's reduce-scatter over ``axis`` (int8 under qgZ)."""
+
+    @staticmethod
+    def forward(ctx, w, gathered, coll, axis, dim, int8_reduce):
+        ctx.coll, ctx.axis, ctx.dim = coll, axis, dim
+        ctx.int8_reduce = int8_reduce
+        return gathered.view_as(gathered)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.int8_reduce:
+            gw = int8_psum_scatter(g, ctx.coll, ctx.axis, ctx.dim)
+        else:
+            gw = ctx.coll.reduce_scatter(g, ctx.axis, ctx.dim)
+        return gw, None, None, None, None, None
+
+
+def gather_stage1(w: torch.Tensor, plan: GatherPlan, coll,
+                  slot: Optional[Stage1Slot] = None) -> torch.Tensor:
+    """Stage 1 (inter) all-gather: shard -> cached shard, from ``slot``
+    (w's stage 1 issued ahead) or issued here; qwZ / qgZ when the
+    residency says so. The identity without inter axes."""
     if not plan.is_gathered or not plan.inter_axes:
         return w
-    res = plan.residency
-    axis = _one_axis(plan.inter_axes)
-    if res.quantized_gather:
-        return QuantizedStage1Gather.apply(w, coll, axis, plan.fsdp_dim,
-                                           res.quantized_reduce)
-    if res.quantized_reduce:
-        return CompressedStage1Gather.apply(w, coll, axis, plan.fsdp_dim)
-    return AllGather.apply(w, coll, axis, plan.fsdp_dim)
+    if slot is None:
+        slot = Stage1Slot(w, plan, coll)
+    return Stage1Gather.apply(w, slot.wait(), coll,
+                              _one_axis(plan.inter_axes), plan.fsdp_dim,
+                              plan.residency.quantized_reduce)
 
 
 class FusedParam:
@@ -196,28 +255,40 @@ class ParamGather:
     backward by tier ('device' | 'host') and where those tensors lie
     (``cache_places``: (device type, pinned) pairs)."""
 
-    def __init__(self, coll, plans):
+    def __init__(self, coll, plans, scheduler):
         self.coll, self.plans = coll, plans
+        # the layer loop's schedule (core/schedule.GatherScheduler)
+        self.scheduler = scheduler
         self._entries: Optional[dict] = None
         self.cached = defaultdict(int)
         self.cache_places = defaultdict(set)
 
+    def issue_stage1(self, w: torch.Tensor, plan: GatherPlan) -> Stage1Slot:
+        """Start the stage-1 gather of a ring leaf's shard ``w``."""
+        return Stage1Slot(w, plan, self.coll)
+
     def __call__(self, w: torch.Tensor, plan: GatherPlan,
                  dtype: Optional[torch.dtype] = None,
-                 over_model: bool = False):
+                 over_model: bool = False,
+                 slot: Optional[Stage1Slot] = None):
         """The full weight of shard ``w`` in ``dtype`` (None keeps w's),
         with its gradient summed over the plan's replicated axes, and
         over 'model' too with ``over_model`` (a leaf replicated over
         'model' that meets 'model'-varying values), in one all-reduce; a
-        ``FusedParam`` for a fused plan."""
+        ``FusedParam`` for a fused plan. With ``slot`` (w's stage 1
+        issued ahead) stage 1 comes from the slot."""
         def cast(t):
             return t if dtype is None else t.to(dtype)
-        stage1 = gather_stage1(w, plan, self.coll)
+        stage1 = gather_stage1(w, plan, self.coll, slot)
+        placement = plan.residency.cache
+        if slot is not None and placement == "regather":
+            # the backward reads the slot's tensor, never regathers it
+            placement = "device"
         if plan.is_fused:
             if self._entries is not None:
                 self._entries[_key(stage1)] = (stage1, _Saved(
                     self._stage1_rebuilder(w.detach(), stage1.detach(),
-                                           plan)))
+                                           plan, placement)))
             return gather_stage2(stage1, plan, self.coll)
         full = cast(gather_stage2(stage1, plan, self.coll))
         if self._entries is not None and plan.is_gathered:
@@ -225,14 +296,14 @@ class ParamGather:
             # no other tensor can take its address and be mistaken for it
             self._entries[_key(full)] = (full, _Saved(
                 self._rebuilder(w.detach(), stage1.detach(), full.detach(),
-                                plan, cast)))
+                                plan, cast, placement)))
         sync = plan.sync_axes + (("model",) if over_model else ())
         if sync and plan.residency.receives_gradient:
             full = SumOver.apply(full, self.coll, sync)
         return full
 
-    def _rebuilder(self, w, stage1, full, plan, cast):
-        coll, placement = self.coll, plan.residency.cache
+    def _rebuilder(self, w, stage1, full, plan, cast, placement):
+        coll = self.coll
         if placement == "regather":
             def rebuild():
                 return cast(_stage2_value(_stage1_value(w, plan, coll),
@@ -247,9 +318,9 @@ class ParamGather:
         cache = self._park(full, placement)
         return lambda: cache.to(w.device)
 
-    def _stage1_rebuilder(self, w, stage1, plan):
+    def _stage1_rebuilder(self, w, stage1, plan, placement):
         """The backward's source of a fused plan's stage-1 tensor."""
-        coll, placement = self.coll, plan.residency.cache
+        coll = self.coll
         if placement == "regather":
             return lambda: _stage1_value(w, plan, coll)
         cache = self._park(stage1, placement)

@@ -4,16 +4,15 @@ builds them on the shared per-256-block quantization
 (``kernels/ops.py``: the CUDA kernels on the card, their plain versions
 on the CPU).
 
-  * qgZ -- ``CompressedStage1Gather``: the exact stage-1 all-gather whose
-    gradient reduce-scatter carries int8 (``int8_psum_scatter``).
-  * qwZ -- ``QuantizedStage1Gather``: the stage-1 weight all-gather
-    itself carries int8 blocks and fp32 scales, dequantized on arrival.
-    Its gradient reduce-scatter is exact, or int8 as well with
-    ``compress_bwd``. Under FCDP the dequantized result is what the host
-    cache keeps, so the backward reuse stays free.
+  * qgZ -- ``int8_psum_scatter``: the stage-1 gather's gradient
+    reduce-scatter carries int8.
+  * qwZ -- ``QuantizedPending`` / ``quantized_gather``: the stage-1
+    weight all-gather itself carries int8 blocks and fp32 scales,
+    dequantized on arrival. Under FCDP the dequantized result is what
+    the host cache keeps, so the backward reuse stays free.
 
-The two gathers are ``torch.autograd.Function``s with the forward and
-backward of the JAX package's ``custom_vjp``s.
+``core/fcdp.py``'s ``Stage1Gather`` puts them together in autograd, with
+the forward and backward of the JAX package's ``custom_vjp``s.
 """
 from __future__ import annotations
 
@@ -70,53 +69,32 @@ def int8_psum_scatter(g: torch.Tensor, coll, axis: str,
     return out.movedim(0, dim).to(g.dtype)
 
 
+class QuantizedPending:
+    """A qwZ gather in flight: the shard was quantized at issue and its
+    blocks and scales are being all-gathered; ``wait()`` dequantizes
+    them on arrival, drops each rank's block padding and returns the
+    gathered tensor in the shard's dtype."""
+
+    def __init__(self, w: torch.Tensor, coll, axis: str, dim: int):
+        self.n = coll.mesh.mesh_shape.size(axis)
+        moved = w.movedim(dim, 0)
+        self.shape, self.dim, self.dtype = moved.shape, dim, w.dtype
+        q, s = _quantize(moved)
+        self.parts = (coll.all_gather_async(q, axis, 0),
+                      coll.all_gather_async(s, axis, 0))
+
+    def wait(self) -> torch.Tensor:
+        q_all, s_all = (p.wait() for p in self.parts)
+        vals = kops.int8_dequantize_blocks(q_all, s_all)
+        vals = vals.reshape(self.n, -1)[:, :math.prod(self.shape)]
+        out = vals.reshape((self.n * self.shape[0],)
+                           + tuple(self.shape[1:]))
+        return out.movedim(0, self.dim).to(self.dtype)
+
+
 def quantized_gather(w: torch.Tensor, coll, axis: str,
                      dim: int) -> torch.Tensor:
     """qwZ forward: quantize the local shard, all-gather blocks and
     scales over ``axis``, dequantize on arrival, drop each rank's block
     padding and return the gathered tensor in w's dtype."""
-    n = coll.mesh.mesh_shape.size(axis)
-    moved = w.movedim(dim, 0)
-    elems = moved.numel()
-    q, s = _quantize(moved)
-    q_all = coll.all_gather(q, axis, 0)
-    s_all = coll.all_gather(s, axis, 0)
-    vals = kops.int8_dequantize_blocks(q_all, s_all)
-    vals = vals.reshape(n, -1)[:, :elems]
-    out = vals.reshape((n * moved.shape[0],) + tuple(moved.shape[1:]))
-    return out.movedim(0, dim).to(w.dtype)
-
-
-class CompressedStage1Gather(torch.autograd.Function):
-    """qgZ: exact all-gather over ``axis`` whose gradient reduce-scatter
-    is int8."""
-
-    @staticmethod
-    def forward(ctx, w, coll, axis, dim):
-        ctx.coll, ctx.axis, ctx.dim = coll, axis, dim
-        return coll.all_gather(w, axis, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return int8_psum_scatter(g, ctx.coll, ctx.axis, ctx.dim), None, \
-            None, None
-
-
-class QuantizedStage1Gather(torch.autograd.Function):
-    """qwZ: stage-1 all-gather in int8 blocks and fp32 scales. The
-    gradient reduce-scatter is exact unless ``compress_bwd`` also sends
-    it through qgZ."""
-
-    @staticmethod
-    def forward(ctx, w, coll, axis, dim, compress_bwd):
-        ctx.coll, ctx.axis, ctx.dim = coll, axis, dim
-        ctx.compress_bwd = compress_bwd
-        return quantized_gather(w, coll, axis, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.compress_bwd:
-            gw = int8_psum_scatter(g, ctx.coll, ctx.axis, ctx.dim)
-        else:
-            gw = ctx.coll.reduce_scatter(g, ctx.axis, ctx.dim)
-        return gw, None, None, None, None
+    return QuantizedPending(w, coll, axis, dim).wait()

@@ -42,6 +42,10 @@ class ParamDef:
     # plan rule in core/strategy.residency gates further)
     fusable: bool = False
     label: str = ""               # dotted path, filled by label_tree
+    # 'inter_only': sharded over the slow 'pod' axis only, resident
+    # within the pod (the JAX package's weight-stationary scope for MoE
+    # experts); its optimizer state still shards over every fsdp axis
+    fsdp_scope: str = "full"      # full | inter_only
     # the leaf's strategy group (a registered mode name), set by
     # core/strategy.resolve_strategies; None: SystemConfig.mode
     strategy: Optional[str] = None
@@ -50,6 +54,9 @@ class ParamDef:
         if len(self.shape) != len(self.dims):
             raise ValueError(f"shape {self.shape} and dims {self.dims} "
                              "differ in rank")
+        if self.fsdp_scope not in ("full", "inter_only"):
+            raise ValueError(f"unknown fsdp_scope {self.fsdp_scope!r}; "
+                             "known: full, inter_only")
 
     @property
     def fsdp_dim(self) -> Optional[int]:

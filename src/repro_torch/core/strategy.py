@@ -14,13 +14,18 @@ A ``ShardingStrategy`` owns every decision a mode makes about a leaf:
                    (``SystemConfig.fused_matmul``), leaf by leaf
   opt layout       the optimizer state's sharding
 
-The built-ins are the paper's comparison set:
+The built-ins are the paper's comparison set and one related-work
+extension:
 
   zero3   full ('data', 'pod') sharding, regather fwd + bwd   (baseline)
   zeropp  full sharding, stage-1 result cached on the device  (ZeRO++)
   fcdp    full sharding, stage-1 result cached in pinned host
           memory                                              (the paper)
   mics    pod-replicated ('data',) sharding; no stage 1       (MiCS)
+  hier    mics's parameters, the optimizer state and master
+          weights sharded over ('data', 'pod'): the gradient is
+          reduce-scattered over 'pod' before the update and the
+          updated shard gathered back once a step        (Xu et al.)
 
 Plans are derived from the mesh's axis names and sizes
 (``launch.mesh.MeshShape``), never from a process group. Frozen leaves
@@ -34,8 +39,19 @@ Resolution is per leaf (``resolve_strategies``): a leaf's
 mode_overrides`` rule whose glob matches its dotted path, else
 ``SystemConfig.mode``. A uniform assignment gives back the plain
 singleton; a mixed one a ``CompositeStrategy`` that hands every
-per-leaf decision to the leaf's own strategy. hier, ``fsdp_scope`` and
-the prefetch/async/cross-step streams come later.
+per-leaf decision to the leaf's own strategy.
+
+A leaf whose ``ParamDef.fsdp_scope`` is 'inter_only' shards over 'pod'
+only; its optimizer state is widened to every fsdp axis as hier's is.
+A widened leaf's gradient is summed over its widening axes once, by
+the engine's reduce-scatter (``GatherPlan.sync_axes`` leaves them out).
+The JAX package sums it twice there (its varying-axes typing inserts
+the sum, then the reduce-scatter sums again): hier's grad norm is
+twice zero3's. The port does not copy that.
+
+Stream capability: ``max_prefetch_depth`` caps the stage-1 prefetch ring
+(``core/schedule.py``); it is 0 where stage 1 is structurally empty
+(mics, hier). The async and cross-step streams come later.
 """
 from __future__ import annotations
 
@@ -69,6 +85,11 @@ class GatherPlan:
     decides (``models/sublayers.model_summed``)."""
     residency: ParamResidency
     sync_axes: Tuple[str, ...] = ()
+
+    @property
+    def prefetchable(self) -> bool:
+        """True when a stage 1 exists to issue a layer ahead."""
+        return self.residency.occupies_ring_slot
 
     @property
     def fsdp_dim(self) -> Optional[int]:
@@ -132,6 +153,14 @@ class ShardingStrategy:
     # collective matmul under SystemConfig.fused_matmul != 'none'; every
     # built-in opts in, a subclass may decline
     supports_fused_matmul: bool = True
+    # how deep the stage-1 prefetch ring may run (0: stage 1 is
+    # structurally empty, as for mics and hier)
+    max_prefetch_depth: int = 8
+
+    @property
+    def supports_prefetch(self) -> bool:
+        """Boolean view of ``max_prefetch_depth``."""
+        return self.max_prefetch_depth > 0
 
     # -- storage layout -----------------------------------------------------
     def storage_fsdp_axes(self, mesh, frozen: bool) -> Tuple[str, ...]:
@@ -146,7 +175,10 @@ class ShardingStrategy:
         return fsdp_axes(mesh)
 
     def effective_fsdp_axes(self, pdef, mesh) -> Tuple[str, ...]:
-        return self.storage_fsdp_axes(mesh, pdef.frozen)
+        axes = self.storage_fsdp_axes(mesh, pdef.frozen)
+        if pdef.fsdp_scope == "inter_only":
+            axes = tuple(a for a in axes if a == INTER_AXIS)
+        return axes
 
     def _spec_with_axes(self, pdef, mesh, axes: Tuple[str, ...],
                         min_shard_size: int = 0) -> Tuple:
@@ -166,9 +198,15 @@ class ShardingStrategy:
 
     def opt_spec(self, pdef, mesh, min_shard_size: int = 0) -> Tuple:
         """Layout of the optimizer state and master weights: the leaf's
-        own storage layout (no strategy ported so far shards its
-        optimizer state wider than its parameters)."""
-        return self.storage_spec(pdef, mesh, min_shard_size)
+        layout with its fsdp scope widened to 'full'. Storage axes come
+        first in the tiling order: the engine's widening reduce-scatter
+        subdivides each storage block over the widening axes, so the
+        storage-major spec assigns exactly that slice to the rank."""
+        full = dataclasses.replace(pdef, fsdp_scope="full")
+        storage = self.effective_fsdp_axes(pdef, mesh)
+        target = self.effective_fsdp_axes(full, mesh)
+        widened = storage + tuple(a for a in target if a not in storage)
+        return self._spec_with_axes(full, mesh, widened, min_shard_size)
 
     # -- residency / gather schedule ----------------------------------------
     def residency(self, pdef, mesh, min_shard_size: int = 0,
@@ -242,15 +280,19 @@ class ShardingStrategy:
         res = self.residency(pdef, mesh, min_shard_size, compress_bwd,
                              param_compress, fused_matmul)
         used = spec_axes(self.storage_spec(pdef, mesh, min_shard_size))
-        sync = tuple(a for a in mesh.axis_names
-                     if a not in used and a != "model" and mesh.shape[a] > 1)
-        if res.fused == "both" and sync:
+        replicated = tuple(a for a in mesh.axis_names
+                           if a not in used and a != "model"
+                           and mesh.shape[a] > 1)
+        if res.fused == "both" and replicated:
             raise ValueError(
                 f"{self.name}: fused_matmul='both' on a leaf replicated over "
-                f"{sync} is not supported (the JAX package's fused_matmul "
-                "custom VJP fails on it: varying manual axes do not match); "
-                "use 'ag_matmul'")
-        return GatherPlan(res, sync)
+                f"{replicated} is not supported (the JAX package's "
+                "fused_matmul custom VJP fails on it: varying manual axes "
+                "do not match); use 'ag_matmul'")
+        # the widening axes' sum is the engine's reduce-scatter
+        widened = spec_axes(self.opt_spec(pdef, mesh, min_shard_size))
+        return GatherPlan(res, tuple(a for a in replicated
+                                     if a not in widened))
 
     def plan_tree(self, defs, mesh, min_shard_size: int = 0,
                   compress_bwd: bool = False, param_compress: bool = False,
@@ -259,6 +301,47 @@ class ShardingStrategy:
         return tree_map(
             lambda d: self.gather_plan(d, mesh, min_shard_size, compress_bwd,
                                        param_compress, fused_matmul), defs)
+
+    # -- the stage-1 prefetch ring --------------------------------------------
+    def prefetch_depth(self, sys, mesh_like) -> int:
+        """The ring depth the scheduler may run (``mesh_like``: anything
+        with ``axis_names``): 0 without a 'pod' axis, else the
+        configured depth capped at ``max_prefetch_depth``."""
+        if INTER_AXIS not in tuple(mesh_like.axis_names):
+            return 0
+        return min(sys.prefetch_depth, self.max_prefetch_depth)
+
+    def prefetch_active(self, sys, mesh_like) -> bool:
+        return self.prefetch_depth(sys, mesh_like) > 0
+
+    # -- byte accounting --------------------------------------------------------
+    def cached_bytes_for(self, pdef, plan: GatherPlan, mesh) -> float:
+        """Per-rank bytes of this leaf's cached tier, in the def's dtype
+        (0 when it is not gathered): the stage-1 shard (the storage
+        shard times the stage-1 degree) with cache_after 1, the gathered
+        'model'-local weight with cache_after 2."""
+        if not plan.is_gathered:
+            return 0.0
+        nbytes = pdef.size() * pdef.dtype.itemsize
+        if plan.cache_after == 1:
+            shard = nbytes / self._storage_degree(pdef, mesh)
+            inter = math.prod(mesh.size(a) for a in plan.inter_axes) or 1
+            return shard * inter
+        tp = mesh.size("model") if pdef.tp_dim is not None else 1
+        return nbytes / tp
+
+    @staticmethod
+    def _storage_degree(pdef, mesh) -> int:
+        """Every fsdp axis's size (whatever the leaf's scope) times the
+        'model' size for a leaf with a tp dim, as the JAX package
+        counts it."""
+        deg = 1
+        if pdef.fsdp_dim is not None:
+            for a in fsdp_axes(mesh):
+                deg *= mesh.size(a)
+        if pdef.tp_dim is not None:
+            deg *= mesh.size("model")
+        return deg
 
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name!r}>"
@@ -295,9 +378,31 @@ class MiCS(ShardingStrategy):
     name = "mics"
     cache_placement = "regather"
     supports_quantized_gather = False
+    max_prefetch_depth = 0
 
     def storage_fsdp_axes(self, mesh, frozen: bool) -> Tuple[str, ...]:
         return intra_fsdp_axes(mesh)
+
+
+class Hierarchical(MiCS):
+    """Hierarchical partitioning: MiCS's pod-replicated parameters and
+    gathers, the optimizer state and master weights sharded over every
+    fsdp axis. A step pays one 'pod' reduce-scatter of the gradient and
+    one 'pod' all-gather of the updated shard, in place of MiCS's 'pod'
+    all-reduce."""
+    name = "hier"
+
+    def opt_spec(self, pdef, mesh, min_shard_size: int = 0) -> Tuple:
+        full = dataclasses.replace(pdef, fsdp_scope="full")
+        storage = self.effective_fsdp_axes(full, mesh)
+        widened = storage + tuple(a for a in fsdp_axes(mesh)
+                                  if a not in storage)
+        spec = self._spec_with_axes(full, mesh, widened, min_shard_size)
+        if pdef.fsdp_dim is not None and spec[pdef.fsdp_dim] is None:
+            # the full-width degree does not divide: the parameter's
+            # layout (the state never shards narrower than storage)
+            return super().opt_spec(pdef, mesh, min_shard_size)
+        return spec
 
 
 class CompositeStrategy(ShardingStrategy):
@@ -354,6 +459,17 @@ class CompositeStrategy(ShardingStrategy):
                                            compress_bwd, param_compress,
                                            fused_matmul)
 
+    def cached_bytes_for(self, pdef, plan: GatherPlan, mesh) -> float:
+        return self._for(pdef).cached_bytes_for(pdef, plan, mesh)
+
+    @property
+    def max_prefetch_depth(self) -> int:
+        """The least cap of the groups that stream at all: a group with
+        no stage 1 neither uses nor vetoes the ring."""
+        caps = [s.max_prefetch_depth for s in self.groups.values()
+                if s.max_prefetch_depth > 0]
+        return min(caps) if caps else 0
+
     @property
     def cache_placement(self) -> str:
         # whole-model view only; the placement travels per plan
@@ -394,7 +510,7 @@ def register_strategy(cls: Type[ShardingStrategy]) -> Type[ShardingStrategy]:
     return cls
 
 
-for _cls in (Zero3, ZeroPP, FCDP, MiCS):
+for _cls in (Zero3, ZeroPP, FCDP, MiCS, Hierarchical):
     register_strategy(_cls)
 
 

@@ -1,5 +1,5 @@
-"""Training launcher: the sequential FCDP train step on a (pod, data,
-model) mesh, tensor-parallel over 'model', one process per rank (the
+"""Training launcher: the FCDP train step on a (pod, data, model)
+mesh, tensor-parallel over 'model', one process per rank (the
 JAX package's ``launch/train.py`` without checkpointing, failure
 injection and the heartbeat, which come later).
 
@@ -29,7 +29,7 @@ import time
 import traceback
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -44,6 +44,7 @@ from repro_torch.core.engine.train import (act_int8_launch_plan,
                                            matmul_chunk_launch_plan)
 from repro_torch.core.partition import tree_items
 from repro_torch.core.peft import unfreeze_all
+from repro_torch.core.schedule import prefetch_buffer_bytes
 from repro_torch.core.strategy import strategy_names
 from repro_torch.data.pipeline import DataConfig, ShardedLoader, SyntheticPackedLM
 from repro_torch.kernels import ops
@@ -62,8 +63,11 @@ class ModeRun:
     of rank ``lora_rank`` scaled by ``lora_alpha`` / rank; with
     ``all_trainable`` every leaf of that tree trains, the reference
     arm), the transport of the tensor-parallel activation all-reduces
-    (``act_psum``: "bf16" | "int8"), the microbatch count, and its
-    steps."""
+    (``act_psum``: "bf16" | "int8"), the depth of the stage-1 prefetch
+    ring (``prefetch_depth``), the microbatch count, and its steps.
+    ``defs_fn`` transforms the classified def tree (``StepBundle``'s
+    hook, as the JAX bundle's; a module-level function, since the job
+    is pickled to the ranks)."""
     mode: str
     param_compress: str = "none"
     grad_compress: str = "none"
@@ -80,6 +84,8 @@ class ModeRun:
     mode_overrides: tuple = ()
     all_trainable: bool = False
     act_psum: str = "bf16"
+    prefetch_depth: int = 0
+    defs_fn: Optional[Callable] = None
 
 
 @dataclass
@@ -114,11 +120,13 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
                                lora_rank=mr.lora_rank,
                                lora_alpha=mr.lora_alpha,
                                mode_overrides=mr.mode_overrides,
-                               act_psum=mr.act_psum)
+                               act_psum=mr.act_psum,
+                               prefetch_depth=mr.prefetch_depth)
     run = dataclasses.replace(job.run, system=sysc,
                               microbatch=mr.microbatch)
     bundle = StepBundle(run, device=device, mesh=mesh,
-                        defs_fn=unfreeze_all if mr.all_trainable else None)
+                        defs_fn=unfreeze_all if mr.all_trainable
+                        else mr.defs_fn)
     if job.params is not None:
         from repro_torch.convert import shards_from_jax
         params = shards_from_jax(job.params, bundle)
@@ -127,8 +135,9 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
     train, frozen = bundle.split(params)
     # host copies: the check must not add to the peak device memory
     frozen0 = [t.detach().to("cpu", copy=True) for t in frozen]
-    opt = init_opt_state(train, sysc)
+    opt = init_opt_state(bundle.opt_shards(train), sysc)
     step = bundle.make_train_step(coll)
+    sched = step.gather.scheduler
     loader = ShardedLoader(SyntheticPackedLM(run.model, run.shape,
                                              DataConfig(job.seed)), bundle)
     if device.type == "cuda":
@@ -143,6 +152,12 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
            "act_int8_plan": act_int8_launch_plan(bundle),
            "mm_launches": [], "mm_calls": [],
            "mm_plan": matmul_chunk_launch_plan(bundle),
+           "live_depth": [], "ring_bytes": [],
+           "prefetch_buffer_bytes": prefetch_buffer_bytes(
+               bundle.strategy, bundle.def_leaves, bundle.plan_leaves,
+               bundle.mesh_shape, min(sched.depth, bundle.model.n_groups)),
+           "widened": {bundle.paths[bundle.train_idx[j]]: list(axes)
+                       for j, (_, axes) in bundle.widen.items()},
            "params_total": sum(d.size() for d in bundle.def_leaves),
            "params_trainable": sum(bundle.def_leaves[i].size()
                                    for i in bundle.train_idx)}
@@ -170,6 +185,8 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
                              for k, f in ops.INT8_KERNELS.items()})
         out["mm_launches"].append(mm.launches - mm_launches)
         out["mm_calls"].append(mm.calls - mm_calls)
+        out["live_depth"].append(sched.live_depth)
+        out["ring_bytes"].append(sched.ring_bytes)
         out["cached"].append(dict(step.gather.cached))
         out["cache_places"].append({k: sorted(v) for k, v in
                                     step.gather.cache_places.items()})
@@ -310,7 +327,8 @@ def build_run(args) -> RunConfig:
                         min_shard_size=8 if args.smoke else 2048,
                         peft=args.peft, lora_rank=args.lora_rank,
                         lora_alpha=args.lora_alpha,
-                        mode_overrides=tuple(args.mode_override), **lora)
+                        mode_overrides=tuple(args.mode_override),
+                        prefetch_depth=args.prefetch_depth, **lora)
     return RunConfig(model=cfg, shape=cell, system=sysc,
                      optimizer=OptimizerConfig(
                          lr=args.lr, total_steps=args.steps,
@@ -356,6 +374,11 @@ def parser() -> argparse.ArgumentParser:
                     choices=["none", "ag_matmul", "both"],
                     help="consume the output projections' stage-2 gather in "
                          "the gather-fused collective matmul")
+    ap.add_argument("--prefetch-depth", type=int, default=0, metavar="N",
+                    help="stage-1 prefetch ring depth: layer i+N's 'pod' "
+                         "gather is issued before layer i's compute (0: "
+                         "the sequential schedule; inert under mics and "
+                         "hier and without a pod axis)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -380,7 +403,8 @@ def main(argv=None):
                                  fused_matmul=args.fused_matmul,
                                  peft=sysc.peft, lora_rank=sysc.lora_rank,
                                  lora_alpha=sysc.lora_alpha,
-                                 mode_overrides=sysc.mode_overrides)],
+                                 mode_overrides=sysc.mode_overrides,
+                                 prefetch_depth=sysc.prefetch_depth)],
                    device=args.device, seed=args.seed)
     t0 = time.perf_counter()
     res = run_job(job, rank, world, local_world, "env://")
@@ -399,6 +423,12 @@ def main(argv=None):
             "fused_matmul": args.fused_matmul,
             "matmul_chunk_calls_per_step": r["mm_calls"][-1],
             "peft": args.peft, "mode_overrides": sysc.mode_overrides,
+            "prefetch_depth": args.prefetch_depth,
+            "live_depth": r["live_depth"][-1],
+            "ring_bytes": r["ring_bytes"][-1],
+            "prefetch_buffer_bytes": r["prefetch_buffer_bytes"],
+            "widened": r["widened"],
+            "cache_places": r["cache_places"][-1],
             "trainable_frac": r["params_trainable"] / r["params_total"],
             "wall_s": time.perf_counter() - t0}))
     return res

@@ -5,8 +5,8 @@ way, and the stack applied as a Python loop over the leading ``[L,
 with whole weights, so its loop indexes the stacked leaves directly.
 Training (``apply_stack_train``) holds each rank's shards: every layer
 gathers its weights through the plans inside a ``ParamGather.layer()``
-scope, the sequential schedule of the JAX package's ``GatherScheduler``
-at depth 0."""
+scope, under the gather's schedule (``core/schedule.GatherScheduler``:
+the sequential loop at depth 0, the stage-1 prefetch ring at depth k)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partition import ParamDef, tree_map
+from repro_torch.core.schedule import _in_ring
 from repro_torch.models import sublayers as sl
 from repro_torch.models.common import SERIAL, TPContext
 
@@ -202,24 +203,39 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
     too."""
     if not x.requires_grad:
         x = x.detach().requires_grad_(True)
-    for layer in range(n_groups):
+    leaves = [(f"pos{i}", kind) for i, kinds in enumerate(plan)
+              for kind in kinds]
+    for key, kind in leaves:
+        if kind not in ("attn", "mlp"):
+            raise ValueError(f"sublayer kind {kind!r} is not ported to "
+                             "training yet")
+
+    def issue(layer):
+        slot = {}
+        for key, kind in leaves:
+            plans = stacked_plans[key][kind]
+            for n, t in stacked_params[key][kind].items():
+                if _in_ring(plans[n]):
+                    slot[key, kind, n] = gather.issue_stage1(t[layer],
+                                                             plans[n])
+        return slot
+
+    def compute(layer, slot):
+        nonlocal x
         with gather.layer():
-            for i, kinds in enumerate(plan):
-                key = f"pos{i}"
-                for kind in kinds:
-                    shards = stacked_params[key][kind]
-                    plans = stacked_plans[key][kind]
-                    defs = stacked_defs[key][kind]
-                    p = {n: gather(t[layer], plans[n],
-                                   torch.float32 if n == "norm" else None,
-                                   sl.model_summed(defs, n, tpc))
-                         for n, t in shards.items()}
-                    if kind == "attn":
-                        x = sl.attn_train(cfg, p, x, positions, lora_scale,
-                                          tpc)
-                    elif kind == "mlp":
-                        x = sl.mlp_apply(cfg, p, x, tpc)
-                    else:
-                        raise ValueError(f"sublayer kind {kind!r} is not "
-                                         "ported to training yet")
+            for key, kind in leaves:
+                shards = stacked_params[key][kind]
+                plans = stacked_plans[key][kind]
+                defs = stacked_defs[key][kind]
+                p = {n: gather(t[layer], plans[n],
+                               torch.float32 if n == "norm" else None,
+                               sl.model_summed(defs, n, tpc),
+                               slot.get((key, kind, n)) if slot else None)
+                     for n, t in shards.items()}
+                if kind == "attn":
+                    x = sl.attn_train(cfg, p, x, positions, lora_scale, tpc)
+                else:
+                    x = sl.mlp_apply(cfg, p, x, tpc)
+
+    gather.scheduler.run(n_groups, issue, compute)
     return x

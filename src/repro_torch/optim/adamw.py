@@ -1,11 +1,13 @@
 """AdamW over ZeRO shards with fp32 master weights, as the JAX package's
 ``optim/adamw.py`` computes it.
 
-Optimizer state leaves have the layout of their parameter's shard, so
-the update is local: each rank updates only its shard. The port updates
-the parameter, the master copy and the moments in place (the JAX step
-donates and returns new arrays); the arithmetic and its order are the
-same.
+Optimizer state leaves have the layout of the optimizer spec, the
+parameter's shard or, for a widened leaf (hier, an 'inter_only' leaf),
+its block of that shard (``StepBundle.opt_shards``), so the update is
+local: each rank updates only its block. The port updates the master
+copy and the moments in place and writes the new parameter block into
+the tensor it is given (the JAX step donates and returns new arrays);
+the arithmetic and its order are the same.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ def lr_at_step(cfg: OptimizerConfig, step: int) -> float:
 
 
 def init_opt_state(train_params: List[torch.Tensor], sys: SystemConfig):
-    """m, v (opt dtype) and master copies (master dtype), each with its
-    parameter's shard shape and device; step 0."""
+    """m, v (opt dtype) and master copies (master dtype), each with the
+    shape and device of its entry of ``train_params`` (the optimizer
+    layout's blocks); step 0."""
     od, md = DTYPES[sys.opt_state_dtype], DTYPES[sys.master_dtype]
     return {
         "m": [torch.zeros(p.shape, dtype=od, device=p.device)
@@ -61,8 +64,9 @@ def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor],
                  opt_state: Dict, opt_cfg: OptimizerConfig,
                  sys: SystemConfig,
                  wd_mask: Optional[Sequence[bool]] = None) -> None:
-    """One AdamW step on every shard, in place: moments and master in
-    fp32 arithmetic, the parameter is the master cast to its dtype."""
+    """One AdamW step on every block, in place: moments and master in
+    fp32 arithmetic; ``params[i]`` receives the master cast to its
+    dtype."""
     step = opt_state["step"] + 1
     lr = lr_at_step(opt_cfg, step)
     b1, b2, eps = opt_cfg.b1, opt_cfg.b2, opt_cfg.eps

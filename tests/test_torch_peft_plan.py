@@ -341,7 +341,7 @@ def test_lora_rule_without_peft_raises_at_construction():
 
 def test_unknown_tag_raises():
     defs = label_tree({"a": ParamDef((8, 8), ("fsdp", None),
-                                     strategy="hier")})
+                                     strategy="no_such_mode")})
     with pytest.raises(ValueError, match="unknown system mode"):
         resolve_strategies(SystemConfig(), defs)
 

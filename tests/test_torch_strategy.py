@@ -1,12 +1,17 @@
 """The port's decision layer against the JAX package's: for every leaf
 of ``tests/test_system.py``'s ``DENSE`` model on the (pod 2, data 2,
-model 1) mesh, under every ported mode, with and without the int8
-stage-1 transports, the port's ``ParamResidency`` equals the JAX one
-field for field, its storage and optimizer specs equal the JAX
-``PartitionSpec``s entry for entry, and the qwZ / qgZ gates agree; the
-gather-fused collective matmul's per-leaf gate (``fused_matmul``) agrees
-on the same leaves and on ``tests/test_fused_matmul.py``'s eligible and
-declined cases. Exact: these are decisions, not numbers."""
+model 1) mesh, under every ported mode (hier included), with and
+without the int8 stage-1 transports, the port's ``ParamResidency``
+equals the JAX one field for field, its storage and optimizer specs
+equal the JAX ``PartitionSpec``s entry for entry, and the qwZ / qgZ
+gates agree; the gather-fused collective matmul's per-leaf gate
+(``fused_matmul``) agrees on the same leaves and on
+``tests/test_fused_matmul.py``'s eligible and declined cases. hier's
+and 'inter_only' leaves' decisions agree on (2, 2, 2) and (4, 2) too,
+the prefetch gates agree with ``tests/test_schedule.py`` and
+``tests/test_strategy.py``, and the ring's analytic bytes
+(``prefetch_buffer_bytes``, per group) equal the JAX function's.
+Exact: these are decisions, not numbers."""
 import dataclasses
 import itertools
 import math
@@ -27,13 +32,13 @@ from repro_torch.configs.base import (ModelConfig, RunConfig, ShapeCell,
 from repro_torch.core.engine import StepBundle
 from repro_torch.core.partition import ParamDef, tree_items
 from repro_torch.core.strategy import (QUANT_MIN_SHARD_ELEMS, get_strategy,
-                                       strategy_names)
+                                       spec_axes, strategy_names)
 from repro_torch.launch.mesh import MeshShape, train_mesh_shape
 
 DENSE = dict(name="t-dense", family="dense", num_layers=2, d_model=64,
              num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
              qkv_bias=True)
-MODES = ("zero3", "zeropp", "fcdp", "mics")
+MODES = ("zero3", "zeropp", "fcdp", "mics", "hier")
 MESH = MeshShape(("pod", "data", "model"), (2, 2, 1))
 COMPRESS = list(itertools.product((False, True), repeat=2))
 
@@ -151,12 +156,17 @@ def test_registry_and_config_validation():
     with pytest.raises(ValueError, match="unknown system mode"):
         StepBundle(RunConfig(model=ModelConfig(**DENSE),
                              shape=ShapeCell("t", "train", 64, 8),
-                             system=SystemConfig(mode="hier")),
+                             system=SystemConfig(mode="no_such_mode")),
                    device="cpu", mesh=MESH)
     with pytest.raises(ValueError, match="param_compress"):
         SystemConfig(param_compress="int4")
     with pytest.raises(ValueError, match="grad_compress"):
         SystemConfig(grad_compress="int4")
+    for bad in (-1, 1.5, True, None):
+        with pytest.raises(ValueError, match="prefetch_depth"):
+            SystemConfig(prefetch_depth=bad)
+    with pytest.raises(ValueError, match="fsdp_scope"):
+        ParamDef((8, 8), ("fsdp", None), fsdp_scope="intra_only")
 
 
 def test_mesh_shapes():
@@ -310,3 +320,175 @@ def test_fused_config_validation():
         assert SystemConfig(fused_matmul=v).fused_matmul == v
     with pytest.raises(ValueError, match="fused_matmul"):
         SystemConfig(fused_matmul="everything")
+
+
+# -- hier, 'inter_only' and the prefetch ring ------------------------------------
+
+LAYOUTS = {"mesh3": (MESH3, ((2, 2, 2), ("pod", "data", "model"))),
+           "mesh2": (MESH2, ((4, 2), ("data", "model")))}
+
+
+def _dense_defs(jmesh, mesh):
+    """Both packages' labelled DENSE defs on one mesh."""
+    jb = JStepBundle(JRunConfig(model=JModelConfig(**DENSE),
+                                shape=JShapeCell("t", "train", 64, 8),
+                                system=JSystemConfig(min_shard_size=8)),
+                     jmesh)
+    pb = StepBundle(RunConfig(model=ModelConfig(**DENSE),
+                              shape=ShapeCell("t", "train", 64, 8),
+                              system=SystemConfig(min_shard_size=8)),
+                    device="cpu", mesh=mesh)
+    return {d.label: d for d in jb.def_leaves}, dict(tree_items(pb.defs))
+
+
+@pytest.mark.parametrize("mesh_name", sorted(LAYOUTS))
+@pytest.mark.parametrize("mode,scope", [("hier", "full"),
+                                        ("hier", "inter_only"),
+                                        ("fcdp", "inter_only"),
+                                        ("zero3", "inter_only"),
+                                        ("mics", "inter_only")])
+def test_hier_and_inter_only_equal_jax(mesh_name, mode, scope):
+    """Per leaf: storage and optimizer specs, residency and the gather
+    plan's stages equal the JAX package's; a widened leaf's gradient sum
+    leaves out the widening axes (``sync_axes``), the rest of its
+    replicated axes stays."""
+    mesh, jlayout = LAYOUTS[mesh_name]
+    jm = _jax_mesh(*jlayout)
+    jdefs, pdefs = _dense_defs(jm, mesh)
+    js, ps = j_get_strategy(mode), get_strategy(mode)
+    n_widened = 0
+    for path, d in pdefs.items():
+        d = dataclasses.replace(d, fsdp_scope=scope)
+        jd = dataclasses.replace(jdefs[path], fsdp_scope=scope)
+        storage = ps.storage_spec(d, mesh, 8)
+        opt = ps.opt_spec(d, mesh, 8)
+        assert storage == tuple(js.storage_spec(jd, jm, 8)), (path, "storage")
+        assert opt == tuple(js.opt_spec(jd, jm, 8)), (path, "opt")
+        want = js.gather_plan(jd, jm, 8)
+        got = ps.gather_plan(d, mesh, 8)
+        for f in dataclasses.fields(got.residency):
+            assert getattr(got.residency, f.name) == getattr(
+                want.residency, f.name), (path, f.name)
+        assert (got.fsdp_dim, got.inter_axes, got.intra_axes,
+                got.cache_after) == (want.fsdp_dim, tuple(want.inter_axes),
+                                     tuple(want.intra_axes),
+                                     want.cache_after), path
+        replicated = {a for a in mesh.axis_names if a != "model"
+                      and mesh.size(a) > 1} - spec_axes(storage)
+        widening = spec_axes(opt) - spec_axes(storage)
+        n_widened += bool(widening)
+        assert set(got.sync_axes) == replicated - widening, path
+    # hier widens its sharded leaves over 'pod', 'inter_only' ones over
+    # the intra axes: only hier's full scope without 'pod' has nothing
+    assert (n_widened > 0) == ("pod" in mesh.axis_names
+                               or scope == "inter_only")
+
+
+def test_hier_opt_spec_falls_back_when_the_full_width_does_not_divide():
+    """An fsdp dim that splits over 'data' but not over ('data', 'pod')
+    keeps the parameter's layout, as in the JAX package."""
+    mesh = MeshShape(("pod", "data", "model"), (2, 3, 1))
+    jm = _jax_mesh((2, 3, 1), ("pod", "data", "model"))
+    d, jd = ParamDef((9, 64), ("fsdp", None)), JParamDef((9, 64),
+                                                         ("fsdp", None))
+    got = get_strategy("hier").opt_spec(d, mesh, 0)
+    assert got == tuple(j_get_strategy("hier").opt_spec(jd, jm, 0))
+    assert got == get_strategy("hier").storage_spec(d, mesh, 0) \
+        == ("data", None)
+    wide = ParamDef((12, 64), ("fsdp", None))
+    assert get_strategy("hier").opt_spec(wide, mesh, 0) == (("data", "pod"),
+                                                            None)
+
+
+def test_mics_and_hier_both_raise_at_plan_time():
+    """hier stores pod-replicated as mics does, so fused 'both' is
+    refused there too, widening or not."""
+    for mode in ("mics", "hier"):
+        run = RunConfig(model=ModelConfig(**DENSE),
+                        shape=ShapeCell("t", "train", 64, 8),
+                        system=SystemConfig(mode=mode, min_shard_size=8,
+                                            fused_matmul="both"))
+        with pytest.raises(ValueError, match="varying manual axes"):
+            StepBundle(run, device="cpu", mesh=MESH)
+
+
+class _M3:
+    axis_names = ("pod", "data", "model")
+
+
+class _M2:
+    axis_names = ("data", "model")
+
+
+def test_strategy_stream_capabilities():
+    """tests/test_schedule.py's: the depth clamps to the capability and
+    needs a pod axis; mics and hier cannot stream."""
+    deep = SystemConfig(prefetch_depth=64)
+    for mode in ("zero3", "zeropp", "fcdp"):
+        s, js = get_strategy(mode), j_get_strategy(mode)
+        assert s.supports_prefetch and s.max_prefetch_depth == \
+            js.max_prefetch_depth == 8
+        assert s.prefetch_depth(deep, _M3()) == s.max_prefetch_depth
+        assert s.prefetch_depth(deep, _M2()) == 0
+    for mode in ("mics", "hier"):
+        s = get_strategy(mode)
+        assert not s.supports_prefetch and s.max_prefetch_depth == 0
+        assert s.prefetch_depth(deep, _M3()) == 0
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 9])
+def test_prefetch_gating(depth):
+    """tests/test_strategy.py's: prefetch needs a pod axis, a willing
+    strategy and the config's depth; every answer equals the JAX one."""
+    sysc, jsys = SystemConfig(prefetch_depth=depth), JSystemConfig(
+        prefetch_depth=depth)
+    for mode in MODES:
+        s, js = get_strategy(mode), j_get_strategy(mode)
+        for m in (_M3(), _M2()):
+            assert s.prefetch_depth(sysc, m) == js.prefetch_depth(jsys, m)
+            assert s.prefetch_active(sysc, m) == js.prefetch_active(jsys, m)
+    assert get_strategy("fcdp").prefetch_active(sysc, _M3()) == (depth > 0)
+    assert not get_strategy("mics").prefetch_active(sysc, _M3())
+
+
+def _ring_bundles(overrides):
+    jm = _jax_mesh((2, 2, 2), ("pod", "data", "model"))
+    jb = JStepBundle(JRunConfig(
+        model=JModelConfig(**DENSE), shape=JShapeCell("t", "train", 64, 8),
+        system=JSystemConfig(min_shard_size=8, mode_overrides=overrides)),
+        jm)
+    pb = StepBundle(RunConfig(
+        model=ModelConfig(**DENSE), shape=ShapeCell("t", "train", 64, 8),
+        system=SystemConfig(min_shard_size=8, mode_overrides=overrides)),
+        device="cpu", mesh=MESH3)
+    return jb, pb
+
+
+@pytest.mark.parametrize("overrides", [(), (("blocks.*.mlp.*", "hier"),
+                                            ("embed", "hier"))],
+                         ids=["dense", "fcdp_hier"])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetch_buffer_bytes_equal_jax(overrides, depth):
+    """The ring's analytic bytes per group and in total equal the JAX
+    package's on DENSE (fcdp) and on a fcdp/hier composite, whose hier
+    leaves hold no slot; the groups sum to the total."""
+    from repro.core.schedule import prefetch_buffer_bytes as j_total
+    from repro.core.schedule import prefetch_buffer_bytes_by_group as j_by
+    from repro_torch.core.schedule import (prefetch_buffer_bytes,
+                                           prefetch_buffer_bytes_by_group)
+    jb, pb = _ring_bundles(overrides)
+    want = j_by(jb.strategy, jb.def_leaves, jb.plan_leaves, jb.mi, depth)
+    got = prefetch_buffer_bytes_by_group(pb.strategy, pb.def_leaves,
+                                         pb.plan_leaves, MESH3, depth)
+    assert got == want and set(got) == {"fcdp"}
+    total = prefetch_buffer_bytes(pb.strategy, pb.def_leaves,
+                                  pb.plan_leaves, MESH3, depth)
+    assert total == sum(got.values()) == j_total(
+        jb.strategy, jb.def_leaves, jb.plan_leaves, jb.mi, depth)
+    assert pb.strategy.max_prefetch_depth == \
+        jb.strategy.max_prefetch_depth == 8
+    if overrides:
+        assert type(pb.strategy).__name__ == "CompositeStrategy"
+        assert total < prefetch_buffer_bytes(*(lambda b: (
+            b.strategy, b.def_leaves, b.plan_leaves, MESH3, depth))(
+                _ring_bundles(())[1]))
