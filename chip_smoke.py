@@ -137,10 +137,33 @@ non-zero:
                 and the hier step on the card and on the CPU from the
                 same weights: loss and grad norm within tolerance, the
                 same bytes and ring.
+ 17. stream_train -- the scheduler's streams 2 and 3: qwen2.5-3b at
+                full width and depth 2, seq 512, global batch 8,
+                microbatch 2, on phase 5's 4 ranks: a fcdp sequential
+                step, fcdp async and cross-step over the same 2 batches,
+                one async step of zero3, fcdp with int8 qwZ/qgZ and with
+                ag_matmul, and the cross-step composite (fcdp, the
+                embedding hier) over 2 batches. Checks fcdp async's
+                bytes equal to the sequential ones (op, axis) by (op,
+                axis), zero3 async's pod all-gather equal to fcdp's,
+                the async losses and grad norms equal to the sequential
+                and to fcdp's, int8 within INT8_DRIFT, the cross-step
+                losses, shifted grad norms and final shards (a SHA-256 a
+                rank) equal to fcdp async's bit for bit, a piped call's
+                bytes equal to a fused step's, the carry's bytes equal to
+                ``cross_step_buffer_bytes``, the int8 and chunk-matmul
+                launches equal to the plans; reports bytes, buffers,
+                step times, and each call's peak device memory by part
+                (the microbatch loop, the optimizer epilogue).
+ 18. stream_parity -- tests/test_torch_streams.py's DENSE model at
+                (2, 2, 2), fp32, microbatch 2: the 8-rank fcdp async
+                steps and cross-step calls (2 batches) on the card and on
+                the CPU from the same weights: losses and grad norms
+                within tolerance, the same bytes and carry.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
-plain versions at the train and PEFT phases' shapes and at the int8 TP
-activation all-reduce's, the chunk-matmul kernel
+plain versions at the train and PEFT phases' shapes, at the int8 TP
+activation all-reduce's and at stream_train's leaf level, the chunk-matmul kernel
 of the fused ring within tolerance of its plain version (and bit for bit
 column-independent, its wgmma + TMA variant bit-equal to its mma.sync
 one) at the train phase's shapes, mode 'both''s transposed operands read
@@ -676,8 +699,11 @@ def phase_int8_kernels():
     all-reduce of phase tp_train (one rank's [2, 512, 2048] activation:
     quantize 8,192 bf16 blocks, dequant-accumulate n = 2 sources of
     4,096, requantize the 4,096 fp32 ones, dequantize the gathered
-    8,192), and a ragged block count. Returns {kind: timed main-shape
-    case}."""
+    8,192), the whole stacked MLP leaf that stream_train's async reduce
+    quantizes at once (2 layers: the bf16 storage shard of 44,032
+    blocks, its stage-1 view of 88,064, qgZ's fp32 quantize of the
+    view's gradient and the n = 2 dequant-accumulate of 44,032), and a
+    ragged block count. Returns {kind: timed main-shape case}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     w_nb, e_nb = 2048 * 11008 // 4 // 256, 151936 * 2048 // 4 // 256
@@ -715,6 +741,15 @@ def phase_int8_kernels():
         int8_case("quantize", "tp_act_requant_f32", t_nb // 2, gen,
                   timed=True),
         int8_case("dequantize", "tp_act_gather", t_nb, gen, timed=True),
+        # stream_train's leaf-level trio: the stacked [2, 2048, 11008] leaf
+        int8_case("quantize", "mlp_leaf_shard_bf16", TRAIN_DEPTH * w_nb, gen,
+                  dtype="bfloat16", timed=True),
+        int8_case("dequantize", "mlp_leaf_stage1", 2 * TRAIN_DEPTH * w_nb,
+                  gen, timed=True),
+        int8_case("quantize", "mlp_leaf_stage1_grad_f32",
+                  2 * TRAIN_DEPTH * w_nb, gen, timed=True),
+        int8_case("dequant_accumulate", "mlp_leaf_stage1_grad",
+                  TRAIN_DEPTH * w_nb, gen, timed=True),
         int8_case("quantize", "ragged_f32", 4099, gen),
         int8_case("dequantize", "ragged", 4099, gen),
         int8_case("dequant_accumulate", "ragged_n3", 4099, gen, n=3)]
@@ -2431,6 +2466,248 @@ def phase_sched_parity():
          wall_s={"cuda": t_g, "cpu": t_c})
 
 
+# -- phases 17 and 18: the scheduler's streams 2 and 3 ----------------------------
+
+STREAM_MB = 2              # microbatches a step: the streams need >= 2
+# (name, ModeRun keywords): fcdp sequential, then fcdp async and
+# cross-step over the same 2 batches (a prime, a piped call, a flush),
+# one async step of each other arm, and the composite's cross-step over 2
+# batches. A call takes ~20 s at microbatch 2 on the H100 (3 batches
+# each and a mics sequential step took 359.5 s), so the arms are cut to
+# fit the smoke's time limit. mics, which declines the flag (a host-side
+# gate), is held to its sequential step on the CPU by
+# tests/test_torch_streams.py and has no arm here
+STREAM_RUNS = (
+    ("fcdp_seq", dict(mode="fcdp")),
+    ("fcdp_async", dict(mode="fcdp", steps=2, async_grad_reduce=True)),
+    ("fcdp_xstep", dict(mode="fcdp", steps=2, async_grad_reduce=True,
+                        cross_step_pipeline=True)),
+    ("zero3_async", dict(mode="zero3", async_grad_reduce=True)),
+    ("fcdp_async_int8", dict(mode="fcdp", param_compress="int8_pod",
+                             grad_compress="int8_pod",
+                             async_grad_reduce=True)),
+    ("fcdp_async_ag_matmul", dict(mode="fcdp", fused_matmul="ag_matmul",
+                                  async_grad_reduce=True)),
+    ("embed_hier_xstep", dict(mode="fcdp", steps=2, async_grad_reduce=True,
+                              cross_step_pipeline=True,
+                              mode_overrides=(("embed", "hier"),))))
+STREAM_PARITY_MODEL = dict(name="t-dense", family="dense", num_layers=3,
+                           d_model=64, num_heads=4, num_kv_heads=2,
+                           d_ff=128, vocab_size=256, qkv_bias=True)
+
+
+def _view_bytes(mem):
+    """What the stage-1 views hold on the device: the bytes allocated
+    once they are built, less those at the step's previous mark."""
+    parts = list(mem)
+    if "view" not in parts:
+        return None
+    return mem["view"][1] - mem[parts[parts.index("view") - 1]][1]
+
+
+def _stream_summary(rs):
+    r0 = rs[0]
+    return {"kinds": r0["kinds"],
+            "loss": [m.get("loss") for m in r0["metrics"]],
+            "grad_norm": [m["grad_norm"] for m in r0["metrics"]],
+            "bytes_per_call": r0["bytes"],
+            "async_live": r0["async_live"],
+            "cross_step_live": r0["cross_step_live"],
+            "async_buffer_bytes": r0["async_buffer_bytes"],
+            "cross_step_buffer_bytes": r0["cross_step_buffer_bytes"],
+            "carry_bytes": r0["carry_bytes"],
+            "int8_launches_per_rank_call": r0["launches"],
+            "int8_plan": r0["int8_plan"],
+            "matmul_chunk_launches_per_rank_call": r0["mm_launches"],
+            "matmul_chunk_plan": r0["mm_plan"],
+            "live_depth": r0["live_depth"],
+            "cached_bytes": r0["cached"][0],
+            "cache_places": r0["cache_places"][0],
+            "widened_leaves": len(r0["widened"]),
+            "peak_mem_gib": [r["peak_mem_bytes"] / 2**30 for r in rs],
+            # per call and part of it (TrainStep._mark), the largest over
+            # the ranks: the part's peak and what stays allocated at its
+            # end; and each rank's view bytes in its first call
+            "view_bytes": [_view_bytes(r["memory"][0]) for r in rs],
+            "memory_gib": [
+                {part: {k: max(r["memory"][c][part][i] for r in rs) / 2**30
+                        for i, k in enumerate(("peak", "live"))}
+                 for part in r0["memory"][c]}
+                for c in range(len(r0["kinds"]))],
+            "step_s": [r["step_s"] for r in rs]}
+
+
+def _xstep_checks(name, xs, carry_bytes):
+    """A cross-step run: prime, piped calls and a flush; the carry's
+    bytes equal ``cross_step_buffer_bytes`` after every call but the
+    flush."""
+    for r in xs:
+        n = len(r["kinds"]) - 1
+        check(r["cross_step_live"] and r["kinds"]
+              == ["prime"] + ["piped"] * (n - 1) + ["flush"],
+              f"stream {name}: calls {r['kinds']}")
+        check(r["carry_bytes"] == [carry_bytes] * n + [0]
+              and carry_bytes == r["cross_step_buffer_bytes"] > 0,
+              f"stream {name}: carry bytes {r['carry_bytes']} != "
+              f"cross_step_buffer_bytes {r['cross_step_buffer_bytes']}")
+        check(r["metrics"][0]["grad_norm"] == 0.0
+              and r["metrics"][0]["primed"],
+              f"stream {name}: the prime reports a grad norm")
+
+
+def phase_stream_train():
+    """The scheduler's streams 2 and 3 on the train path: qwen2.5-3b at
+    full width, depth 2, seq 512, global batch 8, on phase train's 4
+    ranks (pod 2, data 2) sharing the card, microbatch 2:
+    ``STREAM_RUNS``."""
+    import math
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import ModeRun, spawn
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=TRAIN_DEPTH)
+    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                     [ModeRun(microbatch=STREAM_MB, **kw)
+                      for _, kw in STREAM_RUNS])
+    t0 = time.perf_counter()
+    ranks = spawn(job, timeout_s=900)
+    wall = time.perf_counter() - t0
+    by = {name: [rk["runs"][i] for rk in ranks]
+          for i, (name, _) in enumerate(STREAM_RUNS)}
+    summary = {}
+    for name, kw in STREAM_RUNS:
+        rs = by[name]
+        r0 = rs[0]
+        check(all(math.isfinite(m.get("loss", 0.0))
+                  and math.isfinite(m["grad_norm"]) for m in r0["metrics"]),
+              f"stream {name}: a metric is not finite: {r0['metrics']}")
+        check(all(r["metrics"] == r0["metrics"] for r in rs),
+              f"stream {name}: the ranks disagree on the metrics")
+        for r in rs:
+            if not r["cross_step_live"]:
+                check(all(c == r["int8_plan"] for c in r["launches"]),
+                      f"stream {name}: int8 launches {r['launches']} != "
+                      f"the plans' {r['int8_plan']}")
+                check(r["mm_launches"] == [r["mm_plan"]] * len(r["kinds"]),
+                      f"stream {name}: matmul_chunk launches "
+                      f"{r['mm_launches']} != the plans' {r['mm_plan']}")
+            check(r["live_depth"] == [0] * len(r["kinds"]),
+                  f"stream {name}: live depth {r['live_depth']}")
+        check(r0["async_live"] == kw.get("async_grad_reduce", False)
+              and r0["cross_step_live"] == kw.get("cross_step_pipeline",
+                                                  False),
+              f"stream {name}: live async {r0['async_live']}, cross-step "
+              f"{r0['cross_step_live']}")
+        summary[name] = _stream_summary(rs)
+    seq, asy, xs = (by[k] for k in ("fcdp_seq", "fcdp_async", "fcdp_xstep"))
+    b = {k: m["bytes_per_call"] for k, m in summary.items()}
+    check(all(x == b["fcdp_seq"][0] for x in b["fcdp_async"]),
+          f"fcdp async bytes {b['fcdp_async']} != sequential "
+          f"{b['fcdp_seq']}")
+    check(b["zero3_async"][0]["all_gather/pod"]
+          == b["fcdp_async"][0]["all_gather/pod"],
+          f"zero3 async pod all-gather {b['zero3_async'][0]} != fcdp's "
+          f"{b['fcdp_async'][0]}")
+    m_s, m_a, m_x = (r[0]["metrics"] for r in (seq, asy, xs))
+    for s, (ms, ma) in enumerate(zip(m_s, m_a)):
+        check(_rel(ma["loss"], ms["loss"]) <= LOSS_RTOL
+              and _rel(ma["grad_norm"], ms["grad_norm"]) <= GNORM_RTOL,
+              f"fcdp async step {s} ({ma['loss']}, {ma['grad_norm']}) != "
+              f"sequential ({ms['loss']}, {ms['grad_norm']})")
+    for k in ("zero3_async", "fcdp_async_ag_matmul"):
+        m = by[k][0]["metrics"][0]
+        check(_rel(m["loss"], m_a[0]["loss"]) <= LOSS_RTOL
+              and _rel(m["grad_norm"], m_a[0]["grad_norm"]) <= GNORM_RTOL,
+              f"stream {k} step 0 ({m['loss']}, {m['grad_norm']}) != fcdp "
+              f"async's ({m_a[0]['loss']}, {m_a[0]['grad_norm']})")
+    q8 = by["fcdp_async_int8"][0]
+    check(_rel(q8["metrics"][0]["loss"], m_a[0]["loss"]) <= INT8_DRIFT,
+          "stream int8 step-0 loss drifts from fcdp async's")
+    check(all(v > 0 for v in q8["launches"][0].values()),
+          "stream int8: an int8 kernel launched no time")
+    check(by["fcdp_async_ag_matmul"][0]["mm_launches"][0] > 0,
+          "stream ag_matmul launched no chunk matmul")
+    # stream 3 against the fused async step: the same bits and bytes
+    check([m["loss"] for m in m_x[:-1]] == [m["loss"] for m in m_a]
+          and [m["grad_norm"] for m in m_x[1:]]
+          == [m["grad_norm"] for m in m_a],
+          f"cross-step metrics {m_x} != fcdp async's {m_a}")
+    check([r["final_digest"] for r in xs] == [r["final_digest"] for r in asy],
+          "cross-step final shards differ from fcdp async's")
+    check(all(x == b["fcdp_async"][1] for x in b["fcdp_xstep"][1:-1]),
+          f"piped bytes {b['fcdp_xstep'][1:-1]} != a fused async step's "
+          f"{b['fcdp_async'][1]}")
+    _xstep_checks("fcdp_xstep", xs, summary["fcdp_async"][
+        "cross_step_buffer_bytes"])
+    _xstep_checks("embed_hier_xstep", by["embed_hier_xstep"],
+                  summary["embed_hier_xstep"]["cross_step_buffer_bytes"])
+    check(summary["embed_hier_xstep"]["widened_leaves"] > 0,
+          "the composite widened no leaf")
+    launches = {k: sum(sum(step[k] for step in r["launches"])
+                       for rs in by.values() for r in rs)
+                for k in QUANT_NAMES}
+    launches["matmul_chunk"] = sum(sum(r["mm_launches"])
+                                   for rs in by.values() for r in rs)
+    emit("stream_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, microbatch=STREAM_MB,
+         mesh=job.mesh.shape, backend=ranks[0]["backend"], wall_s=wall,
+         kernel_launches_total=launches, runs=summary)
+    return launches
+
+
+def phase_stream_parity():
+    """tests/test_torch_streams.py's DENSE model at (2, 2, 2), fp32,
+    microbatch 2: fcdp async (2 steps) and fcdp cross-step (2 batches),
+    the same 8-rank calls on the card and on the CPU from the same
+    weights (drawn on the CPU): losses and grad norms within tolerance,
+    the same bytes and carry."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch.train import ModeRun, spawn
+
+    runs = [ModeRun("fcdp", dtype="float32", microbatch=STREAM_MB, steps=2,
+                    async_grad_reduce=True),
+            ModeRun("fcdp", dtype="float32", microbatch=STREAM_MB, steps=2,
+                    async_grad_reduce=True, cross_step_pipeline=True)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        job = _train_job(ModelConfig(**STREAM_PARITY_MODEL), 64, 8, runs,
+                         dtype="float32", mesh=(2, 2, 2), device=dev,
+                         draw_device="cpu")
+        t0 = time.perf_counter()
+        rs = spawn(job, timeout_s=300)[0]["runs"]
+        out[dev] = (rs, time.perf_counter() - t0)
+    (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
+    report = {}
+    for name, g, c in zip(("fcdp_async", "fcdp_xstep"), gs, cs):
+        check(g["kinds"] == c["kinds"] and g["async_live"],
+              f"stream {name}: card calls {g['kinds']}, CPU {c['kinds']}")
+        for mg, mc in zip(g["metrics"], c["metrics"]):
+            for k in ("loss", "grad_norm"):
+                if k in mg:
+                    tol = LOSS_RTOL if k == "loss" else GNORM_RTOL
+                    check(mg[k] == mc[k] or _rel(mg[k], mc[k]) <= tol,
+                          f"stream {name}: card {k} {mg[k]} != CPU {mc[k]}")
+        check(g["bytes"] == c["bytes"] and g["carry_bytes"]
+              == c["carry_bytes"],
+              f"stream {name}: card and CPU moved or carried different "
+              "bytes")
+        report[name] = {"kinds": g["kinds"],
+                        "loss": {"cuda": [m.get("loss")
+                                          for m in g["metrics"]],
+                                 "cpu": [m.get("loss")
+                                         for m in c["metrics"]]},
+                        "grad_norm": {"cuda": [m["grad_norm"]
+                                               for m in g["metrics"]],
+                                      "cpu": [m["grad_norm"]
+                                              for m in c["metrics"]]},
+                        "carry_bytes": g["carry_bytes"],
+                        "bytes": g["bytes"][0]}
+    emit("stream_parity", model=STREAM_PARITY_MODEL["name"],
+         dtype="float32", microbatch=STREAM_MB,
+         mesh={"pod": 2, "data": 2, "model": 2}, runs=report,
+         wall_s={"cuda": t_g, "cpu": t_c})
+
+
 def main() -> int:
     try:
         import torch
@@ -2480,6 +2757,8 @@ def main() -> int:
     phase_tp_parity()
     sched_launches = phase_sched_train(train_fcdp_bytes)
     phase_sched_parity()
+    stream_launches = phase_stream_train()
+    phase_stream_parity()
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
@@ -2498,7 +2777,7 @@ def main() -> int:
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
             "replaces": QUANT_TPU_KERNELS[k],
             "launches": train_launches[k] + peft_launches[k]
-            + tp_launches[k] + sched_launches[k],
+            + tp_launches[k] + sched_launches[k] + stream_launches[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
                              if e["kernel"] == QUANT_NAMES[k]}}
@@ -2506,7 +2785,8 @@ def main() -> int:
         "name": "matmul_chunk", "route": "cuda", "source": MM_SOURCE,
         "replaces": MM_TPU_KERNEL,
         "launches": train_launches["matmul_chunk"]
-        + tp_launches["matmul_chunk"] + sched_launches["matmul_chunk"],
+        + tp_launches["matmul_chunk"] + sched_launches["matmul_chunk"]
+        + stream_launches["matmul_chunk"],
         **entry(mm_main),
         "shape": mm_main["case"],
         "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}, {

@@ -1,8 +1,9 @@
 """Configuration dataclasses: the fields of the JAX package's
 ``configs/base.py`` that the ported paths read (the one-card serve
-paths and the sequential FCDP train step)."""
+paths and the FCDP train step)."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -118,7 +119,18 @@ class SystemConfig:
     (``core/schedule.py``): layer i+k's stage-1 ('pod') gather is issued
     before layer i's compute. 0 is the sequential schedule; a strategy
     with no stage 1 (mics, hier), a mesh without 'pod' and a stack of
-    fewer layers cap it."""
+    fewer layers cap it.
+
+    The scheduler's streams 2 and 3 (``core/schedule.py``,
+    ``core/engine/train.py``), as in the JAX package:
+    ``async_grad_reduce`` differentiates each microbatch with respect to
+    a leaf-level stage-1 view and issues its 'pod' reduce-scatter as
+    async work, retired one microbatch later; ``cross_step_pipeline``
+    carries the last microbatch's 'pod' reduce, the clip, AdamW and the
+    widened gather back across the step boundary (prime / piped /
+    flush). It requires ``async_grad_reduce``, and ``RunConfig``
+    requires ``microbatch >= 2`` with it. A strategy with no stage 1
+    (mics, hier) and a mesh without 'pod' decline both."""
     dtype: str = "bfloat16"
     serve_frozen: bool = True
     mode: str = "fcdp"
@@ -136,6 +148,8 @@ class SystemConfig:
     mode_overrides: Tuple[Tuple[str, str], ...] = ()
     act_psum: str = "bf16"             # bf16 | int8
     prefetch_depth: int = 0
+    async_grad_reduce: bool = False
+    cross_step_pipeline: bool = False
 
     def __post_init__(self):
         if self.mode_overrides:
@@ -164,6 +178,12 @@ class SystemConfig:
                 or depth < 0:
             raise ValueError(
                 f"prefetch_depth must be a non-negative int, got {depth!r}")
+        if self.cross_step_pipeline and not self.async_grad_reduce:
+            raise ValueError(
+                "cross_step_pipeline=True requires async_grad_reduce=True: "
+                "the carried epilogue is the stream-2 deferred pod reduce "
+                "plus the optimizer apply; without the async stream there "
+                "is no stage-1-level pending gradient to carry")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -196,3 +216,15 @@ class RunConfig:
         if self.microbatch < 0:
             raise ValueError(f"microbatch must be >= 0, got "
                              f"{self.microbatch}")
+        if self.system.cross_step_pipeline and self.microbatch < 2:
+            raise ValueError(
+                "cross_step_pipeline=True requires gradient accumulation "
+                f"(microbatch >= 2), got microbatch={self.microbatch!r}: "
+                "the carried epilogue is defined per accumulation step")
+
+    def replace(self, **kw) -> "RunConfig":
+        """A copy with ``kw`` changed, validated again
+        (``dataclasses.replace`` re-runs ``__post_init__``); the
+        reference's ``RunConfig.replace``, kept under its name so that
+        code written for either package calls it alike."""
+        return dataclasses.replace(self, **kw)

@@ -9,7 +9,12 @@ tiled like the JAX package's collectives inside ``shard_map``:
                                 whose ``wait()`` gives the result (the
                                 stage-1 prefetch ring, ``core/schedule.py``)
   reduce_scatter(x, axis, dim)  sum over ranks, this rank's block of dim
+  reduce_scatter_async(x, axis, dim)
+                                the same, returning at once a handle
+                                (the async 'pod' gradient reduce,
+                                ``core/engine/train.py``)
   all_to_all(x, axis)           block j of dim 0 goes to rank j
+  all_to_all_async(x, axis)     the same, returning at once a handle
   all_reduce(x, axes)           sum over ranks
   all_reduce_max(x, axes)       max over ranks (not counted, as the JAX
                                 package's count leaves pmax out)
@@ -127,9 +132,16 @@ class Collectives:
 
     def reduce_scatter(self, x: torch.Tensor, axis: str,
                        dim: int) -> torch.Tensor:
+        return self.reduce_scatter_async(x, axis, dim).wait()
+
+    def reduce_scatter_async(self, x: torch.Tensor, axis: str,
+                             dim: int) -> "Pending":
+        """``reduce_scatter`` issued as async work, as
+        ``all_gather_async``: counted at issue, the input's wire copy
+        kept alive by the handle."""
         axes = _as_axes(axis)
         if not self._live(axes):
-            return x
+            return Pending(None, (x, x), x.device, None)
         n = math.prod(self.mesh.mesh_shape.size(a) for a in axes)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
@@ -137,19 +149,26 @@ class Collectives:
         src = self._wire(x.movedim(dim, 0).contiguous())
         out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
-        dist.reduce_scatter_tensor(out, src, group=self.mesh.group(axes))
+        work = dist.reduce_scatter_tensor(out, src,
+                                          group=self.mesh.group(axes),
+                                          async_op=True)
         self._count("psum_scatter", axes, src.numel() * src.element_size())
-        return out.to(x.device).movedim(0, dim)
+        return Pending(work, (src, out), x.device, dim)
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return self.all_to_all_async(x, axis).wait()
+
+    def all_to_all_async(self, x: torch.Tensor, axis: str) -> "Pending":
+        """``all_to_all`` issued as async work, as ``all_gather_async``."""
         axes = _as_axes(axis)
         if not self._live(axes):
-            return x
+            return Pending(None, (x, x), x.device, None)
         src = self._wire(x.contiguous())
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=self.mesh.group(axes))
+        work = dist.all_to_all_single(out, src, group=self.mesh.group(axes),
+                                      async_op=True)
         self._count("all_to_all", axes, src.numel() * src.element_size())
-        return out.to(x.device)
+        return Pending(work, (src, out), x.device, 0)
 
     def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
         axes = _as_axes(axes)
@@ -213,10 +232,10 @@ class Hop:
 
 
 class Pending:
-    """An all-gather in flight: ``wait()`` blocks until it is done and
-    returns the gathered tensor on the caller's device (``dim``: where
-    the blocks go; None for a gather over no live axis, which hands its
-    input back)."""
+    """A collective in flight (an all-gather, reduce-scatter or
+    all-to-all): ``wait()`` blocks until it is done and returns the
+    result on the caller's device (``dim``: where the blocks go; None
+    for a collective over no live axis, which hands its input back)."""
 
     def __init__(self, work, bufs, device, dim):
         self.work, self.bufs, self.device, self.dim = work, bufs, device, dim

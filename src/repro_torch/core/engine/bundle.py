@@ -21,10 +21,14 @@ storage (hier, an 'inter_only' leaf) the widening (``widen``). Given a
 live ``RankMesh`` it
 also knows this rank's coordinates: ``init_all_params`` and
 ``shard_batch`` hand out this rank's shards and batch rows. Steps run
-eagerly; there is nothing to compile.
+eagerly; there is nothing to compile. ``cross_step`` says whether the
+train step runs the cross-step schedule (the scheduler's stream 3), and
+``cross_step_carry_layout`` gives its carry's per-rank shapes and
+dtypes.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -164,6 +168,47 @@ class StepBundle:
         leaves = [t for _, t in tree_items(params)]
         return ([leaves[i] for i in self.train_idx],
                 [leaves[i] for i in self.frozen_idx])
+
+    def merge(self, train, frozen):
+        """The parameter dict (nested like ``defs``) of ``split``'s two
+        lists."""
+        flat = [None] * len(self.paths)
+        for i, t in zip(self.train_idx, train):
+            flat[i] = t
+        for i, t in zip(self.frozen_idx, frozen):
+            flat[i] = t
+        it = iter(flat)
+        return tree_map_with_path(lambda _, d: next(it), self.defs)
+
+    # -- the scheduler's streams 2 and 3 ---------------------------------------
+    @property
+    def cross_step(self) -> bool:
+        """Whether the train step runs the cross-step schedule (prime /
+        piped / flush) instead of the fused step."""
+        from repro_torch.core.schedule import cross_step_enabled
+        return cross_step_enabled(self.run, self.strategy, self.mesh_shape)
+
+    def cross_step_carry_layout(self):
+        """This rank's carry, per trainable leaf in tree order:
+        ``{"g_acc": [(shape, dtype), ...], "pending": [...]}``. g_acc is
+        the accumulated gradient, a storage shard; pending the last
+        microbatch's stage-1-level gradient, the storage shard widened
+        over the leaf's stage-1 axes along its fsdp dim (the storage
+        shard for a leaf with no stage 1)."""
+        dtype = self.run.system.torch_dtype
+        out = {"g_acc": [], "pending": []}
+        for i in self.train_idx:
+            d, plan = self.def_leaves[i], self.plan_leaves[i]
+            shape = list(d.shape)
+            for dim, entry in enumerate(self.leaf_specs[i]):
+                for a in _entry_axes(entry):
+                    shape[dim] //= self.mesh_shape.size(a)
+            out["g_acc"].append((tuple(shape), dtype))
+            if plan.is_gathered and plan.inter_axes:
+                shape[d.fsdp_dim] *= math.prod(self.mesh_shape.size(a)
+                                               for a in plan.inter_axes)
+            out["pending"].append((tuple(shape), dtype))
+        return out
 
     # -- batch --------------------------------------------------------------------
     def shard_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:

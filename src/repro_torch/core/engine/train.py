@@ -1,43 +1,80 @@
 """The FCDP train step of one rank, as the JAX package's
-``core/engine/train.py`` builds it (``_build_parts``' ``accumulate_seq``
-and ``apply_grads``, ``_build_fused``) without the async and cross-step
-streams.
+``core/engine/train.py`` builds it from ``_build_parts``
+(``accumulate_seq``, ``accumulate_async``, ``fold``, ``apply_grads``):
+the fused step, and the cross-step schedule's prime, piped and flush.
 
 One step: the loss over this rank's batch rows (the forward gathers
 every weight through its plan, the layers under the stage-1 prefetch
 ring at ``SystemConfig.prefetch_depth``, ``core/schedule.py``), its
 backward (the gathers' backwards reduce-scatter the gradients onto the
 shards), the loss terms summed over the data-parallel axes, then the
-optimizer epilogue: the widening reduce-scatter of each widened leaf's
-gradient (hier, an 'inter_only' leaf: over the axes its optimizer state
-shards over beyond its storage, which sums it there once), global-norm
-clip, AdamW on the optimizer layout's blocks, and the updated blocks
-gathered back over the widening axes. Under PEFT only the trainable
-leaves (the adapters) get gradients, a clip norm term and optimizer
-state; the frozen trunk is read, never updated. With
+optimizer epilogue (``apply_grads``): the widening reduce-scatter of
+each widened leaf's gradient (hier, an 'inter_only' leaf: over the axes
+its optimizer state shards over beyond its storage, which sums it there
+once), global-norm clip, AdamW on the optimizer layout's blocks, and
+the updated blocks gathered back over the widening axes. Under PEFT
+only the trainable leaves (the adapters) get gradients, a clip norm
+term and optimizer state; the frozen trunk is read, never updated. With
 ``RunConfig.microbatch`` = nm >= 2 the rank's rows are split into nm
 microbatches whose gradients add up in the parameter dtype and are
 divided by nm, as the JAX scan does.
+
+Three schedules of the microbatch loop and the epilogue:
+
+  sequential  every microbatch's backward runs the gathers' full
+              reduce-scatters (``accumulate_seq``).
+  async       ``SystemConfig.async_grad_reduce`` (stream 2): each
+              microbatch is differentiated with respect to a leaf-level
+              stage-1 view (detached leaves that require grad; the model
+              sees ``stage1_resident_plans``), so its backward stops at
+              the stage-1-level gradient; that gradient's 'pod'
+              reduce-scatter is issued as async work at the top of the
+              next microbatch, whose forward does not depend on it, and
+              waited on after that microbatch's backward
+              (``accumulate_async``); the last one is retired by
+              ``fold``. The same 'pod' bytes move, later.
+  cross-step  ``SystemConfig.cross_step_pipeline`` (stream 3): the last
+              microbatch's reduce and the epilogue are carried across
+              the step boundary. ``prime`` runs a batch's loop and
+              returns the carry (this rank's accumulated gradient, a
+              storage shard a leaf, and the pending stage-1-level one);
+              ``piped`` first finalizes the carry (``fold`` and
+              ``apply_grads``, in place on the shards and optimizer
+              state), then runs its batch's loop on the updated
+              parameters and returns the next carry; ``flush`` finalizes
+              the last. The same ops in the same order as the fused
+              async step, so the same bits: nothing runs on stale
+              parameters.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.fcdp import ParamGather
-from repro_torch.core.schedule import GatherScheduler
+from repro_torch.core.partition import tree_items
+from repro_torch.core.schedule import (GatherScheduler,
+                                       async_reduce_enabled,
+                                       cross_step_enabled, leaf_stage1,
+                                       leaf_stage1_reduce,
+                                       stage1_resident_plans)
 from repro_torch.launch.mesh import fsdp_axes
 from repro_torch.optim.adamw import adamw_update, clip_by_global_norm
 
+Carry = Dict[str, List[torch.Tensor]]
+
 
 class TrainStep:
-    """``step(params, opt_state, batch) -> metrics``: updates this rank's
-    shards and optimizer state in place. metrics: loss, aux_loss,
-    grad_norm, tokens (Python floats; with microbatches ``tokens`` is 1,
-    as in the JAX step). ``gather`` keeps the cache bytes and places of
-    the last step, ``gather.scheduler`` its ring's live depth and
-    bytes."""
+    """``step(params, opt_state, batch) -> metrics`` is the fused step:
+    it updates this rank's shards and optimizer state in place. metrics:
+    loss, aux_loss, grad_norm, tokens (Python floats; with microbatches
+    ``tokens`` is 1, as in the JAX step). When stream 3 is live
+    (``use_xstep``), ``prime`` / ``piped`` / ``flush`` run the
+    cross-step schedule instead. ``gather`` keeps the cache bytes and
+    places of the last call, ``gather.scheduler`` its ring's live depth
+    and bytes; on a card, ``memory`` keeps the last call's device
+    memory by part (``_mark``)."""
 
     def __init__(self, bundle, coll):
         run = bundle.run
@@ -45,16 +82,25 @@ class TrainStep:
         self.model = bundle.model
         self.sys, self.opt_cfg = run.system, run.optimizer
         self.nm = run.microbatch or 0
-        self.gather = ParamGather(coll, bundle.plans, GatherScheduler(
-            bundle.strategy, self.sys, bundle.mesh_shape,
-            bundle.plan_leaves))
+        ms = bundle.mesh_shape
+        self.use_async = async_reduce_enabled(run, bundle.strategy, ms)
+        self.use_xstep = cross_step_enabled(run, bundle.strategy, ms)
+        plans = (stage1_resident_plans(bundle.plans) if self.use_async
+                 else bundle.plans)
+        self.gather = ParamGather(coll, plans, GatherScheduler(
+            bundle.strategy, self.sys, ms, [p for _, p in tree_items(plans)]))
+        self.primed = False          # a cross-step carry is outstanding
+        self.memory: Dict[str, Tuple[int, int]] = {}
         self.widen = bundle.widen
-        defs = [bundle.def_leaves[i] for i in bundle.train_idx]
+        self.train_leaves = [(bundle.def_leaves[i], bundle.plan_leaves[i])
+                             for i in bundle.train_idx]
+        self.frozen_leaves = [(bundle.def_leaves[i], bundle.plan_leaves[i])
+                              for i in bundle.frozen_idx]
         # no weight decay on vectors and on the LoRA adapters
         self.wd_mask = [len(d.shape) >= 2 and "_lora_" not in d.label
-                        for d in defs]
+                        for d, _ in self.train_leaves]
         self.reps = [bundle.rep_factors[i] for i in bundle.train_idx]
-        self.dp_axes = fsdp_axes(bundle.mesh_shape)
+        self.dp_axes = fsdp_axes(ms)
 
     def _loss_backward(self, params, batch, report_aux: bool = True):
         """Forward and backward of one (micro)batch; returns the global
@@ -71,27 +117,96 @@ class TrainStep:
         return (tot[0] / denom, tot[2] / denom if report_aux else None,
                 tot[1])
 
-    def __call__(self, params, opt_state, batch: Dict) -> Dict[str, float]:
+    def _microbatches(self, batch: Dict):
+        rows = batch["ids"].shape[0]
+        if rows % self.nm:
+            raise ValueError(f"{rows} rows do not split into {self.nm} "
+                             "microbatches")
+        b = rows // self.nm
+        for i in range(self.nm):
+            yield {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+
+    def _begin(self) -> None:
         self.gather.cached.clear()
         self.gather.cache_places.clear()
+        self.memory = {}
+        self._mark("start")
+
+    def _mark(self, part: str, reset: bool = True) -> None:
+        """On a card, record this process's device memory for ``part``
+        of the call: (its peak since the previous mark, the bytes still
+        allocated at its end); with ``reset`` the next part's peak
+        starts here."""
+        dev = self.bundle.device
+        if dev.type == "cuda":
+            self.memory[part] = (torch.cuda.max_memory_allocated(dev),
+                                 torch.cuda.memory_allocated(dev))
+            if reset:
+                torch.cuda.reset_peak_memory_stats(dev)
+
+    # -- the parts ---------------------------------------------------------
+    def accumulate_seq(self, params, batch: Dict):
+        """The sequential loop: (the summed gradients of the trainable
+        shards, the summed ce)."""
         train, _ = self.bundle.split(params)
+        ce = 0.0
+        for mb in self._microbatches(batch):
+            ce = ce + self._loss_backward(params, mb, False)[0]
+        grads = [p.grad for p in train]
         for p in train:
             p.grad = None
-        if self.nm > 1:
-            rows = batch["ids"].shape[0]
-            if rows % self.nm:
-                raise ValueError(f"{rows} rows do not split into "
-                                 f"{self.nm} microbatches")
-            b = rows // self.nm
-            ce = 0.0
-            for i in range(self.nm):
-                mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-                ce = ce + self._loss_backward(params, mb, False)[0]
-            grads = [p.grad / self.nm for p in train]
-            ce, aux, tokens = ce / self.nm, 0.0, 1.0
-        else:
-            ce, aux, tokens = self._loss_backward(params, batch)
-            grads = [p.grad for p in train]
+        return grads, ce
+
+    def _reduce(self, pending):
+        """Issue the 'pod' reduce-scatter of each stage-1-level gradient
+        (the identity for a leaf with no stage 1)."""
+        return [leaf_stage1_reduce(g, d, p, self.coll)
+                for g, (d, p) in zip(pending, self.train_leaves)]
+
+    def accumulate_async(self, params, batch: Dict):
+        """The stream-2 loop: (the accumulated storage-level gradients,
+        the last microbatch's pending stage-1-level ones, the summed
+        ce). Microbatch 0 is peeled: microbatch i >= 1 issues i - 1's
+        reduce before its forward and adds it up after its backward."""
+        train, frozen = self.bundle.split(params)
+        g_acc: Optional[List[torch.Tensor]] = None
+        pending = None
+        ce = 0.0
+        for i, mb in enumerate(self._microbatches(batch)):
+            # the handles keep what their reduces still read
+            reducing, pending = (None if pending is None
+                                 else self._reduce(pending)), None
+            views = [leaf_stage1(w, d, p, self.coll).detach()
+                     .requires_grad_() for w, (d, p)
+                     in zip(train, self.train_leaves)]
+            fixed = [leaf_stage1(w, d, p, self.coll).detach()
+                     for w, (d, p) in zip(frozen, self.frozen_leaves)]
+            if i == 0:              # the views resident, nothing else yet
+                self._mark("view", reset=False)
+            ce = ce + self._loss_backward(self.bundle.merge(views, fixed),
+                                          mb, False)[0]
+            pending = [v.grad if v.grad is not None else torch.zeros_like(v)
+                       for v in views]
+            del views, fixed
+            if reducing is not None:
+                done = [r.wait() for r in reducing]
+                g_acc = done if g_acc is None else [
+                    a + r for a, r in zip(g_acc, done)]
+        return g_acc, pending, ce
+
+    def fold(self, g_acc, pending) -> List[torch.Tensor]:
+        """Retire the last microbatch's deferred reduce and divide by the
+        microbatch count."""
+        done = [r.wait() for r in self._reduce(pending)]
+        return [(a + r) / self.nm for a, r in zip(g_acc, done)]
+
+    def apply_grads(self, train, grads, opt_state) -> torch.Tensor:
+        """The optimizer epilogue on this rank's trainable shards
+        ``train`` (updated in place): the widening reduce-scatter, the
+        global-norm clip, AdamW and the widened gather back. Returns the
+        grad norm. One call site for every schedule, so the fused,
+        piped and flush calls run the same ops in the same order."""
+        grads = list(grads)
         for j, (dim, axes) in self.widen.items():
             for a in axes:          # first axis major, as the opt spec
                 grads[j] = self.coll.reduce_scatter(grads[j], a, dim)
@@ -108,10 +223,100 @@ class TrainStep:
                 for a in reversed(axes):    # inverts the reduce-scatter
                     t = self.coll.all_gather(t, a, dim)
                 train[j].copy_(t)
+        return gnorm
+
+    # -- the fused step ---------------------------------------------------
+    def __call__(self, params, opt_state, batch: Dict) -> Dict[str, float]:
+        self._begin()
+        train, _ = self.bundle.split(params)
         for p in train:
             p.grad = None
+        if self.nm > 1:
+            if self.use_async:
+                g_acc, pending, ce = self.accumulate_async(params, batch)
+                self._mark("accumulate")
+                grads = self.fold(g_acc, pending)
+                del g_acc, pending
+            else:
+                grads, ce = self.accumulate_seq(params, batch)
+                self._mark("accumulate")
+                grads = [g / self.nm for g in grads]
+            ce, aux, tokens = ce / self.nm, 0.0, 1.0
+        else:
+            ce, aux, tokens = self._loss_backward(params, batch)
+            grads = [p.grad for p in train]
+            for p in train:
+                p.grad = None
+            self._mark("accumulate")
+        gnorm = self.apply_grads(train, grads, opt_state)
+        self._mark("apply")
         return {"loss": float(ce), "aux_loss": float(aux),
                 "grad_norm": float(gnorm), "tokens": float(tokens)}
+
+    # -- the cross-step schedule (stream 3) --------------------------------
+    def _xstep_metrics(self, ce, gnorm) -> Dict[str, float]:
+        return {"loss": float(ce / self.nm), "aux_loss": 0.0,
+                "grad_norm": float(gnorm), "tokens": 1.0}
+
+    def _need(self, primed: bool) -> None:
+        if not self.use_xstep:
+            raise ValueError("the cross-step pipeline is not live for this "
+                             "run (see core/schedule.py:cross_step_enabled)")
+        if self.primed != primed:
+            raise RuntimeError("prime starts the pipeline and flush ends it: "
+                               + ("no carry is outstanding" if primed
+                                  else "a carry is outstanding"))
+
+    def prime(self, params, opt_state, batch: Dict
+              ) -> Tuple[Carry, Dict[str, float]]:
+        """Fill the pipeline: run ``batch``'s loop on the current
+        parameters and return its carry; the parameters and the
+        optimizer state are untouched. Reports grad_norm 0 (no norm is
+        computed before the first finalize)."""
+        self._need(False)
+        self._begin()
+        g_acc, pending, ce = self.accumulate_async(params, batch)
+        self._mark("accumulate")
+        self.primed = True
+        return {"g_acc": g_acc, "pending": pending}, \
+            self._xstep_metrics(ce, 0.0)
+
+    def piped(self, params, opt_state, carry: Carry, batch: Dict
+              ) -> Tuple[Carry, Dict[str, float]]:
+        """Finalize ``carry`` (emptied here) on the shards and the
+        optimizer state in place, then run ``batch``'s loop on the
+        updated parameters. Returns the next carry and metrics whose
+        grad_norm is the finalized (previous) step's."""
+        self._need(True)
+        self._begin()
+        train, _ = self.bundle.split(params)
+        grads = self.fold(carry.pop("g_acc"), carry.pop("pending"))
+        gnorm = self.apply_grads(train, grads, opt_state)
+        del grads
+        self._mark("apply")
+        g_acc, pending, ce = self.accumulate_async(params, batch)
+        self._mark("accumulate")
+        return {"g_acc": g_acc, "pending": pending}, \
+            self._xstep_metrics(ce, gnorm)
+
+    def flush(self, params, opt_state, carry: Carry) -> Dict[str, float]:
+        """Drain the pipeline: finalize ``carry`` (emptied here) with no
+        forward. Returns the last step's grad norm."""
+        self._need(True)
+        self._begin()
+        train, _ = self.bundle.split(params)
+        gnorm = self.apply_grads(
+            train, self.fold(carry.pop("g_acc"), carry.pop("pending")),
+            opt_state)
+        self._mark("apply")
+        self.primed = False
+        return {"grad_norm": float(gnorm)}
+
+
+def carry_bytes(carry: Carry) -> int:
+    """The bytes of this rank's carry tensors."""
+    return sum(t.numel() * t.element_size()
+               for ts in carry.values() for t in ts)
 
 
 def build_train_step(bundle, coll) -> TrainStep:
@@ -144,17 +349,22 @@ def int8_launch_plan(bundle) -> Dict[str, int]:
     per stage-1 gather (once per layer for a stacked leaf), qwZ
     quantizes and dequantizes, and the backward's regather (zero3 at
     prefetch depth 0) does so again inside the layers; qgZ quantizes
-    and dequant-accumulates once per gather's backward; the activation
-    all-reduces add theirs
+    and dequant-accumulates once per gather's backward. Under the async
+    reduce (stream 2) each trainable leaf with a stage 1 is gathered and
+    reduced once, whole: once per leaf, not per layer, and nothing
+    regathers. The activation all-reduces add theirs
     (``act_int8_launch_plan``). Microbatches multiply."""
     n = _act_allreduces(bundle)
     out = {"quantize": 2 * n, "dequantize": n, "dequant_accumulate": n}
-    ring = GatherScheduler(bundle.strategy, bundle.run.system,
-                           bundle.mesh_shape, bundle.plan_leaves).depth > 0
+    run = bundle.run
+    leaf_level = async_reduce_enabled(run, bundle.strategy,
+                                      bundle.mesh_shape)
+    ring = GatherScheduler(bundle.strategy, run.system, bundle.mesh_shape,
+                           bundle.plan_leaves).depth > 0
     for i in bundle.train_idx:
         d, plan = bundle.def_leaves[i], bundle.plan_leaves[i]
         res = plan.residency
-        layered = "stack" in d.dims
+        layered = "stack" in d.dims and not leaf_level
         uses = d.shape[d.dims.index("stack")] if layered else 1
         # the backward regathers (zero3) unless the ring fed the layer
         passes = 1 + (layered and res.cache == "regather"
@@ -165,7 +375,7 @@ def int8_launch_plan(bundle) -> Dict[str, int]:
         if res.quantized_reduce:
             out["quantize"] += uses
             out["dequant_accumulate"] += uses
-    nm = max(bundle.run.microbatch, 1)
+    nm = max(run.microbatch, 1)
     return {k: v * nm for k, v in out.items()}
 
 

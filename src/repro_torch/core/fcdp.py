@@ -77,6 +77,18 @@ on its host tier, zeropp on the device, and zero3 on the device too,
 as the JAX package's scan carry holds it, so zero3's backward no
 longer regathers over 'pod'.
 
+Under the async 'pod' gradient reduce (``core/schedule.py``, stream 2)
+the gather holds ``stage1_resident_plans``: ``w`` is a slice of a
+stage-1 view gathered outside the model, and a plan has no stage 1
+left. Stage 2 runs as usual, and the backward rebuilds the weight from
+that slice in place, whatever the strategy's tier: the view is on the
+device already (counted by ``async_buffer_bytes``), so fcdp does not
+copy it to the host every microbatch, zero3 does not regather it, and
+``cached`` counts it under 'device'. (The JAX package's remat policy
+marks the slice with the strategy's tier, host under fcdp, but the
+slice is its layer scan's input, and the view stays on the device for
+the scan's backward either way.)
+
 The copy to the host is a synchronous ``non_blocking`` copy on the
 current stream; overlapping it on a side stream is later work.
 """
@@ -281,8 +293,10 @@ class ParamGather:
             return t if dtype is None else t.to(dtype)
         stage1 = gather_stage1(w, plan, self.coll, slot)
         placement = plan.residency.cache
-        if slot is not None and placement == "regather":
-            # the backward reads the slot's tensor, never regathers it
+        if plan.residency.stage1_resident or (slot is not None
+                                              and placement == "regather"):
+            # the backward reads the slot's tensor, or the resident
+            # stage-1 view, on the device: never regathers nor parks it
             placement = "device"
         if plan.is_fused:
             if self._entries is not None:

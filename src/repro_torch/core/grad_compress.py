@@ -5,7 +5,8 @@ builds them on the shared per-256-block quantization
 on the CPU).
 
   * qgZ -- ``int8_psum_scatter``: the stage-1 gather's gradient
-    reduce-scatter carries int8.
+    reduce-scatter carries int8; ``QuantizedReducePending`` issues it
+    as async work (the async 'pod' gradient reduce).
   * qwZ -- ``QuantizedPending`` / ``quantized_gather``: the stage-1
     weight all-gather itself carries int8 blocks and fp32 scales,
     dequantized on arrival. Under FCDP the dequantized result is what
@@ -47,26 +48,50 @@ def int8_psum_scatter(g: torch.Tensor, coll, axis: str,
     blocks), all-to-all the chunks so rank j receives every rank's chunk
     j, then fold them with the dequant-accumulate loop. Returns this
     rank's block of the sum, in g's dtype."""
-    n = coll.mesh.mesh_shape.size(axis)
-    if n == 1:
-        return g
-    moved = g.movedim(dim, 0)
-    lead = moved.shape[0]
-    if lead % n:
-        raise ValueError(f"dim {dim} of {tuple(g.shape)} does not split "
-                         f"over {n} ranks")
-    chunk_elems = (lead // n) * math.prod(moved.shape[1:])
-    flat = moved.reshape(n, chunk_elems).float()
-    pad = (-chunk_elems) % BLOCK
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    nb = flat.shape[1] // BLOCK                    # blocks per chunk
-    q, scale = kops.int8_quantize_blocks(flat.reshape(n * nb, BLOCK))
-    q_x = coll.all_to_all(q, axis).reshape(n, nb, BLOCK)
-    s_x = coll.all_to_all(scale, axis).reshape(n, nb, 1)
-    summed = kops.int8_dequant_accumulate(q_x, s_x).reshape(-1)
-    out = summed[:chunk_elems].reshape((lead // n,) + tuple(moved.shape[1:]))
-    return out.movedim(0, dim).to(g.dtype)
+    return QuantizedReducePending(g, coll, axis, dim).wait()
+
+
+class QuantizedReducePending:
+    """A qgZ reduce-scatter in flight (``int8_psum_scatter`` issued as
+    async work): the chunks were quantized at issue and their blocks and
+    scales are in the all-to-all; ``wait()`` folds them with the
+    dequant-accumulate loop. The same bytes and kernel calls as
+    ``int8_psum_scatter``."""
+
+    def __init__(self, g: torch.Tensor, coll, axis: str, dim: int):
+        self.n = n = coll.mesh.mesh_shape.size(axis)
+        self.dim, self.dtype = dim, g.dtype
+        if n == 1:
+            self.value, self.parts = g, None
+            return
+        moved = g.movedim(dim, 0)
+        lead = moved.shape[0]
+        if lead % n:
+            raise ValueError(f"dim {dim} of {tuple(g.shape)} does not split "
+                             f"over {n} ranks")
+        self.shape = (lead // n,) + tuple(moved.shape[1:])
+        self.chunk_elems = math.prod(self.shape)
+        flat = moved.reshape(n, self.chunk_elems).float()
+        pad = (-self.chunk_elems) % BLOCK
+        if pad:
+            flat = F.pad(flat, (0, pad))
+        self.nb = flat.shape[1] // BLOCK               # blocks per chunk
+        q, scale = kops.int8_quantize_blocks(flat.reshape(n * self.nb,
+                                                          BLOCK))
+        self.value = None
+        self.parts = (coll.all_to_all_async(q, axis),
+                      coll.all_to_all_async(scale, axis))
+
+    def wait(self) -> torch.Tensor:
+        if self.parts is not None:
+            q_x, s_x = (p.wait() for p in self.parts)
+            self.parts = None
+            summed = kops.int8_dequant_accumulate(
+                q_x.reshape(self.n, self.nb, BLOCK),
+                s_x.reshape(self.n, self.nb, 1)).reshape(-1)
+            out = summed[:self.chunk_elems].reshape(self.shape)
+            self.value = out.movedim(0, self.dim).to(self.dtype)
+        return self.value
 
 
 class QuantizedPending:

@@ -36,6 +36,7 @@ stay exact.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -128,6 +129,15 @@ class ParamResidency:
         return self.is_gathered and bool(self.stage1_axes)
 
     @property
+    def stage1_resident(self) -> bool:
+        """Whether this is the residency of a leaf whose stage 1 already
+        ran outside the step body (``as_stage1_resident``): the cache
+        boundary sits after a stage 1 that is no longer there, so the
+        backward reads the resident view itself."""
+        return self.is_gathered and self.cache_after == 1 \
+            and not self.stage1_axes
+
+    @property
     def receives_gradient(self) -> bool:
         return self.trainable
 
@@ -179,6 +189,23 @@ def split_train_indices(residencies) -> Tuple[List[int], List[int]]:
     for i, r in enumerate(residencies):
         (train if residency_of(r).trainable else frozen).append(i)
     return train, frozen
+
+
+def as_stage1_resident(res: ParamResidency) -> ParamResidency:
+    """The lifecycle of a leaf whose stage-1 ('pod') gather already ran
+    outside the model (the async gradient reduce differentiates with
+    respect to the stage-1 view): no stage-1 axes remain, the tier is
+    what the stage-1 product is (pod-replicated, or replicated when there
+    was no stage 2), and no stage-1 transport is left to quantize. The
+    JAX package keeps ``quantized_reduce`` here; the port clears it too,
+    since its residency refuses an int8 transport without a stage 1: the
+    deferred reduce reads the original plan's flag."""
+    if not res.stage1_axes:
+        return res
+    return dataclasses.replace(
+        res, stage1_axes=(),
+        tier="pod_replicated" if res.stage2_axes else "replicated",
+        quantized_gather=False, quantized_reduce=False)
 
 
 def residency_of(obj) -> ParamResidency:

@@ -51,7 +51,13 @@ twice zero3's. The port does not copy that.
 
 Stream capability: ``max_prefetch_depth`` caps the stage-1 prefetch ring
 (``core/schedule.py``); it is 0 where stage 1 is structurally empty
-(mics, hier). The async and cross-step streams come later.
+(mics, hier). ``supports_async_grad_reduce`` and ``supports_cross_step``
+say whether the async 'pod' gradient reduce (stream 2) and the
+cross-step optimizer epilogue (stream 3) apply; mics and hier decline
+both, and a composite accepts them when any of its groups streams (the
+carried epilogue then covers every group's widened collectives). The
+gates ``async_grad_reduce_active`` / ``cross_step_active`` also need the
+flag and a 'pod' axis of size > 1.
 """
 from __future__ import annotations
 
@@ -156,6 +162,12 @@ class ShardingStrategy:
     # how deep the stage-1 prefetch ring may run (0: stage 1 is
     # structurally empty, as for mics and hier)
     max_prefetch_depth: int = 8
+    # whether the async 'pod' gradient reduce (stream 2) applies: it
+    # needs a per-microbatch stage-1 reduce to move
+    supports_async_grad_reduce: bool = True
+    # whether the cross-step optimizer epilogue (stream 3) applies: it
+    # carries the last microbatch's stage-1 reduce across the step
+    supports_cross_step: bool = True
 
     @property
     def supports_prefetch(self) -> bool:
@@ -314,6 +326,23 @@ class ShardingStrategy:
     def prefetch_active(self, sys, mesh_like) -> bool:
         return self.prefetch_depth(sys, mesh_like) > 0
 
+    # -- streams 2 and 3 --------------------------------------------------------
+    def async_grad_reduce_active(self, sys, mesh_like) -> bool:
+        """Whether the async 'pod' gradient reduce applies: the flag, a
+        strategy with a stage 1, and a 'pod' axis of size > 1 (a
+        ``mesh_like`` with only ``axis_names`` counts its presence)."""
+        return (bool(getattr(sys, "async_grad_reduce", False))
+                and self.supports_async_grad_reduce
+                and _has_pod(mesh_like))
+
+    def cross_step_active(self, sys, mesh_like) -> bool:
+        """Whether the cross-step optimizer epilogue applies: it rides
+        the async reduce (the carried pending gradient is stream 2's
+        deferred reduce), so that must apply too."""
+        return (bool(getattr(sys, "cross_step_pipeline", False))
+                and self.supports_cross_step
+                and self.async_grad_reduce_active(sys, mesh_like))
+
     # -- byte accounting --------------------------------------------------------
     def cached_bytes_for(self, pdef, plan: GatherPlan, mesh) -> float:
         """Per-rank bytes of this leaf's cached tier, in the def's dtype
@@ -379,6 +408,8 @@ class MiCS(ShardingStrategy):
     cache_placement = "regather"
     supports_quantized_gather = False
     max_prefetch_depth = 0
+    supports_async_grad_reduce = False
+    supports_cross_step = False
 
     def storage_fsdp_axes(self, mesh, frozen: bool) -> Tuple[str, ...]:
         return intra_fsdp_axes(mesh)
@@ -471,6 +502,17 @@ class CompositeStrategy(ShardingStrategy):
         return min(caps) if caps else 0
 
     @property
+    def supports_async_grad_reduce(self) -> bool:
+        return any(s.supports_async_grad_reduce for s in self.groups.values())
+
+    @property
+    def supports_cross_step(self) -> bool:
+        # any streaming group enables the carry; the carried epilogue then
+        # covers every group's once-a-step collectives (a hier group's
+        # widening reduce-scatter and gather back included)
+        return any(s.supports_cross_step for s in self.groups.values())
+
+    @property
     def cache_placement(self) -> str:
         # whole-model view only; the placement travels per plan
         return self.default.cache_placement
@@ -486,6 +528,13 @@ class CompositeStrategy(ShardingStrategy):
     def __repr__(self) -> str:
         return (f"<CompositeStrategy default={self.default.name!r} "
                 f"groups={self.group_names()}>")
+
+
+def _has_pod(mesh_like) -> bool:
+    if INTER_AXIS not in tuple(mesh_like.axis_names):
+        return False
+    size = getattr(mesh_like, "size", None)
+    return size is None or size(INTER_AXIS) > 1
 
 
 def leaf_group(strategy, pdef) -> str:

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import pickle
@@ -40,11 +41,13 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.collectives import Collectives, pick_backend
 from repro_torch.core.engine import StepBundle
 from repro_torch.core.engine.train import (act_int8_launch_plan,
-                                           int8_launch_plan,
+                                           carry_bytes, int8_launch_plan,
                                            matmul_chunk_launch_plan)
 from repro_torch.core.partition import tree_items
 from repro_torch.core.peft import unfreeze_all
-from repro_torch.core.schedule import prefetch_buffer_bytes
+from repro_torch.core.schedule import (async_buffer_bytes,
+                                      cross_step_buffer_bytes,
+                                      prefetch_buffer_bytes)
 from repro_torch.core.strategy import strategy_names
 from repro_torch.data.pipeline import DataConfig, ShardedLoader, SyntheticPackedLM
 from repro_torch.kernels import ops
@@ -64,7 +67,10 @@ class ModeRun:
     ``all_trainable`` every leaf of that tree trains, the reference
     arm), the transport of the tensor-parallel activation all-reduces
     (``act_psum``: "bf16" | "int8"), the depth of the stage-1 prefetch
-    ring (``prefetch_depth``), the microbatch count, and its steps.
+    ring (``prefetch_depth``), the scheduler's streams 2 and 3
+    (``async_grad_reduce``, ``cross_step_pipeline``), the microbatch
+    count, and its steps (batches: under the cross-step schedule S
+    batches take a prime, S - 1 piped calls and a flush).
     ``defs_fn`` transforms the classified def tree (``StepBundle``'s
     hook, as the JAX bundle's; a module-level function, since the job
     is pickled to the ranks)."""
@@ -85,6 +91,8 @@ class ModeRun:
     all_trainable: bool = False
     act_psum: str = "bf16"
     prefetch_depth: int = 0
+    async_grad_reduce: bool = False
+    cross_step_pipeline: bool = False
     defs_fn: Optional[Callable] = None
 
 
@@ -96,7 +104,9 @@ class TrainJob:
     batches (``batches``, global numpy batches per step, or
     ``SyntheticPackedLM``'s). ``return_params`` returns each rank's
     shards after the first step (``params``) and after the last
-    (``final_params``)."""
+    (``final_params``). Every run returns a SHA-256 of the bytes of
+    this rank's shards after its last call (``final_digest``), which is
+    equal for two runs whose shards are equal bit for bit."""
     run: RunConfig
     mesh: MeshShape
     runs: List[ModeRun]
@@ -121,7 +131,9 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
                                lora_alpha=mr.lora_alpha,
                                mode_overrides=mr.mode_overrides,
                                act_psum=mr.act_psum,
-                               prefetch_depth=mr.prefetch_depth)
+                               prefetch_depth=mr.prefetch_depth,
+                               async_grad_reduce=mr.async_grad_reduce,
+                               cross_step_pipeline=mr.cross_step_pipeline)
     run = dataclasses.replace(job.run, system=sysc,
                               microbatch=mr.microbatch)
     bundle = StepBundle(run, device=device, mesh=mesh,
@@ -146,6 +158,7 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
     mm = ops.matmul_chunk
     for f in (*ops.INT8_KERNELS.values(), mm):    # counts start at 0 per run
         f.launches = f.calls = 0
+    ms, strategy = bundle.mesh_shape, bundle.strategy
     out = {"run": dataclasses.asdict(mr), "metrics": [], "bytes": [],
            "launches": [], "calls": [], "step_s": [], "cached": [],
            "cache_places": [], "int8_plan": int8_launch_plan(bundle),
@@ -154,26 +167,56 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
            "mm_plan": matmul_chunk_launch_plan(bundle),
            "live_depth": [], "ring_bytes": [],
            "prefetch_buffer_bytes": prefetch_buffer_bytes(
-               bundle.strategy, bundle.def_leaves, bundle.plan_leaves,
-               bundle.mesh_shape, min(sched.depth, bundle.model.n_groups)),
+               strategy, bundle.def_leaves, bundle.plan_leaves, ms,
+               min(sched.depth, bundle.model.n_groups)),
+           "async_live": step.use_async, "cross_step_live": step.use_xstep,
+           "async_buffer_bytes": async_buffer_bytes(
+               strategy, bundle.def_leaves, bundle.plan_leaves, ms),
+           "cross_step_buffer_bytes": cross_step_buffer_bytes(
+               strategy, bundle.def_leaves, bundle.plan_leaves, ms),
+           "kinds": [], "carry_bytes": [], "memory": [],
            "widened": {bundle.paths[bundle.train_idx[j]]: list(axes)
                        for j, (_, axes) in bundle.widen.items()},
            "params_total": sum(d.size() for d in bundle.def_leaves),
            "params_trainable": sum(bundle.def_leaves[i].size()
                                    for i in bundle.train_idx)}
-    for s in range(mr.steps):
-        batch = (bundle.shard_batch(job.batches[s]) if job.batches
-                 else loader.get(s))
+    carry = None
+    peak = 0               # the run's peak: the step resets it each call
+
+    def call(kind: str, s: int):
+        """One call of the step (a fused step, or the cross-step
+        schedule's prime, piped or flush), timed and recorded."""
+        nonlocal carry, peak
         before = coll.snapshot()
         launches = {k: f.launches for k, f in ops.INT8_KERNELS.items()}
         calls = {k: f.calls for k, f in ops.INT8_KERNELS.items()}
         mm_launches, mm_calls = mm.launches, mm.calls
+        batch = None
+        if kind != "flush":
+            batch = (bundle.shard_batch(job.batches[s]) if job.batches
+                     else loader.get(s))
         dist.barrier()
+        if device.type == "cuda":
+            peak = max(peak, torch.cuda.max_memory_allocated(device))
         t0 = time.perf_counter()
-        m = step(params, opt, batch)
+        if kind == "step":
+            m = step(params, opt, batch)
+        elif kind == "prime":
+            carry, m = step.prime(params, opt, batch)
+        elif kind == "piped":
+            carry, m = step.piped(params, opt, carry, batch)
+        else:
+            m = step.flush(params, opt, carry)
+            carry = None
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         out["step_s"].append(time.perf_counter() - t0)
+        out["kinds"].append(kind)
+        out["memory"].append(dict(step.memory))
+        peak = max([peak] + [p for p, _ in step.memory.values()])
+        out["carry_bytes"].append(carry_bytes(carry) if carry else 0)
+        if step.use_xstep:       # prime's grad norm is not a norm yet
+            m = dict(m, primed=kind == "prime")
         out["metrics"].append(m)
         after = coll.snapshot()
         out["bytes"].append({k: v - before.get(k, 0.0)
@@ -190,12 +233,22 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
         out["cached"].append(dict(step.gather.cached))
         out["cache_places"].append({k: sorted(v) for k, v in
                                     step.gather.cache_places.items()})
+
+    for s in range(mr.steps):
+        call(("piped" if s else "prime") if step.use_xstep else "step", s)
         if job.return_params and s == 0:
             out["params"] = {path: t.detach().cpu().float().numpy()
                              for path, t in tree_items(params)}
             out["specs"] = dict(zip(bundle.paths, bundle.leaf_specs))
             out["opt_dtypes"] = {k: str(opt[k][0].dtype).split(".")[-1]
                                  for k in ("m", "v", "master")}
+    if step.use_xstep:
+        call("flush", mr.steps)
+    digest = hashlib.sha256()
+    for _, t in tree_items(params):
+        digest.update(t.detach().cpu().contiguous().view(torch.uint8)
+                      .numpy().tobytes())
+    out["final_digest"] = digest.hexdigest()
     if job.return_params:
         out["final_params"] = {path: t.detach().cpu().float().numpy()
                                for path, t in tree_items(params)}
@@ -206,7 +259,8 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
             bool(t.detach().abs().max() > 0)
             for path, t in tree_items(params) if path.endswith("_lora_b"))
     if device.type == "cuda":
-        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+        out["peak_mem_bytes"] = max(
+            peak, torch.cuda.max_memory_allocated(device))
     del params, opt, step, frozen0
     return out
 
@@ -328,8 +382,11 @@ def build_run(args) -> RunConfig:
                         peft=args.peft, lora_rank=args.lora_rank,
                         lora_alpha=args.lora_alpha,
                         mode_overrides=tuple(args.mode_override),
-                        prefetch_depth=args.prefetch_depth, **lora)
+                        prefetch_depth=args.prefetch_depth,
+                        async_grad_reduce=args.async_grad_reduce,
+                        cross_step_pipeline=args.cross_step_pipeline, **lora)
     return RunConfig(model=cfg, shape=cell, system=sysc,
+                     microbatch=args.microbatch,
                      optimizer=OptimizerConfig(
                          lr=args.lr, total_steps=args.steps,
                          warmup_steps=max(args.steps // 20, 1)))
@@ -379,6 +436,15 @@ def parser() -> argparse.ArgumentParser:
                          "gather is issued before layer i's compute (0: "
                          "the sequential schedule; inert under mics and "
                          "hier and without a pod axis)")
+    ap.add_argument("--async-grad-reduce", action="store_true",
+                    help="differentiate each microbatch w.r.t. a stage-1 "
+                         "view and retire its 'pod' gradient reduce-scatter "
+                         "one microbatch later (needs --microbatch >= 2; "
+                         "inert under mics and hier and without a pod axis)")
+    ap.add_argument("--cross-step-pipeline", action="store_true",
+                    help="carry the last 'pod' reduce, the clip, AdamW and "
+                         "the widened gather back across the step boundary "
+                         "(needs --async-grad-reduce and --microbatch >= 2)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -404,31 +470,41 @@ def main(argv=None):
                                  peft=sysc.peft, lora_rank=sysc.lora_rank,
                                  lora_alpha=sysc.lora_alpha,
                                  mode_overrides=sysc.mode_overrides,
-                                 prefetch_depth=sysc.prefetch_depth)],
+                                 prefetch_depth=sysc.prefetch_depth,
+                                 async_grad_reduce=sysc.async_grad_reduce,
+                                 cross_step_pipeline=(
+                                     sysc.cross_step_pipeline))],
                    device=args.device, seed=args.seed)
     t0 = time.perf_counter()
     res = run_job(job, rank, world, local_world, "env://")
     if rank == 0:
         r = res["runs"][0]
-        for s, m in enumerate(r["metrics"]):
-            print(f"step {s:5d} loss {m['loss']:.4f} "
-                  f"gnorm {m['grad_norm']:.3f} ({r['step_s'][s]:.2f}s)")
+        for s, (kind, m) in enumerate(zip(r["kinds"], r["metrics"])):
+            loss = f"loss {m['loss']:.4f} " if "loss" in m else ""
+            print(f"{kind} {s:5d} {loss}gnorm {m['grad_norm']:.3f} "
+                  f"({r['step_s'][s]:.2f}s)")
+        last = max(i for i, k in enumerate(r["kinds"]) if k != "flush")
         print(json.dumps({
             "mode": args.mode, "mesh": job.mesh.shape,
             "backend": res["backend"], "device": res["device"],
-            "final_loss": r["metrics"][-1]["loss"],
-            "bytes_per_step": r["bytes"][-1],
-            "int8_calls_per_step": r["calls"][-1],
+            "final_loss": r["metrics"][last]["loss"],
+            "bytes_per_step": r["bytes"][last],
+            "int8_calls_per_step": r["calls"][last],
             "int8_act_allreduce_plan": r["act_int8_plan"],
             "fused_matmul": args.fused_matmul,
-            "matmul_chunk_calls_per_step": r["mm_calls"][-1],
+            "matmul_chunk_calls_per_step": r["mm_calls"][last],
             "peft": args.peft, "mode_overrides": sysc.mode_overrides,
             "prefetch_depth": args.prefetch_depth,
-            "live_depth": r["live_depth"][-1],
-            "ring_bytes": r["ring_bytes"][-1],
+            "live_depth": r["live_depth"][last],
+            "ring_bytes": r["ring_bytes"][last],
             "prefetch_buffer_bytes": r["prefetch_buffer_bytes"],
+            "async_live": r["async_live"],
+            "cross_step_live": r["cross_step_live"],
+            "async_buffer_bytes": r["async_buffer_bytes"],
+            "cross_step_buffer_bytes": r["cross_step_buffer_bytes"],
+            "carry_bytes": max(r["carry_bytes"]),
             "widened": r["widened"],
-            "cache_places": r["cache_places"][-1],
+            "cache_places": r["cache_places"][last],
             "trainable_frac": r["params_trainable"] / r["params_total"],
             "wall_s": time.perf_counter() - t0}))
     return res
