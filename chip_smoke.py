@@ -33,8 +33,8 @@ non-zero:
                 model 1; the ranks share the card, so the wire is gloo
                 over host memory), qwen2.5-3b at full width and depth 2
                 (random weights from seed 0), seq 512, global batch 8:
-                one step each of zero3, zeropp and fcdp, then 3 steps
-                of fcdp with int8 qwZ/qgZ, then 2 steps each of fcdp
+                one step each of zero3, zeropp and fcdp, fcdp with
+                int8 qwZ/qgZ, and fcdp
                 with the gather-fused collective matmul in modes
                 ag_matmul and both. Checks the losses agree, the int8
                 kernels and the chunk-matmul kernel ran as often as the
@@ -80,9 +80,9 @@ non-zero:
  11. peft_train -- PEFT / FCDP-Comm on the train path: qwen2.5-3b at
                 full width and depth 2 on the 4 ranks of phase 5, the
                 trunk frozen and LoRA adapters of rank 8 on wq/wk/wv/wo,
-                grad_clip 1e9: 2 steps each of zero3, zeropp, fcdp and
-                mics, 3 of fcdp with int8 qwZ/qgZ (on the adapters) and
-                2 of the mixed arm (trunk fcdp, '*lora*=zero3'). Checks
+                grad_clip 1e9: one step each of zero3, zeropp, fcdp and
+                mics, of fcdp with int8 qwZ/qgZ (on the adapters) and
+                one of the mixed arm (trunk fcdp, '*lora*=zero3'). Checks
                 finite losses the ranks agree on, the modes' step-0
                 loss and grad norm equal, every frozen shard unchanged
                 bit for bit and some lora_b moved, a trainable fraction
@@ -100,8 +100,8 @@ non-zero:
                 launcher's 8-rank mesh (pod 2 x data 2 x model 2) sharing
                 the card (gloo): one step each of zero3, fcdp, fcdp with
                 int8 qwZ/qgZ and the int8 TP activation all-reduce, and
-                fcdp with the gather-fused matmul, and 2 steps of fcdp
-                with the int8 activation all-reduce. Checks finite
+                fcdp with the gather-fused matmul, and fcdp with the
+                int8 activation all-reduce. Checks finite
                 losses the ranks agree on, zero3's, fcdp's and the fused
                 run's step-0 loss and grad norm equal, the int8 runs
                 within 0.08 of fcdp, every rank's int8 and chunk-matmul
@@ -160,6 +160,32 @@ non-zero:
                 steps and cross-step calls (2 batches) on the card and on
                 the CPU from the same weights: losses and grad norms
                 within tolerance, the same bytes and carry.
+ 19. cache_train -- FCDP-Cache: qwen2.5-3b at full width and depth 2,
+                seq 512, global batch 8, on phase 5's 4 ranks: one step
+                each of fcdp at device-cache fraction 0.5, fcdp under
+                the save_collectives activation policy and fcdp with
+                int8 qwZ/qgZ and ag_matmul under block_io; then, on
+                every rank, ``MemoryPlanner.plan`` (fcdp at prefetch
+                depth 1, fractions 1.0 and 0.0) at an impossible budget,
+                each attempt one trial step read from the allocator (its
+                fraction-1.0 and fraction-0 steps the fraction's other
+                two points, its fallback the block_io step), and again
+                at a budget halfway between the walk's two lowest
+                distinct peaks, taking the walk's peaks over the budget
+                and measuring the first attempt under it again; then
+                ``plan_serve`` over phase 3's paged pool on this process
+                (its budget the card's memory). Checks every arm's and
+                attempt's pod all-gather equal to
+                ``stage1_dcn_gather_bytes``, the measured cache tiers
+                moving by whole layers with the fraction while the
+                analytic figures, the bytes and the values stay
+                fraction 0's, block_io and save_collectives within the
+                step tolerances of save_all, the launches equal to the
+                extended plans, the ranks walking the same attempts in
+                the reference's demote order, the mid-budget plan
+                fitting at the walk's first attempt under it, and the
+                serve pool fitting the card; reports the peaks, the
+                memory by part, the tiers and the launches.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
 plain versions at the train and PEFT phases' shapes, at the int8 TP
@@ -1648,7 +1674,7 @@ def phase_serve():
          expected_launches=layers * calls, split_counter_buffers=counters,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
          summary=summary,
-         request0_tokens=sorted(results, key=lambda r: r.rid)[0].tokens)
+         requesf0tokens=sorted(results, key=lambda r: r.rid)[0].tokens)
     return launches
 
 
@@ -1782,9 +1808,9 @@ def phase_train():
     cfg = dataclasses.replace(get_config("qwen2.5-3b"),
                               num_layers=TRAIN_DEPTH)
     runs = [ModeRun("zero3"), ModeRun("zeropp"), ModeRun("fcdp"),
-            ModeRun("fcdp", "int8_pod", "int8_pod", steps=3),
-            ModeRun("fcdp", fused_matmul="ag_matmul", steps=2),
-            ModeRun("fcdp", fused_matmul="both", steps=2)]
+            ModeRun("fcdp", "int8_pod", "int8_pod"),
+            ModeRun("fcdp", fused_matmul="ag_matmul"),
+            ModeRun("fcdp", fused_matmul="both")]
     job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs)
     t0 = time.perf_counter()
     ranks = spawn(job, timeout_s=900)
@@ -1995,10 +2021,10 @@ def phase_peft_train(train_fcdp_bytes):
     cfg = dataclasses.replace(get_config("qwen2.5-3b"),
                               num_layers=TRAIN_DEPTH)
     peft = dict(peft=True, lora_rank=PEFT_RANK)
-    runs = [ModeRun(m, steps=2, **peft)
+    runs = [ModeRun(m, **peft)
             for m in ("zero3", "zeropp", "fcdp", "mics")] + [
-        ModeRun("fcdp", "int8_pod", "int8_pod", steps=3, **peft),
-        ModeRun("fcdp", steps=2, mode_overrides=PEFT_MIXED, **peft)]
+        ModeRun("fcdp", "int8_pod", "int8_pod", **peft),
+        ModeRun("fcdp", mode_overrides=PEFT_MIXED, **peft)]
     job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs, grad_clip=1e9)
     t0 = time.perf_counter()
     ranks = spawn(job, timeout_s=900)
@@ -2165,7 +2191,7 @@ def phase_tp_train():
     """The train path tensor-parallel: qwen2.5-3b at full width, depth 2,
     seq 512, global batch 8, on the launcher's 8-rank mesh (pod 2, data
     2, model 2) sharing the card (gloo): zero3, fcdp, fcdp with the int8
-    TP activation all-reduce (2 steps), fcdp with int8 qwZ/qgZ and act
+    TP activation all-reduce, fcdp with int8 qwZ/qgZ and act
     int8, and fcdp with the gather-fused matmul."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import train_mesh_shape
@@ -2177,7 +2203,7 @@ def phase_tp_train():
     check(mesh.shape == {"pod": 2, "data": 2, "model": 2},
           f"the launcher's 8-rank mesh is {mesh.shape}")
     runs = [ModeRun("zero3"), ModeRun("fcdp"),
-            ModeRun("fcdp", act_psum="int8", steps=2),
+            ModeRun("fcdp", act_psum="int8"),
             ModeRun("fcdp", "int8_pod", "int8_pod", act_psum="int8"),
             ModeRun("fcdp", fused_matmul="ag_matmul")]
     job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs,
@@ -2708,6 +2734,286 @@ def phase_stream_parity():
          wall_s={"cuda": t_g, "cpu": t_c})
 
 
+CACHE_FRACTIONS = (0.0, 0.5, 1.0)
+# (name, ModeRun keywords): the arms the planner's walk does not cover:
+# the middle fraction (the walk's trial steps give 1.0 and 0.0),
+# save_collectives, and qwZ/qgZ + ag_matmul under block_io
+CACHE_RUNS = (
+    ("fcdp_f0.5", dict(mode="fcdp", device_cache_fraction=0.5)),
+    ("fcdp_save_collectives", dict(mode="fcdp",
+                                   activation_policy="save_collectives")),
+    ("fcdp_q8_ag_block_io", dict(mode="fcdp", param_compress="int8_pod",
+                                 grad_compress="int8_pod",
+                                 fused_matmul="ag_matmul",
+                                 activation_policy="block_io")))
+# the planner's walk: fcdp at prefetch depth 1 over fractions (1.0, 0.0)
+CACHE_WALK = dict(prefetch_depth=1, fractions=(1.0, 0.0))
+
+
+def _attempt_key(it):
+    """A planner attempt's configuration (a serve attempt has no
+    cross-step carry)."""
+    return (it["device_fraction"], it["prefetch_depth"],
+            it.get("cross_step", False), it["activation_policy"])
+
+
+def _cache_task(job, mesh, coll, device):
+    """On every rank of phase cache_train: the planner's walk at an
+    impossible budget, each attempt one trial step; then a plan at a
+    budget halfway between the walk's two lowest distinct peaks, which
+    takes the walk's peaks for the attempts over that budget and
+    measures the first under it again. Returns both plans, what each
+    trial step measured on this rank (``MemoryPlanner.trials``) and the
+    budget."""
+    from repro_torch.core.cache import MemoryPlanner
+
+    run = dataclasses.replace(job.run, system=dataclasses.replace(
+        job.run.system, mode="fcdp",
+        prefetch_depth=CACHE_WALK["prefetch_depth"]))
+    out = {}
+    walk = MemoryPlanner(hbm_budget=1, coll=coll, device=device,
+                         seed=job.seed)
+    out["walk"] = dataclasses.asdict(walk.plan(run, mesh,
+                                               CACHE_WALK["fractions"]))
+    out["walk_trials"] = walk.trials
+    its = out["walk"]["iterations"]
+    peaks = sorted({it["peak_bytes"] for it in its})
+    budget = out["budget"] = (peaks[0] + peaks[1]) // 2 \
+        if len(peaks) > 1 else peaks[0]
+    over = {_attempt_key(it): it["peak_bytes"] for it in its
+            if it["peak_bytes"] > budget}
+
+    class Recorded(MemoryPlanner):
+        def _peak(self, bundle):
+            s = bundle.run.system
+            key = (s.device_cache_fraction, s.prefetch_depth,
+                   s.cross_step_pipeline, s.activation_policy)
+            return over[key] if key in over else super()._peak(bundle)
+
+    mid = Recorded(hbm_budget=budget, coll=coll, device=device,
+                   seed=job.seed)
+    out["mid"] = dataclasses.asdict(mid.plan(run, mesh,
+                                             CACHE_WALK["fractions"]))
+    out["mid_trials"] = mid.trials
+    return out
+
+
+def _gib_parts(memory):
+    """A step's memory by part (``TrainStep.memory``) in GiB."""
+    return {p: {k: v / 2**30 for k, v in zip(("peak", "live"), pv)}
+            for p, pv in memory.items()}
+
+
+def phase_cache_train():
+    """FCDP-Cache on the train path: qwen2.5-3b at full width, depth 2,
+    seq 512, global batch 8, on phase train's 4 ranks: ``CACHE_RUNS``,
+    then the planner's walk and mid-budget plan on every rank
+    (``_cache_task``), the walk's trial steps giving fractions 1.0 and
+    0.0 (the measured cache tiers against the analytic ones); then one
+    ``plan_serve`` over the paged serve cell's pool on this process."""
+    import math
+
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeCell, SystemConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.cache import MemoryPlanner
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.core.engine.serve import default_paged_kv
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.train import ModeRun, spawn
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=TRAIN_DEPTH)
+    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                     [ModeRun(**kw) for _, kw in CACHE_RUNS],
+                     task=_cache_task)
+    t0 = time.perf_counter()
+    ranks = spawn(job, timeout_s=900)
+    wall = time.perf_counter() - t0
+    by = {name: [rk["runs"][i] for rk in ranks]
+          for i, (name, _) in enumerate(CACHE_RUNS)}
+    arms = {}
+    for name, kw in CACHE_RUNS:
+        rs = by[name]
+        r0 = rs[0]
+        m = r0["metrics"][0]
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"cache {name}: a metric is not finite: {m}")
+        check(all(r["metrics"] == r0["metrics"] for r in rs),
+              f"cache {name}: the ranks disagree on the metrics")
+        for r in rs:
+            check(r["launches"] == [r["int8_plan"]]
+                  and r["mm_launches"] == [r["mm_plan"]],
+                  f"cache {name}: launches {r['launches']} / "
+                  f"{r['mm_launches']} != the plans' {r['int8_plan']} / "
+                  f"{r['mm_plan']}")
+        acct = r0["cache_accounting"]
+        arms[name] = {
+            "loss": m["loss"], "grad_norm": m["grad_norm"],
+            "measured_cached": r0["cached"][0],
+            "cache_places": r0["cache_places"][0],
+            "analytic": {k: v for k, v in acct.items() if k != "by_group"},
+            "analytic_by_group": acct["by_group"],
+            "all_gather_pod": r0["bytes"][0].get("all_gather/pod", 0.0),
+            "bytes_per_step": r0["bytes"][0],
+            "int8_launches": r0["launches"][0], "int8_plan": r0["int8_plan"],
+            "matmul_chunk_launches": r0["mm_launches"][0],
+            "matmul_chunk_plan": r0["mm_plan"],
+            "memory_gib": {part: {k: max(r["memory"][0][part][i]
+                                         for r in rs) / 2**30
+                                  for i, k in enumerate(("peak", "live"))}
+                           for part in r0["memory"][0]},
+            "peak_mem_gib": [r["peak_mem_bytes"] / 2**30 for r in rs],
+            "step_s": [r["step_s"] for r in rs]}
+        check(arms[name]["all_gather_pod"]
+              == acct["stage1_dcn_gather_bytes_per_chip"],
+              f"cache {name}: pod all-gather {arms[name]['all_gather_pod']} "
+              f"!= stage1_dcn_gather_bytes "
+              f"{acct['stage1_dcn_gather_bytes_per_chip']}")
+    # the planner: every rank walks the same attempts
+    tasks = [rk["task"] for rk in ranks]
+    walk, mid = tasks[0]["walk"], tasks[0]["mid"]
+    check(all(t["walk"] == walk and t["mid"] == mid for t in tasks),
+          "the ranks' planners walked different attempts")
+    k0 = CACHE_WALK["prefetch_depth"]
+    fr = CACHE_WALK["fractions"]
+    want_walk = ([(fr[0], d, False, "save_all") for d in range(k0, 0, -1)]
+                 + [(f, 0, False, "save_all") for f in fr]
+                 + [(0.0, 0, False, "block_io")])
+    keys = [_attempt_key(it) for it in walk["iterations"]]
+    check(not walk["fits"] and keys == want_walk,
+          f"the walk's attempts {keys} != {want_walk}")
+    check(all(it["peak_bytes"] > 0 for it in walk["iterations"]),
+          "an attempt measured no peak")
+    # each attempt's trial step: the ranks agree, the pod all-gather is
+    # the analytic figure
+    trials = []
+    for i, it in enumerate(walk["iterations"]):
+        ts = [t["walk_trials"][i] for t in tasks]
+        m = ts[0]["metrics"]
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              and all(t["metrics"] == m for t in ts),
+              f"walk attempt {keys[i]}: metrics {[t['metrics'] for t in ts]}")
+        check(ts[0]["bytes"].get("all_gather/pod", 0.0)
+              == it["stage1_dcn_gather_bytes"],
+              f"walk attempt {keys[i]}: pod all-gather {ts[0]['bytes']} != "
+              f"stage1_dcn_gather_bytes {it['stage1_dcn_gather_bytes']}")
+        trials.append(ts[0])
+    # the fraction moves whole layers' caches from the host to the device
+    # and nothing else: the same analytic figures, bytes and values
+    by_frac = {1.0: trials[keys.index((1.0, 0, False, "save_all"))],
+               0.0: trials[keys.index((0.0, 0, False, "save_all"))]}
+    f05 = arms["fcdp_f0.5"]
+    by_frac[0.5] = {"cached": f05["measured_cached"],
+                    "bytes": f05["bytes_per_step"],
+                    "metrics": {"loss": f05["loss"],
+                                "grad_norm": f05["grad_norm"]}}
+    f0 = by_frac[0.0]
+    layer = f0["cached"]["host"] / TRAIN_DEPTH
+    analytic = walk["iterations"][keys.index((0.0, 0, False, "save_all"))]
+    for f in CACHE_FRACTIONS:
+        a = by_frac[f]
+        n_dev = int(round(f * TRAIN_DEPTH))
+        want = {k: v for k, v in (("device", n_dev * layer),
+                                  ("host", (TRAIN_DEPTH - n_dev) * layer))
+                if v}
+        check(a["cached"] == want,
+              f"cache fraction {f}: measured tiers {a['cached']} != {want}")
+        check(a["bytes"] == f0["bytes"],
+              f"cache fraction {f}: the bytes moved: {a['bytes']} != "
+              f"{f0['bytes']}")
+        check(a["metrics"]["loss"] == f0["metrics"]["loss"]
+              and a["metrics"]["grad_norm"] == f0["metrics"]["grad_norm"],
+              f"cache fraction {f}: {a['metrics']} != fraction 0's "
+              f"{f0['metrics']}")
+    # (the depth-1 attempt adds its ring slot's bytes)
+    check(all(it["host_bytes"] == analytic["host_bytes"]
+              and (it["by_group"] == analytic["by_group"]
+                   or it["prefetch_depth"])
+              for it in walk["iterations"])
+          and f05["analytic_by_group"] == analytic["by_group"],
+          "cache: the analytic figures moved with the fraction or policy")
+    base = f0["metrics"]
+    blk = trials[keys.index((0.0, 0, False, "block_io"))]
+    for name, m in (("block_io", blk["metrics"]),
+                    ("save_collectives", arms["fcdp_save_collectives"])):
+        check(_rel(m["loss"], base["loss"]) <= LOSS_RTOL
+              and _rel(m["grad_norm"], base["grad_norm"]) <= GNORM_RTOL,
+              f"{name} ({m['loss']}, {m['grad_norm']}) != save_all "
+              f"({base['loss']}, {base['grad_norm']})")
+    check(blk["bytes"] == f0["bytes"],
+          f"block_io's bytes {blk['bytes']} != save_all's {f0['bytes']}")
+    q8 = arms["fcdp_q8_ag_block_io"]
+    check(_rel(q8["loss"], base["loss"]) <= INT8_DRIFT
+          and all(v > 0 for v in q8["int8_launches"].values())
+          and q8["matmul_chunk_launches"] > 0,
+          f"qwZ/qgZ + ag_matmul block_io: loss {q8['loss']}, launches "
+          f"{q8['int8_launches']} / {q8['matmul_chunk_launches']}")
+    # the mid-budget plan: the walk's peaks over the budget, the first
+    # attempt under it measured again, and fitting there
+    budget = tasks[0]["budget"]
+    first = next(i for i, it in enumerate(walk["iterations"])
+                 if it["peak_bytes"] <= budget)
+    check(mid["fits"] and len(mid["iterations"]) == first + 1
+          and _attempt_key(mid["iterations"][-1]) == keys[first]
+          and len(tasks[0]["mid_trials"]) == 1,
+          f"the plan at budget {budget} fit at "
+          f"{[_attempt_key(i) for i in mid['iterations']]} after "
+          f"{len(tasks[0]['mid_trials'])} trial steps, expected the walk's "
+          f"attempt {first} measured again")
+    # the paged serve cell's pool, on this process, against the card's
+    # memory
+    total = torch.cuda.get_device_properties(0).total_memory
+    flash0 = ops.flash_attention.launches
+    t1 = time.perf_counter()
+    cell = ShapeCell("serve", "decode", 512, 8)
+    run = RunConfig(model=get_config("qwen2.5-3b"), shape=cell,
+                    system=SystemConfig())
+    kv = default_paged_kv(StepBundle(run, device="cuda"), cell)
+    serve_plan = dataclasses.asdict(MemoryPlanner(device="cuda").plan_serve(
+        run, MeshShape(("data", "model"), (1, 1)), kv))
+    serve_s = time.perf_counter() - t1
+    check(serve_plan["fits"] and serve_plan["kv_pages"]
+          == kv.pages_per_replica,
+          f"the paged serve cell does not fit the card: {serve_plan}")
+    launches = {k: sum(r["launches"][0][k] for rs in by.values() for r in rs)
+                for k in QUANT_NAMES}
+    launches["matmul_chunk"] = sum(r["mm_launches"][0]
+                                   for rs in by.values() for r in rs)
+    launches["flash_attention"] = ops.flash_attention.launches - flash0
+
+    def gib(it):
+        return {"attempt": list(_attempt_key(it)),
+                "peak_bytes": it["peak_bytes"],
+                "peak_gib": it["peak_bytes"] / 2**30,
+                "host_bytes": it["host_bytes"],
+                "prefetch_buffer_bytes": it["prefetch_buffer_bytes"],
+                "stage1_dcn_gather_bytes": it.get("stage1_dcn_gather_bytes")}
+    emit("cache_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
+         backend=ranks[0]["backend"], wall_s=wall, hbm_per_chip=total,
+         arms=arms,
+         walk=[dict(gib(it), measured_cached=t["cached"],
+                    loss=t["metrics"]["loss"],
+                    grad_norm=t["metrics"]["grad_norm"],
+                    all_gather_pod=t["bytes"].get("all_gather/pod", 0.0),
+                    memory_gib=_gib_parts(t["memory"]))
+               for it, t in zip(walk["iterations"], trials)],
+         budget=budget, budget_gib=budget / 2**30,
+         mid=[gib(it) for it in mid["iterations"]], mid_fits=mid["fits"],
+         mid_memory_gib=_gib_parts(tasks[0]["mid_trials"][0]["memory"]),
+         mid_peak_minus_walk=(mid["iterations"][-1]["peak_bytes"]
+                              - walk["iterations"][first]["peak_bytes"]),
+         serve_plan={"fits": serve_plan["fits"],
+                     "kv_pages": serve_plan["kv_pages"],
+                     "attempts": [dict(gib(it), kv_pages=it["kv_pages"],
+                                       kv_page_bytes=it["kv_page_bytes"])
+                                  for it in serve_plan["iterations"]]},
+         serve_plan_s=serve_s, kernel_launches_total=launches)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2759,6 +3065,7 @@ def main() -> int:
     phase_sched_parity()
     stream_launches = phase_stream_train()
     phase_stream_parity()
+    cache_launches = phase_cache_train()
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
@@ -2769,7 +3076,8 @@ def main() -> int:
                 if k in c}
     kernels = {"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_TPU_KERNEL, "launches": launches,
+        "replaces": FLASH_TPU_KERNEL,
+        "launches": launches + cache_launches["flash_attention"],
         **entry(prefill), "shape": "prefill_chunk",
         "decode": entry(decode),
         "jamba_launches": jamba_launches["flash_attention"],
@@ -2777,7 +3085,8 @@ def main() -> int:
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
             "replaces": QUANT_TPU_KERNELS[k],
             "launches": train_launches[k] + peft_launches[k]
-            + tp_launches[k] + sched_launches[k] + stream_launches[k],
+            + tp_launches[k] + sched_launches[k] + stream_launches[k]
+            + cache_launches[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
                              if e["kernel"] == QUANT_NAMES[k]}}
@@ -2786,7 +3095,7 @@ def main() -> int:
         "replaces": MM_TPU_KERNEL,
         "launches": train_launches["matmul_chunk"]
         + tp_launches["matmul_chunk"] + sched_launches["matmul_chunk"]
-        + stream_launches["matmul_chunk"],
+        + stream_launches["matmul_chunk"] + cache_launches["matmul_chunk"],
         **entry(mm_main),
         "shape": mm_main["case"],
         "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}, {

@@ -13,6 +13,11 @@ from repro_torch.models.common import ACT_PSUM
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
+# the activation policies of the layer stack's train forward
+# (``models/stack.py``), the JAX package's ``make_remat_policy`` names
+ACTIVATION_POLICIES = ("save_all", "block_io", "offload_acts",
+                       "save_collectives")
+
 
 @dataclass(frozen=True)
 class MoEConfig:
@@ -130,7 +135,22 @@ class SystemConfig:
     widened gather back across the step boundary (prime / piped /
     flush). It requires ``async_grad_reduce``, and ``RunConfig``
     requires ``microbatch >= 2`` with it. A strategy with no stage 1
-    (mics, hier) and a mesh without 'pod' decline both."""
+    (mics, hier) and a mesh without 'pod' decline both.
+
+    FCDP-Cache (``core/cache.py``), as in the JAX package:
+    ``device_cache_fraction`` (tau's output, in [0, 1]) is the share of
+    the stack's leading layers whose stage-1 caches wait on the device
+    instead of the host (``device_cache_groups``: under fcdp only; the
+    other strategies' caches stay where they are). ``host_offload``
+    False keeps every host-placed cache on the device. The
+    ``activation_policy`` (``ACTIVATION_POLICIES``) says what a layer
+    keeps for its backward: "save_all" everything autograd saves (the
+    paper's, torch's default); "block_io" only the layer's input, the
+    layer recomputed in its backward; "offload_acts" the same as
+    block_io, as in the JAX package, where no value carries the
+    activation mark it would offload; "save_collectives" the layer's
+    input and the outputs of its 'model' all-reduces, the rest
+    recomputed (``models/stack.py``)."""
     dtype: str = "bfloat16"
     serve_frozen: bool = True
     mode: str = "fcdp"
@@ -150,6 +170,9 @@ class SystemConfig:
     prefetch_depth: int = 0
     async_grad_reduce: bool = False
     cross_step_pipeline: bool = False
+    device_cache_fraction: float = 0.0
+    activation_policy: str = "save_all"
+    host_offload: bool = True
 
     def __post_init__(self):
         if self.mode_overrides:
@@ -157,6 +180,14 @@ class SystemConfig:
             from repro_torch.core.strategy import normalize_mode_overrides
             object.__setattr__(self, "mode_overrides",
                                normalize_mode_overrides(self.mode_overrides))
+        if not 0.0 <= self.device_cache_fraction <= 1.0:
+            raise ValueError(
+                "device_cache_fraction must be in [0, 1], got "
+                f"{self.device_cache_fraction!r}")
+        if self.activation_policy not in ACTIVATION_POLICIES:
+            raise ValueError(
+                f"unknown activation_policy {self.activation_policy!r}; "
+                f"known: {sorted(ACTIVATION_POLICIES)}")
         for knob in ("dtype", "master_dtype", "opt_state_dtype"):
             if getattr(self, knob) not in DTYPES:
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r}; "

@@ -88,7 +88,8 @@ class TrainStep:
         plans = (stage1_resident_plans(bundle.plans) if self.use_async
                  else bundle.plans)
         self.gather = ParamGather(coll, plans, GatherScheduler(
-            bundle.strategy, self.sys, ms, [p for _, p in tree_items(plans)]))
+            bundle.strategy, self.sys, ms, [p for _, p in tree_items(plans)]),
+            self.sys.host_offload)
         self.primed = False          # a cross-step carry is outstanding
         self.memory: Dict[str, Tuple[int, int]] = {}
         self.widen = bundle.widen
@@ -108,7 +109,8 @@ class TrainStep:
         the data-parallel axes; the aux sum only where it is reported
         (not per microbatch, where the JAX step drops it)."""
         ls, cnt, aux = self.model.loss_fn(params, batch, self.gather,
-                                          self.bundle.defs)
+                                          self.bundle.defs,
+                                          self.bundle.strategy)
         terms = [ls.detach(), cnt.detach()] + ([aux.detach()]
                                                if report_aux else [])
         tot = self.coll.all_reduce(torch.stack(terms), self.dp_axes)
@@ -129,6 +131,7 @@ class TrainStep:
     def _begin(self) -> None:
         self.gather.cached.clear()
         self.gather.cache_places.clear()
+        self.gather.scheduler.reset()
         self.memory = {}
         self._mark("start")
 
@@ -328,12 +331,18 @@ def _act_allreduces(bundle) -> int:
     (micro)batch: under ``act_psum="int8"`` at tp > 1 each attention
     and MLP sublayer of each layer reduces its output in the forward
     (``int8_psum``) and its normed input's gradient in the backward
-    (``int8_bwd_psum``)."""
+    (``int8_bwd_psum``); the block_io and offload_acts activation
+    policies run the forward's again in the recompute, all but the
+    layer's last (``models/common.CollectiveTape``; save_collectives
+    keeps their outputs)."""
     model = bundle.model
-    if bundle.run.system.act_psum != "int8" or model.tp == 1:
+    sys = bundle.run.system
+    if sys.act_psum != "int8" or model.tp == 1:
         return 0
-    return 2 * model.n_groups * sum(k in ("attn", "mlp")
-                                    for kinds in model.plan for k in kinds)
+    n = sum(k in ("attn", "mlp") for kinds in model.plan for k in kinds)
+    again = n - 1 if sys.activation_policy in ("block_io",
+                                                "offload_acts") else 0
+    return model.n_groups * (2 * n + again)
 
 
 def act_int8_launch_plan(bundle) -> Dict[str, int]:
@@ -382,9 +391,16 @@ def int8_launch_plan(bundle) -> Dict[str, int]:
 def matmul_chunk_launch_plan(bundle) -> int:
     """How many times one step calls the fused ring's chunk matmul, from
     the plans: per fused leaf and use (once per layer for a stacked
-    leaf), n chunks in the forward ring over its axis of n ranks, and
-    under 'both' n more in the dx ring and n in the dw ring. Microbatches
-    multiply."""
+    leaf), n chunks in the forward ring over its axis of n ranks, n
+    more where the activation policy's recompute reads the ring's
+    product (``models/common.CollectiveTape.reads``: block_io and
+    offload_acts, and save_collectives at tp 1, for every sublayer's
+    output projection but the layer's last), and under 'both' n more in
+    the dx ring and n in the dw ring. Microbatches multiply."""
+    model, pol = bundle.model, bundle.run.system.activation_policy
+    again = pol in ("block_io", "offload_acts") or (
+        pol == "save_collectives" and model.tp == 1)
+    last = f"blocks.pos{len(model.plan) - 1}.{model.plan[-1][-1]}."
     out = 0
     for i in bundle.train_idx:
         d, plan = bundle.def_leaves[i], bundle.plan_leaves[i]
@@ -392,5 +408,6 @@ def matmul_chunk_launch_plan(bundle) -> int:
             continue
         uses = d.shape[d.dims.index("stack")] if "stack" in d.dims else 1
         n = bundle.mesh_shape.size(plan.intra_axes[0])
-        out += uses * n * (3 if plan.fused == "both" else 1)
+        rings = 1 + (again and not bundle.paths[i].startswith(last))
+        out += uses * n * (rings + (2 if plan.fused == "both" else 0))
     return out * max(bundle.run.microbatch, 1)

@@ -89,6 +89,14 @@ marks the slice with the strategy's tier, host under fcdp, but the
 slice is its layer scan's input, and the view stays on the device for
 the scan's backward either way.)
 
+FCDP-Cache (``core/cache.py``) moves host-placed caches to the device,
+as the JAX package's remat policy does with ``promote_to_device`` and
+``host_offload``: inside ``promoted()`` (a layer of the stack's device
+segment, ``SystemConfig.device_cache_fraction``), and everywhere when
+``host_offload`` is False, a cache the strategy places on the host is
+kept on the device; regather and device caches are left as they are.
+``cached`` and ``cache_places`` report the tier each cache lands on.
+
 The copy to the host is a synchronous ``non_blocking`` copy on the
 current stream; overlapping it on a side stream is later work.
 """
@@ -201,11 +209,16 @@ def gather_stage1(w: torch.Tensor, plan: GatherPlan, coll,
 class FusedParam:
     """A stage-1 result standing in for the full weight of a fused plan:
     ``models.layers.matmul`` runs the stage-2 gather inside the consuming
-    matmul's ring (``kernels/collective_matmul.py``) over ``coll``."""
-    __slots__ = ("cache", "plan", "coll")
+    matmul's ring (``kernels/collective_matmul.py``) over ``coll``. With
+    ``reads`` False (a layer's recompute that never reads the product,
+    ``models/stack.py``) the matmul runs no ring and only its backward
+    is wanted."""
+    __slots__ = ("cache", "plan", "coll", "reads")
 
-    def __init__(self, cache: torch.Tensor, plan: GatherPlan, coll):
+    def __init__(self, cache: torch.Tensor, plan: GatherPlan, coll,
+                 reads: bool = True):
         self.cache, self.plan, self.coll = cache, plan, coll
+        self.reads = reads
 
 
 def gather_stage2(w: torch.Tensor, plan: GatherPlan, coll):
@@ -265,12 +278,15 @@ class ParamGather:
 
     ``cached`` counts, per step, the bytes of the caches kept for the
     backward by tier ('device' | 'host') and where those tensors lie
-    (``cache_places``: (device type, pinned) pairs)."""
+    (``cache_places``: (device type, pinned) pairs). With
+    ``host_offload`` False a host-placed cache stays on the device."""
 
-    def __init__(self, coll, plans, scheduler):
+    def __init__(self, coll, plans, scheduler, host_offload: bool = True):
         self.coll, self.plans = coll, plans
         # the layer loop's schedule (core/schedule.GatherScheduler)
         self.scheduler = scheduler
+        self.host_offload = host_offload
+        self._promote = False
         self._entries: Optional[dict] = None
         self.cached = defaultdict(int)
         self.cache_places = defaultdict(set)
@@ -297,6 +313,8 @@ class ParamGather:
                                               and placement == "regather"):
             # the backward reads the slot's tensor, or the resident
             # stage-1 view, on the device: never regathers nor parks it
+            placement = "device"
+        if placement == "host" and (self._promote or not self.host_offload):
             placement = "device"
         if plan.is_fused:
             if self._entries is not None:
@@ -350,6 +368,16 @@ class ParamGather:
         self.cached[placement] += t.numel() * t.element_size()
         self.cache_places[placement].add((t.device.type, t.is_pinned()))
         return t
+
+    @contextlib.contextmanager
+    def promoted(self, on: bool = True):
+        """Scope of the stack's device segment: host-placed caches wait
+        on the device (FCDP-Cache's promotion)."""
+        prev, self._promote = self._promote, on
+        try:
+            yield
+        finally:
+            self._promote = prev
 
     # -- the layer scope ---------------------------------------------------
     def _pack(self, t: torch.Tensor):

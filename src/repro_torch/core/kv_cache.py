@@ -63,6 +63,28 @@ class PagedKVConfig:
         return -(-total_len // self.page_size)
 
 
+def kv_page_bytes_per_chip(cfg_model, mesh, plan, n_groups: int,
+                           kv: PagedKVConfig) -> float:
+    """Analytic per-rank bytes of the paged KV pools (K+V, bf16), as the
+    JAX package counts them: each attention position holds
+    ``pages_per_replica`` pages of its local slice, ``kv_span`` kv-head
+    slots (the 'model' shard) by head_dim, ``page_size`` tokens a page.
+    ``mesh``: anything with ``size(axis)`` (a ``MeshShape``)."""
+    from repro_torch.models.attention import kv_span
+    from repro_torch.models.common import pad_heads
+    n_attn = sum(1 for kinds in plan for k in kinds if k == "attn")
+    if n_attn == 0:
+        return 0.0
+    tp = mesh.size("model")
+    hd = cfg_model.resolved_head_dim()
+    n_kv = cfg_model.num_kv_heads
+    hp = pad_heads(cfg_model.num_heads, tp)
+    span = kv_span(hp // tp, hp // n_kv, n_kv)
+    elems = (n_groups * n_attn * kv.pages_per_replica * kv.page_size
+             * span * hd)
+    return float(elems * 2 * 2)          # K + V, bf16
+
+
 class PageAllocator:
     """Host-side free-list for ONE replica's page pool. Page 0 (the
     scratch page) is never handed out."""

@@ -65,12 +65,17 @@ class GatherScheduler:
     """The schedule of one stack's layer loop. ``depth`` is resolved
     once: the strategy's cap for the config and mesh
     (``prefetch_depth``), 0 when no plan has a stage 1. ``run`` clamps
-    it to the number of layers (``live_depth``)."""
+    it to the number of layers it runs; each run (a segment of the
+    stack, ``LM._segments``) starts its own ring. ``live_depth`` and
+    ``ring_bytes`` are the most of the runs since ``reset``."""
 
     def __init__(self, strategy, sys, mesh_shape, plan_leaves):
         prefetchable = any(_in_ring(p) for p in plan_leaves)
         self.depth = (strategy.prefetch_depth(sys, mesh_shape)
                       if prefetchable else 0)
+        self.reset()
+
+    def reset(self) -> None:
         self.live_depth = 0
         self.ring_bytes = 0
 
@@ -83,7 +88,7 @@ class GatherScheduler:
         between layers: k slots after the prologue and after each
         layer's issue and take."""
         k = min(self.depth, n)
-        self.live_depth = k
+        self.live_depth = max(self.live_depth, k)
         ring = collections.deque(issue(j) for j in range(k))
         held = self._bytes(ring)
         for i in range(n):
@@ -92,7 +97,7 @@ class GatherScheduler:
             slot = ring.popleft() if k else None
             held = max(held, self._bytes(ring))
             compute(i, slot)
-        self.ring_bytes = held
+        self.ring_bytes = max(self.ring_bytes, held)
 
     @staticmethod
     def _bytes(ring) -> int:

@@ -58,6 +58,11 @@ both, and a composite accepts them when any of its groups streams (the
 carried epilogue then covers every group's widened collectives). The
 gates ``async_grad_reduce_active`` / ``cross_step_active`` also need the
 flag and a 'pod' axis of size > 1.
+
+FCDP-Cache: ``supports_device_cache`` says whether the device-cache
+fraction applies (fcdp only; a composite when any group does), and
+``device_cache_groups`` how many leading layer groups keep their caches
+on the device at a fraction.
 """
 from __future__ import annotations
 
@@ -168,6 +173,8 @@ class ShardingStrategy:
     # whether the cross-step optimizer epilogue (stream 3) applies: it
     # carries the last microbatch's stage-1 reduce across the step
     supports_cross_step: bool = True
+    # whether FCDP-Cache's device-cache fraction applies
+    supports_device_cache: bool = False
 
     @property
     def supports_prefetch(self) -> bool:
@@ -326,6 +333,14 @@ class ShardingStrategy:
     def prefetch_active(self, sys, mesh_like) -> bool:
         return self.prefetch_depth(sys, mesh_like) > 0
 
+    # -- FCDP-Cache -------------------------------------------------------------
+    def device_cache_groups(self, n_groups: int, fraction: float) -> int:
+        """How many leading layer groups keep their cache on the
+        device."""
+        if not self.supports_device_cache:
+            return 0
+        return int(round(fraction * n_groups))
+
     # -- streams 2 and 3 --------------------------------------------------------
     def async_grad_reduce_active(self, sys, mesh_like) -> bool:
         """Whether the async 'pod' gradient reduce applies: the flag, a
@@ -397,6 +412,7 @@ class FCDP(ShardingStrategy):
     name = "fcdp"
     cache_placement = "host"
     frozen_cached_layout = True
+    supports_device_cache = True
 
 
 class MiCS(ShardingStrategy):
@@ -511,6 +527,10 @@ class CompositeStrategy(ShardingStrategy):
         # covers every group's once-a-step collectives (a hier group's
         # widening reduce-scatter and gather back included)
         return any(s.supports_cross_step for s in self.groups.values())
+
+    @property
+    def supports_device_cache(self) -> bool:
+        return any(s.supports_device_cache for s in self.groups.values())
 
     @property
     def cache_placement(self) -> str:

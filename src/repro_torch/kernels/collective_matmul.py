@@ -297,10 +297,12 @@ class FusedMatmul(torch.autograd.Function):
     ring. Backward, mode 'ag_matmul': the unfused sequence replayed (the
     stage-2 gather of w, the mm backward, the sum over ``sync_axes`` on
     the full dw, the reduce-scatter over ``axis``); mode 'both': the dx
-    ring and ``ring_matmul_rs``."""
+    ring and ``ring_matmul_rs``. With ``reads`` False (the caller never
+    reads the product: a recompute's dead output) the forward runs no
+    ring and returns zeros; the backward is the same."""
 
     @staticmethod
-    def forward(ctx, x, w_shard, coll, axis, mode, sync_axes):
+    def forward(ctx, x, w_shard, coll, axis, mode, sync_axes, reads=True):
         if mode not in ("ag_matmul", "both"):
             raise ValueError(f"unknown fused mode {mode!r}")
         if mode == "both" and sync_axes:
@@ -309,6 +311,9 @@ class FusedMatmul(torch.autograd.Function):
         ctx.coll, ctx.axis, ctx.mode, ctx.sync_axes = coll, axis, mode, \
             sync_axes
         ctx.save_for_backward(x, w_shard)
+        if not reads:
+            return w_shard.new_zeros(x.shape[:-1] + (coll.size(axis)
+                                                     * w_shard.shape[1],))
         return ring_ag_matmul(x, w_shard, coll, axis)
 
     @staticmethod
@@ -327,7 +332,7 @@ class FusedMatmul(torch.autograd.Function):
             dx2 = _ring_dx(g2, w, coll, axis)
             dw = ring_matmul_rs(x2.t(), g2, coll, axis)
         return dx2.reshape(x.shape).to(x.dtype), dw.to(w.dtype), None, \
-            None, None, None
+            None, None, None, None
 
 
 def chunk_schedule(m_tokens: int, k: int, n_cols_local: int, n_ranks: int,

@@ -140,10 +140,12 @@ mamba_scan.launches = mamba_scan.calls = 0
 
 def collective_ag_matmul(x: torch.Tensor, w_shard: torch.Tensor, coll,
                          axis: str, mode: str = "ag_matmul",
-                         sync_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+                         sync_axes: Tuple[str, ...] = (),
+                         reads: bool = True) -> torch.Tensor:
     """Gather-fused collective matmul (``kernels/collective_matmul.py``):
     ``x @ all_gather(w_shard, axis, dim 1)`` with the stage-2 column
     chunks consumed as the ring delivers them, each through
-    ``matmul_chunk``."""
+    ``matmul_chunk``; with ``reads`` False no ring runs and the product
+    is zeros, for a caller that wants the backward only."""
     return collective_matmul.FusedMatmul.apply(x, w_shard, coll, axis, mode,
-                                               tuple(sync_axes))
+                                               tuple(sync_axes), reads)

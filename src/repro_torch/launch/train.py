@@ -35,9 +35,10 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import (OptimizerConfig, RunConfig, ShapeCell,
-                                      SystemConfig)
+from repro_torch.configs.base import (ACTIVATION_POLICIES, OptimizerConfig,
+                                      RunConfig, ShapeCell, SystemConfig)
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.cache import cache_bytes_per_chip
 from repro_torch.core.collectives import Collectives, pick_backend
 from repro_torch.core.engine import StepBundle
 from repro_torch.core.engine.train import (act_int8_launch_plan,
@@ -69,8 +70,10 @@ class ModeRun:
     (``act_psum``: "bf16" | "int8"), the depth of the stage-1 prefetch
     ring (``prefetch_depth``), the scheduler's streams 2 and 3
     (``async_grad_reduce``, ``cross_step_pipeline``), the microbatch
-    count, and its steps (batches: under the cross-step schedule S
-    batches take a prime, S - 1 piped calls and a flush).
+    count, FCDP-Cache's device fraction, activation policy and host
+    offload (``device_cache_fraction``, ``activation_policy``,
+    ``host_offload``), and its steps (batches: under the cross-step
+    schedule S batches take a prime, S - 1 piped calls and a flush).
     ``defs_fn`` transforms the classified def tree (``StepBundle``'s
     hook, as the JAX bundle's; a module-level function, since the job
     is pickled to the ranks)."""
@@ -93,6 +96,9 @@ class ModeRun:
     prefetch_depth: int = 0
     async_grad_reduce: bool = False
     cross_step_pipeline: bool = False
+    device_cache_fraction: float = 0.0
+    activation_policy: str = "save_all"
+    host_offload: bool = True
     defs_fn: Optional[Callable] = None
 
 
@@ -106,7 +112,11 @@ class TrainJob:
     shards after the first step (``params``) and after the last
     (``final_params``). Every run returns a SHA-256 of the bytes of
     this rank's shards after its last call (``final_digest``), which is
-    equal for two runs whose shards are equal bit for bit."""
+    equal for two runs whose shards are equal bit for bit. ``task``, a
+    module-level function, runs on every rank after the runs as
+    ``task(job, mesh, coll, device)``; its result comes back under
+    "task" (e.g. a ``core.cache.MemoryPlanner`` search, whose attempts
+    run steps on every rank)."""
     run: RunConfig
     mesh: MeshShape
     runs: List[ModeRun]
@@ -116,6 +126,7 @@ class TrainJob:
     params: Optional[dict] = None
     batches: Optional[list] = None
     return_params: bool = False
+    task: Optional[Callable] = None
 
 
 def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
@@ -133,7 +144,11 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
                                act_psum=mr.act_psum,
                                prefetch_depth=mr.prefetch_depth,
                                async_grad_reduce=mr.async_grad_reduce,
-                               cross_step_pipeline=mr.cross_step_pipeline)
+                               cross_step_pipeline=mr.cross_step_pipeline,
+                               device_cache_fraction=(
+                                   mr.device_cache_fraction),
+                               activation_policy=mr.activation_policy,
+                               host_offload=mr.host_offload)
     run = dataclasses.replace(job.run, system=sysc,
                               microbatch=mr.microbatch)
     bundle = StepBundle(run, device=device, mesh=mesh,
@@ -175,6 +190,7 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
            "cross_step_buffer_bytes": cross_step_buffer_bytes(
                strategy, bundle.def_leaves, bundle.plan_leaves, ms),
            "kinds": [], "carry_bytes": [], "memory": [],
+           "cache_accounting": cache_bytes_per_chip(bundle),
            "widened": {bundle.paths[bundle.train_idx[j]]: list(axes)
                        for j, (_, axes) in bundle.widen.items()},
            "params_total": sum(d.size() for d in bundle.def_leaves),
@@ -292,9 +308,11 @@ def run_job(job: TrainJob, rank: int, world: int, local_world: int,
         coll = Collectives(mesh)
         results = [_run_mode(job, mr, mesh, coll, device)
                    for mr in job.runs]
+        task = (job.task(job, mesh, coll, device) if job.task is not None
+                else None)
         dist.barrier()
         return {"rank": rank, "coords": mesh.coords, "backend": backend,
-                "device": str(device), "runs": results}
+                "device": str(device), "runs": results, "task": task}
     finally:
         dist.destroy_process_group()
 
@@ -384,7 +402,9 @@ def build_run(args) -> RunConfig:
                         mode_overrides=tuple(args.mode_override),
                         prefetch_depth=args.prefetch_depth,
                         async_grad_reduce=args.async_grad_reduce,
-                        cross_step_pipeline=args.cross_step_pipeline, **lora)
+                        cross_step_pipeline=args.cross_step_pipeline,
+                        device_cache_fraction=args.device_cache_fraction,
+                        activation_policy=args.activation_policy, **lora)
     return RunConfig(model=cfg, shape=cell, system=sysc,
                      microbatch=args.microbatch,
                      optimizer=OptimizerConfig(
@@ -445,6 +465,18 @@ def parser() -> argparse.ArgumentParser:
                     help="carry the last 'pod' reduce, the clip, AdamW and "
                          "the widened gather back across the step boundary "
                          "(needs --async-grad-reduce and --microbatch >= 2)")
+    ap.add_argument("--device-cache-fraction", type=float, default=0.0,
+                    metavar="TAU",
+                    help="FCDP-Cache: the share of the stack's leading "
+                         "layers whose stage-1 caches wait on the device "
+                         "instead of the host (fcdp only; 0: all host)")
+    ap.add_argument("--activation-policy", default="save_all",
+                    choices=ACTIVATION_POLICIES,
+                    help="what a layer keeps for its backward: save_all "
+                         "(autograd's default), block_io (its input; the "
+                         "layer recomputed), offload_acts (= block_io), "
+                         "save_collectives (its input and its 'model' "
+                         "all-reduce outputs)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -473,7 +505,11 @@ def main(argv=None):
                                  prefetch_depth=sysc.prefetch_depth,
                                  async_grad_reduce=sysc.async_grad_reduce,
                                  cross_step_pipeline=(
-                                     sysc.cross_step_pipeline))],
+                                     sysc.cross_step_pipeline),
+                                 device_cache_fraction=(
+                                     sysc.device_cache_fraction),
+                                 activation_policy=(
+                                     sysc.activation_policy))],
                    device=args.device, seed=args.seed)
     t0 = time.perf_counter()
     res = run_job(job, rank, world, local_world, "env://")
@@ -505,6 +541,11 @@ def main(argv=None):
             "carry_bytes": max(r["carry_bytes"]),
             "widened": r["widened"],
             "cache_places": r["cache_places"][last],
+            "device_cache_fraction": args.device_cache_fraction,
+            "activation_policy": args.activation_policy,
+            "cached_bytes": r["cached"][last],
+            "cache_accounting": r["cache_accounting"],
+            "memory": r["memory"][last],
             "trainable_frac": r["params_trainable"] / r["params_total"],
             "wall_s": time.perf_counter() - t0}))
     return res

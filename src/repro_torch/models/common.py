@@ -27,6 +27,14 @@ hand where the JAX step's typing puts it:
   pmax_tp(x)       forward max over 'model', no gradient (the
                    cross-entropy's stability shift)
 
+Under a recomputing activation policy a layer's ``psum_tp_act``
+all-reduces go through its context's ``CollectiveTape``: the recompute in the
+backward runs them again (block_io, offload_acts) or takes the forward's
+outputs from the tape (save_collectives), and never runs the layer's
+last one, whose output the backward does not read; nor, where it does
+not read an all-reduce's input, the gather-fused ring of the output
+projection that feeds it.
+
 A parameter that is replicated over 'model' and used inside the varying
 region has its gradient summed over 'model' too: ``ParamGather`` adds
 'model' to that leaf's sum over its replicated axes, so the sum is one
@@ -38,7 +46,7 @@ At tp 1 every function here is the identity and issues no collective.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -49,13 +57,14 @@ ACT_PSUM = ("bf16", "int8")
 class TPContext:
     """What the model code needs to know of tensor parallelism: the
     degree ``tp``, this rank's coordinate ``rank`` on 'model', the
-    transport of the activation all-reduces (``act_psum``) and the
+    transport of the activation all-reduces (``act_psum``), the
     rank's collectives (``coll``: ``core.collectives.Collectives``; None
-    at tp 1)."""
+    at tp 1) and, inside a recomputed layer, its ``CollectiveTape``."""
     tp: int = 1
     rank: int = 0
     act_psum: str = "bf16"
     coll: Optional[object] = None
+    tape: Optional["CollectiveTape"] = None
 
     def __post_init__(self):
         if self.act_psum not in ACT_PSUM:
@@ -107,13 +116,81 @@ def psum_tp(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
     return _PsumTP.apply(x, tpc.coll) if tpc.tp > 1 else x
 
 
-def psum_tp_act(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
-    """``psum_tp`` of a sublayer's output, carried in int8 blocks under
-    act_psum "int8"."""
+class CollectiveTape:
+    """One layer's ``psum_tp_act`` all-reduces under a recomputing
+    activation policy (``models/stack.py``), carried by the layer's
+    ``TPContext``: one a sublayer, after its output projection (at tp 1
+    the identity). The layer's forward counts them and, with ``keep``
+    (save_collectives) at tp > 1, records their outputs; its recompute
+    (``replay``) runs them again, or takes the recorded outputs in
+    order, except the last: its output is read only by the layer's
+    output (the residual sum), which the backward never reads, so the
+    recompute hands the all-reduce's input on in its place (the same
+    gradient: the all-reduce's backward is the identity). ``reads(i)``
+    says whether the recompute reads all-reduce i's input; where it
+    does not, the output projection before it runs no gather-fused ring
+    (``core.fcdp.FusedParam.reads``), as XLA's remat drops a value no
+    backward reads."""
+
+    def __init__(self, keep: bool):
+        self.keep = keep
+        self.calls = 0
+        self.outs: List[torch.Tensor] = []
+        self.next: Optional[int] = None      # the recompute's position
+
+    def recorded(self) -> None:
+        """The forward is done: drop the last output, never read."""
+        if self.outs:
+            self.outs.pop()
+
+    def replay(self) -> "CollectiveTape":
+        self.next = 0
+        return self
+
+    def reads(self, i: int) -> bool:
+        """Whether the recompute reads the input of all-reduce i: not
+        for a recorded one nor for the layer's last."""
+        return len(self.outs) <= i < self.calls - 1
+
+
+class _Replayed(torch.autograd.Function):
+    """A recorded all-reduce output standing in for the all-reduce of
+    ``x``: the backward is the all-reduce's, the identity."""
+
+    @staticmethod
+    def forward(ctx, x, out):
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _allreduce_act(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
     if tpc.int8_act:
         from repro_torch.core.act_compress import int8_psum
         return int8_psum(x, tpc.coll, "model")
     return psum_tp(x, tpc)
+
+
+def psum_tp_act(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """``psum_tp`` of a sublayer's output, carried in int8 blocks under
+    act_psum "int8"; counted, recorded or replayed by ``tpc.tape``."""
+    tape = tpc.tape
+    if tape is not None and tape.next is not None:      # the recompute
+        i = tape.next
+        tape.next += 1
+        if i < len(tape.outs):
+            return _Replayed.apply(x, tape.outs[i])
+        if tpc.tp == 1 or not tape.reads(i):
+            return x
+        return _allreduce_act(x, tpc)
+    out = _allreduce_act(x, tpc) if tpc.tp > 1 else x
+    if tape is not None:
+        tape.calls += 1
+        if tape.keep and tpc.tp > 1:
+            tape.outs.append(out.detach())
+    return out
 
 
 def pvary_tp(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:

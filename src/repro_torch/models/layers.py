@@ -57,7 +57,7 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
         plan = w.plan
         return ops.collective_ag_matmul(x, w.cache, w.coll,
                                         plan.intra_axes[0], plan.fused,
-                                        plan.sync_axes)
+                                        plan.sync_axes, w.reads)
     return x @ w
 
 

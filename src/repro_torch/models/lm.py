@@ -75,11 +75,25 @@ class LM:
         return x @ params["head"]
 
     # -- training loss -------------------------------------------------------
-    def loss_fn(self, params, batch, gather, defs):
+    def _segments(self, strategy):
+        """(start, length, placement) segments of FCDP-Cache's device
+        fraction over the stack: the leading ``device_cache_groups``
+        layers with placement "device", the rest with None."""
+        n_dev = strategy.device_cache_groups(self.n_groups,
+                                             self.sys.device_cache_fraction)
+        segs = []
+        if n_dev > 0:
+            segs.append((0, n_dev, "device"))
+        if n_dev < self.n_groups:
+            segs.append((n_dev, self.n_groups - n_dev, None))
+        return segs
+
+    def loss_fn(self, params, batch, gather, defs, strategy):
         """This rank's loss over its batch rows: ``params`` are its
         shards, ``gather`` a ``core.fcdp.ParamGather`` holding their
         plans, ``defs`` the bundle's classified defs (the adapters
-        included). batch: ids / labels / mask
+        included), ``strategy`` the bundle's (the device segment's
+        length). batch: ids / labels / mask
         [B_local, S], the same rows on every 'model' rank. Returns
         (loss_sum, token_count, aux_sum); the caller sums them over the
         data-parallel ranks."""
@@ -93,10 +107,12 @@ class LM:
         x = embed_lookup(gather(params["embed"], plans["embed"]), ids, tpc)
         x = x.to(self.sys.torch_dtype)
         positions = torch.arange(S, device=ids.device)[None, :]
-        x = stk.apply_stack_train(cfg, self.plan, self.n_groups,
-                                  params["blocks"], plans["blocks"],
-                                  defs["blocks"], x, positions, gather,
-                                  self.lora_scale, tpc)
+        for start, length, placement in self._segments(strategy):
+            x = stk.apply_stack_train(
+                cfg, self.plan, start + length, params["blocks"],
+                plans["blocks"], defs["blocks"], x, positions, gather,
+                self.lora_scale, tpc, start, placement,
+                self.sys.activation_policy)
         x = rms_norm(x, gather(params["final_norm"], plans["final_norm"],
                                torch.float32), cfg.norm_eps)
         head = gather(params["head"], plans["head"])

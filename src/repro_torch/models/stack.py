@@ -6,19 +6,22 @@ with whole weights, so its loop indexes the stacked leaves directly.
 Training (``apply_stack_train``) holds each rank's shards: every layer
 gathers its weights through the plans inside a ``ParamGather.layer()``
 scope, under the gather's schedule (``core/schedule.GatherScheduler``:
-the sequential loop at depth 0, the stage-1 prefetch ring at depth k)."""
+the sequential loop at depth 0, the stage-1 prefetch ring at depth k),
+one segment of the stack at a time (FCDP-Cache's device segment first),
+under the activation policy's recompute (``_Recompute``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.fcdp import FusedParam
 from repro_torch.core.partition import ParamDef, tree_map
 from repro_torch.core.schedule import _in_ring
 from repro_torch.models import sublayers as sl
-from repro_torch.models.common import SERIAL, TPContext
+from repro_torch.models.common import SERIAL, CollectiveTape, TPContext
 
 KIND_DEFS = {
     "attn": sl.attn_defs,
@@ -187,20 +190,64 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
     return x, out
 
 
+class _Recompute(torch.autograd.Function):
+    """One layer group under the block_io / offload_acts /
+    save_collectives activation policies (the JAX package's
+    ``checkpoint_layer``): the forward runs ``body(x, weights)`` without
+    autograd and keeps only the layer's input and its weights, the
+    weights through ``ParamGather.layer()``'s hooks, so the backward
+    reads each from its tier exactly as save_all's backward does (stage
+    2 from the host cache under fcdp, both stages under zero3, the
+    slot's tensor when the ring fed it, the resident view under stream
+    2), and the recompute calls no gather. The backward runs the body
+    again with autograd and differentiates it; its 'model' all-reduces
+    go through ``tape`` (``models/common.CollectiveTape``: run again, or
+    under save_collectives taken from the forward, the layer's last one
+    skipped, and with it the fused ring of the output projection that
+    feeds a skipped or kept one)."""
+
+    @staticmethod
+    def forward(ctx, body, tape, x, *weights):
+        ctx.body, ctx.tape = body, tape
+        y = body(x, weights, tape)
+        tape.recorded()
+        ctx.save_for_backward(x, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        with torch.enable_grad():
+            y = ctx.body(ins[0], ins[1:], ctx.tape.replay())
+        wanted = [t for t, n in zip(ins, need) if n]
+        grads = iter(torch.autograd.grad(y, wanted, gy, allow_unused=True))
+        return (None, None) + tuple(next(grads) if n else None for n in need)
+
+
 def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                       n_groups: int, stacked_params, stacked_plans,
                       stacked_defs, x, positions, gather,
-                      lora_scale: float = 2.0, tpc: TPContext = SERIAL):
-    """The train forward of the stack: layer l gathers the shards
+                      lora_scale: float = 2.0, tpc: TPContext = SERIAL,
+                      start: int = 0, placement: Optional[str] = None,
+                      policy: str = "save_all"):
+    """The train forward of layers ``start .. n_groups - 1`` of the
+    stack (one segment of ``LM._segments``): layer l gathers the shards
     ``leaf[l]`` through their plans (norm scales straight to fp32,
     where ``rms_norm`` reads them; the gradient summed over 'model' too
     where ``sublayers.model_summed`` says so from the defs) and applies
-    the group, tensor-parallel over 'model' (``tpc``). Returns x.
-    The JAX package differentiates its layer scan's carry at every
-    layer, even when no gradient flows into the stack's input (a frozen
-    embedding under PEFT); so does this loop, which makes the first
-    layer's frozen weights needed, and rebuilt, in the backward there
-    too."""
+    the group, tensor-parallel over 'model' (``tpc``), under the
+    activation ``policy`` (``SystemConfig.activation_policy``: save_all
+    keeps what autograd saves; the others recompute the group in its
+    backward, ``_Recompute``). The segment runs its own schedule, so the
+    prefetch ring starts again at ``start``; with ``placement`` "device"
+    host-placed caches wait on the device (``ParamGather.promoted``).
+    Returns x. The JAX package differentiates its layer scan's carry at
+    every layer, even when no gradient flows into the stack's input (a
+    frozen embedding under PEFT); so does this loop, which makes the
+    first layer's frozen weights needed, and rebuilt, in the backward
+    there too."""
     if not x.requires_grad:
         x = x.detach().requires_grad_(True)
     leaves = [(f"pos{i}", kind) for i, kinds in enumerate(plan)
@@ -209,33 +256,64 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
         if kind not in ("attn", "mlp"):
             raise ValueError(f"sublayer kind {kind!r} is not ported to "
                              "training yet")
+    names = [(key, kind, n) for key, kind in leaves
+             for n in stacked_params[key][kind]]
 
-    def issue(layer):
+    def issue(i):
+        layer = start + i
         slot = {}
-        for key, kind in leaves:
-            plans = stacked_plans[key][kind]
-            for n, t in stacked_params[key][kind].items():
-                if _in_ring(plans[n]):
-                    slot[key, kind, n] = gather.issue_stage1(t[layer],
-                                                             plans[n])
+        for key, kind, n in names:
+            p = stacked_plans[key][kind][n]
+            if _in_ring(p):
+                slot[key, kind, n] = gather.issue_stage1(
+                    stacked_params[key][kind][n][layer], p)
         return slot
 
-    def compute(layer, slot):
-        nonlocal x
-        with gather.layer():
-            for key, kind in leaves:
-                shards = stacked_params[key][kind]
-                plans = stacked_plans[key][kind]
-                defs = stacked_defs[key][kind]
-                p = {n: gather(t[layer], plans[n],
-                               torch.float32 if n == "norm" else None,
-                               sl.model_summed(defs, n, tpc),
-                               slot.get((key, kind, n)) if slot else None)
-                     for n, t in shards.items()}
-                if kind == "attn":
-                    x = sl.attn_train(cfg, p, x, positions, lora_scale, tpc)
-                else:
-                    x = sl.mlp_apply(cfg, p, x, tpc)
+    def body(h, weights, tape=None):
+        """The group on input h with the gathered weights, in ``names``
+        order (a fused plan's as its stage-1 tensor), its 'model'
+        all-reduces through ``tape``. A fused weight is a sublayer's
+        output projection, feeding the sublayer's all-reduce: in the
+        recompute its ring runs only where the tape reads that
+        all-reduce's input."""
+        t = tpc if tape is None else dataclasses.replace(tpc, tape=tape)
+        replay = tape is not None and tape.next is not None
+        p = {}
+        for (key, kind, n), w in zip(names, weights):
+            if fused[key, kind, n]:
+                w = FusedParam(w, stacked_plans[key][kind][n], gather.coll,
+                               not replay
+                               or tape.reads(leaves.index((key, kind))))
+            p.setdefault((key, kind), {})[n] = w
+        for key, kind in leaves:
+            if kind == "attn":
+                h = sl.attn_train(cfg, p[key, kind], h, positions,
+                                  lora_scale, t)
+            else:
+                h = sl.mlp_apply(cfg, p[key, kind], h, t)
+        return h
 
-    gather.scheduler.run(n_groups, issue, compute)
+    fused = {}
+
+    def compute(i, slot):
+        nonlocal x
+        layer = start + i
+        with gather.layer():
+            weights = []
+            for key, kind, n in names:
+                w = gather(stacked_params[key][kind][n][layer],
+                           stacked_plans[key][kind][n],
+                           torch.float32 if n == "norm" else None,
+                           sl.model_summed(stacked_defs[key][kind], n, tpc),
+                           slot.get((key, kind, n)) if slot else None)
+                fused[key, kind, n] = isinstance(w, FusedParam)
+                weights.append(w.cache if fused[key, kind, n] else w)
+            if policy == "save_all":
+                x = body(x, weights)
+            else:
+                tape = CollectiveTape(keep=policy == "save_collectives")
+                x = _Recompute.apply(body, tape, x, *weights)
+
+    with gather.promoted(placement == "device"):
+        gather.scheduler.run(n_groups - start, issue, compute)
     return x
