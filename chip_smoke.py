@@ -186,6 +186,24 @@ non-zero:
                 fitting at the walk's first attempt under it, and the
                 serve pool fitting the card; reports the peaks, the
                 memory by part, the tiers and the launches.
+ 20. restart -- checkpoint and restart on the train path, from work
+                done on the ranks of phases 5 and 11 (printed after
+                phase 11, beside the card's name and power limit): after
+                phase 5's arms, its last arm's state (fcdp after one
+                step, full width) saved in the JAX package's checkpoint
+                format (every rank writing its blocks), its bytes, the
+                blocking write's seconds, the restore into a fresh
+                bundle (equal and digest-equal to the state saved), and
+                one step timed without and with an async save of the
+                same state in flight (the same metrics bit for bit);
+                and in phase 11, fcdp-PEFT (LoRA rank 8) at microbatch
+                2 with streams 2 and 3 over 3 batches through the
+                launcher's restart driver, a checkpoint every 2 (the
+                carry section riding along), clean and with a failure
+                injected at step 2, once the step-2 checkpoint is
+                written: the same per-step losses and final shards
+                (SHA-256 a rank) after the restore. Fails when the
+                disk cannot hold two dense checkpoints.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
 plain versions at the train and PEFT phases' shapes, at the int8 TP
@@ -1511,7 +1529,8 @@ def _bf16_step(x):
 def phase_jamba_parity():
     """jamba at full width and depth 2 in bf16 on the card (kernels) and
     on the CPU (plain versions), from the same weights (drawn on the
-    CPU), the CPU's greedy tokens fed to both. The router logits agree
+    card, ~1 s, and copied to the CPU), the CPU's greedy tokens fed to
+    both. The router logits agree
     within ROUTER_STEPS bf16 steps. A token may be routed to other
     experts on the two sides only where the CPU's margin between its
     choice and the card's is within ROUTER_STEPS bf16 steps (a near-tie
@@ -1536,9 +1555,9 @@ def phase_jamba_parity():
         "jamba_parity", "decode", cp["prompt"] + cp["decode"], cp["batch"]))
     cpu, gpu = StepBundle(run, device="cpu"), StepBundle(run)
     t0 = time.perf_counter()
-    p_cpu = cpu.init_all_params(seed=0)
-    draw_mamba_leaves(p_cpu, torch.Generator().manual_seed(1))
-    p_gpu = tree_map(lambda t: t.to(gpu.device), p_cpu)
+    p_gpu = gpu.init_all_params(seed=0)
+    draw_mamba_leaves(p_gpu, torch.Generator(gpu.device).manual_seed(1))
+    p_cpu = tree_map(lambda t: t.to(cpu.device), p_gpu)
     draw_s = time.perf_counter() - t0
     ids = torch.randint(1, cfg.vocab_size, (cp["batch"], cp["prompt"]),
                         generator=torch.Generator().manual_seed(2))
@@ -1811,7 +1830,8 @@ def phase_train():
             ModeRun("fcdp", "int8_pod", "int8_pod"),
             ModeRun("fcdp", fused_matmul="ag_matmul"),
             ModeRun("fcdp", fused_matmul="both")]
-    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs)
+    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs,
+                     task=_dense_ckpt_task, keep_last=True)
     t0 = time.perf_counter()
     ranks = spawn(job, timeout_s=900)
     wall = time.perf_counter() - t0
@@ -1882,7 +1902,186 @@ def phase_train():
          seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
          backend=ranks[0]["backend"], wall_s=wall,
          kernel_launches_total=launches, fused=fused, modes=summary)
-    return launches, fc["bytes_per_step"]
+    return launches, fc["bytes_per_step"], [rk["task"] for rk in ranks]
+
+
+# the checkpoints of the restart phase: under the checkout (gitignored),
+# removed once read
+CKPT_DIR = ".smoke_ckpt"
+# the PEFT crash/resume runs: 3 batches, a checkpoint every 2 (the step-2
+# one mid-pipeline: the carry section rides along), a failure injected at
+# step 2, once that checkpoint is written, so the restart restores the
+# carry and runs step 2 from it (the CPU tests replay steps too)
+PEFT_RESTART = dict(steps=3, ckpt_every=2, fail_at=(2,))
+
+
+def _dense_ckpt_task(job, mesh, coll, device, state):
+    """On every rank of phase train, after its arms: the last arm's state
+    (fcdp after one step) saved at full width (blocking), restored into
+    a fresh bundle (equal, and digest-equal, to the state saved), then
+    one step (batch 1) timed without and with an async save of the
+    same state in flight, the state restored between the two, which
+    must agree bit for bit."""
+    import math
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten_with_path
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.launch.train import state_digest
+    from repro_torch.runtime.elastic import mesh_meta
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    root = ROOT / CKPT_DIR / "dense"
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+    dist.barrier()
+    tree = state.state_tree()
+    blocks = state.bundle.state_blocks(tree)
+    flat = [leaf for _, leaf in flatten_with_path(tree)[0]]
+    flat_blocks = [b for _, b in flatten_with_path(blocks)[0]]
+    nbytes = sum(math.prod(b.shape) * (leaf.element_size()
+                                       if torch.is_tensor(leaf) else 4)
+                 for leaf, b in zip(flat, flat_blocks))
+    free = shutil.disk_usage(root).free
+    # the blocking checkpoint and the async one, both on disk at once
+    check(free >= 2.1 * nbytes,
+          f"restart: {free} B free under {root}, a checkpoint takes "
+          f"{nbytes} B and the phase writes two")
+    out = {"bytes": nbytes, "free_bytes": free, "leaves": len(flat),
+           "carry": "carry" in tree, "arm": dataclasses.asdict(
+               job.runs[-1])}
+    ck = Checkpointer(str(root), keep=1, rank=rank, world=world,
+                      barrier=dist.barrier)
+    meta = mesh_meta(state.bundle)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dist.barrier()
+
+    out["digest_saved"] = state_digest(tree)
+    sync()
+    t0 = time.perf_counter()
+    ck.save(1, tree, blocking=True, meta=meta, blocks=blocks)
+    out["save_blocking_s"] = time.perf_counter() - t0
+    if rank == 0:
+        out["disk_bytes"] = sum(f.stat().st_size
+                                for f in (root / "step_00000001").iterdir())
+    # a fresh bundle of the same run: the restore allocates the tensors
+    fresh = StepBundle(state.run, device=device, mesh=mesh,
+                       defs_fn=job.runs[-1].defs_fn)
+    example = {"params": [torch.empty(t.shape, dtype=t.dtype, device="meta")
+                          for t in tree["params"]],
+               "opt": {k: [torch.empty(t.shape, dtype=t.dtype, device="meta")
+                           for t in v] if k != "step" else v
+                       for k, v in tree["opt"].items()}}
+    sync()
+    t0 = time.perf_counter()
+    got = ck.restore(1, example, shardings=fresh)
+    sync()
+    out["restore_s"] = time.perf_counter() - t0
+    out["digest_restored"] = state_digest(got)
+    out["restored_equal"] = all(
+        torch.equal(a, b) if torch.is_tensor(a) else a == b
+        for a, b in zip(flat, [leaf for _, leaf in
+                               flatten_with_path(got)[0]]))
+    del fresh
+
+    def timed_step():
+        sync()
+        t0 = time.perf_counter()
+        m = state.do_train_step(state.batch(1))
+        sync()
+        return m, time.perf_counter() - t0
+
+    out["metrics_plain"], out["step_plain_s"] = timed_step()
+    state.load_state(got)       # back to the saved state
+    del got
+    sync()
+    t0 = time.perf_counter()
+    ck.save(2, state.state_tree(), blocking=False, meta=meta, blocks=blocks)
+    out["save_async_call_s"] = time.perf_counter() - t0
+    out["metrics_async"], out["step_async_s"] = timed_step()
+    t0 = time.perf_counter()
+    ck.wait()
+    out["drain_s"] = time.perf_counter() - t0
+    sync()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    dist.barrier()
+    return out
+
+
+def phase_restart(dense, peft):
+    """Checkpoint and restart on the train path, from the ranks of phases
+    train and peft_train: the dense checkpoint (``_dense_ckpt_task``)
+    and the PEFT crash/resume runs (``PEFT_RESTART``)."""
+    gpu = gpu_line()
+    d0 = dense[0]
+    for d in dense:
+        check(d["restored_equal"] and d["digest_restored"]
+              == d["digest_saved"],
+              "restart: the restored dense state differs from the saved one")
+        check(d["metrics_async"] == d["metrics_plain"],
+              f"restart: the step with a save in flight "
+              f"{d['metrics_async']} != without {d['metrics_plain']}")
+    check(d0["disk_bytes"] >= d0["bytes"],
+          f"restart: {d0['disk_bytes']} B on disk for a {d0['bytes']} B "
+          "checkpoint")
+    clean, crash = peft["restart_clean"], peft["restart_crash"]
+    for c, x in zip(clean, crash):
+        rc, rx = c["restart"], x["restart"]
+        check(rc["restarts"] == 0 and rx["restarts"] == 1,
+              f"restart: restarts {rc['restarts']} / {rx['restarts']}")
+        want = [{"step": PEFT_RESTART["ckpt_every"],
+                 "resume": PEFT_RESTART["ckpt_every"], "carry": True,
+                 "carry_invalidated": False}]
+        check(rx["restored"] == want,
+              f"restart: restored {rx['restored']} != {want}")
+        check(rx["losses"] == rc["losses"]
+              and sorted(rc["losses"]) == list(range(PEFT_RESTART["steps"])),
+              f"restart: crash losses {rx['losses']} != clean "
+              f"{rc['losses']}")
+        check(x["final_digest"] == c["final_digest"],
+              "restart: the resumed run's final shards differ from the "
+              "uninterrupted run's")
+    x0, c0 = crash[0], clean[0]
+
+    def span(key):
+        vals = [d[key] for d in dense]
+        return {"min": min(vals), "max": max(vals), "rank0": vals[0]}
+    emit("restart", gpu=gpu, model=f"qwen2.5-3b depth {TRAIN_DEPTH}",
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, ranks=len(dense),
+         dense={"arm": d0["arm"]["mode"] + "+" + d0["arm"]["fused_matmul"],
+                "checkpoint_bytes": d0["bytes"],
+                "disk_bytes": d0["disk_bytes"], "leaves": d0["leaves"],
+                "carry": d0["carry"], "free_bytes": d0["free_bytes"],
+                "save_blocking_s": span("save_blocking_s"),
+                "write_gb_per_s": d0["bytes"] / 1e9
+                / max(d["save_blocking_s"] for d in dense),
+                "restore_s": span("restore_s"),
+                "step_plain_s": span("step_plain_s"),
+                "step_async_s": span("step_async_s"),
+                "save_async_call_s": span("save_async_call_s"),
+                "drain_s": span("drain_s"),
+                "loss": d0["metrics_plain"]["loss"],
+                "digest_saved": d0["digest_saved"],
+                "digest_restored": d0["digest_restored"]},
+         peft={"lora_rank": PEFT_RANK, **PEFT_RESTART,
+               "losses_clean": c0["restart"]["losses"],
+               "losses_crash": x0["restart"]["losses"],
+               "kinds_crash": x0["kinds"],
+               "restored": x0["restart"]["restored"],
+               "final_digest": x0["final_digest"],
+               "checkpoint_bytes": peft["checkpoint_bytes"],
+               "ckpt_steps": x0["restart"]["ckpt_steps"],
+               "save_call_s": x0["restart"]["save_s"],
+               "restore_s": x0["restart"]["restore_s"],
+               "step_s_clean": c0["step_s"], "step_s_crash": x0["step_s"]})
 
 
 def _run_key(run):
@@ -2004,6 +2203,8 @@ PEFT_SMOKE = dict(name="smoke-dense-peft", family="dense", num_layers=2,
 
 
 def _peft_key(run):
+    if run["ckpt_dir"]:
+        return "restart_crash" if run["fail_at"] else "restart_clean"
     if run["mode_overrides"]:
         return "mixed"
     return "int8" if run["param_compress"] != "none" else run["mode"]
@@ -2021,16 +2222,35 @@ def phase_peft_train(train_fcdp_bytes):
     cfg = dataclasses.replace(get_config("qwen2.5-3b"),
                               num_layers=TRAIN_DEPTH)
     peft = dict(peft=True, lora_rank=PEFT_RANK)
+    import shutil
+    restart = dict(peft, microbatch=STREAM_MB, async_grad_reduce=True,
+                   cross_step_pipeline=True,
+                   steps=PEFT_RESTART["steps"],
+                   ckpt_every=PEFT_RESTART["ckpt_every"])
+    dirs = {k: ROOT / CKPT_DIR / f"peft_{k}" for k in ("clean", "crash")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
     runs = [ModeRun(m, **peft)
             for m in ("zero3", "zeropp", "fcdp", "mics")] + [
         ModeRun("fcdp", "int8_pod", "int8_pod", **peft),
-        ModeRun("fcdp", mode_overrides=PEFT_MIXED, **peft)]
+        ModeRun("fcdp", mode_overrides=PEFT_MIXED, **peft),
+        ModeRun("fcdp", ckpt_dir=str(dirs["clean"]), **restart),
+        ModeRun("fcdp", ckpt_dir=str(dirs["crash"]),
+                fail_at=PEFT_RESTART["fail_at"], **restart)]
     job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs, grad_clip=1e9)
     t0 = time.perf_counter()
     ranks = spawn(job, timeout_s=900)
     wall = time.perf_counter() - t0
     by = {_peft_key(r["run"]): [rk["runs"][i] for rk in ranks]
           for i, r in enumerate(ranks[0]["runs"])}
+    # the crash/resume runs (phase restart): the checkpoint's bytes on
+    # disk, then the directories go
+    restart_runs = {k: by.pop(k) for k in ("restart_clean", "restart_crash")}
+    last = dirs["crash"] / f"step_{PEFT_RESTART['ckpt_every']:08d}"
+    restart_runs["checkpoint_bytes"] = sum(f.stat().st_size
+                                           for f in last.iterdir())
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
     summary = {}
     for name, rs in by.items():
         r0 = rs[0]
@@ -2098,7 +2318,7 @@ def phase_peft_train(train_fcdp_bytes):
          pod_all_gather_vs_train_fcdp={
              k: pod[k] / train_fcdp_bytes["all_gather/pod"] for k in pod},
          kernel_launches_total=launches, modes=summary)
-    return launches
+    return launches, restart_runs
 
 
 def phase_peft_parity():
@@ -2757,7 +2977,7 @@ def _attempt_key(it):
             it.get("cross_step", False), it["activation_policy"])
 
 
-def _cache_task(job, mesh, coll, device):
+def _cache_task(job, mesh, coll, device, state=None):
     """On every rank of phase cache_train: the planner's walk at an
     impossible budget, each attempt one trial step; then a plan at a
     budget halfway between the walk's two lowest distinct peaks, which
@@ -3055,9 +3275,10 @@ def main() -> int:
     phase_rwkv_parity()
     jamba_launches = phase_jamba_serve()
     phase_jamba_parity()
-    train_launches, train_fcdp_bytes = phase_train()
+    train_launches, train_fcdp_bytes, dense_ckpt = phase_train()
     phase_train_parity()
-    peft_launches = phase_peft_train(train_fcdp_bytes)
+    peft_launches, peft_restart = phase_peft_train(train_fcdp_bytes)
+    phase_restart(dense_ckpt, peft_restart)
     phase_peft_parity()
     tp_launches = phase_tp_train()
     phase_tp_parity()

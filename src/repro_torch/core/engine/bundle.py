@@ -24,7 +24,9 @@ also knows this rank's coordinates: ``init_all_params`` and
 eagerly; there is nothing to compile. ``cross_step`` says whether the
 train step runs the cross-step schedule (the scheduler's stream 3), and
 ``cross_step_carry_layout`` gives its carry's per-rank shapes and
-dtypes.
+dtypes. ``state_blocks`` places this rank's part of every persisted leaf
+(parameters, the widened optimizer state, the carry) in the global
+arrays a checkpoint holds, for saving and restoring alike.
 """
 from __future__ import annotations
 
@@ -208,6 +210,71 @@ class StepBundle:
                 shape[d.fsdp_dim] *= math.prod(self.mesh_shape.size(a)
                                                for a in plan.inter_axes)
             out["pending"].append((tuple(shape), dtype))
+        return out
+
+    # -- the persisted state (checkpoint/restart) -----------------------------
+    def _block(self, shape, spec, widen=None, lead=None):
+        """This rank's ``Block`` of a leaf of global ``shape`` stored under
+        ``spec``: its block along each spec entry, subdivided along the
+        widening ``(dim, axes)`` (the optimizer layout), behind a leading
+        partial dim over ``lead`` (the carry). A block is written by its
+        replica whose coordinates on the axes that do not split it are
+        0."""
+        from repro_torch.checkpoint import Block
+        ms, c = self.mesh_shape, self.coords
+        if c is None:
+            raise ValueError("state blocks need a live mesh (a RankMesh)")
+        used = spec_axes(spec) | set(lead or ())
+        if widen is not None:
+            used |= set(widen[1])
+        index = []
+        if lead is not None:
+            row, _ = block_index(lead, ms, c)
+            index.append(slice(row, row + 1))
+        body = shape[1:] if lead is not None else shape
+        for dim, n in enumerate(body):
+            idx, count = block_index(_entry_axes(spec[dim]) if dim < len(spec)
+                                     else (), ms, c)
+            step = n // count
+            lo = idx * step
+            if widen is not None and dim == widen[0]:
+                sub, parts = block_index(widen[1], ms, c)
+                step //= parts
+                lo += sub * step
+            index.append(slice(lo, lo + step))
+        return Block(tuple(shape), tuple(index),
+                     all(c[a] == 0 for a in ms.axis_names if a not in used))
+
+    def state_blocks(self, tree):
+        """This rank's ``Block`` of every leaf of a persisted-state tree
+        ``{"params": [trainable shards], "opt": {"m", "v", "master",
+        "step"}(, "carry": {"g_acc", "pending"})}`` (any subset of the
+        sections), tree-aligned: parameters under their storage specs,
+        the optimizer state under the (possibly widened) optimizer
+        layout (``opt_shards``), the carry as one row of the JAX
+        package's global carry (``engine.train.carried_layout``)."""
+        from repro_torch.checkpoint import Block
+        from repro_torch.core.engine.train import carried_layout
+        train = [(self.def_leaves[i].shape, self.leaf_specs[i])
+                 for i in self.train_idx]
+        out = {}
+        for section in tree:
+            if section == "params":
+                out[section] = [self._block(s, spec) for s, spec in train]
+            elif section == "opt":
+                opt = [self._block(s, spec, self.widen.get(j))
+                       for j, (s, spec) in enumerate(train)]
+                out[section] = {k: list(opt) for k in tree[section]
+                                if k != "step"}
+                out[section]["step"] = Block.whole(
+                    (), all(v == 0 for v in self.coords.values()))
+            elif section == "carry":
+                layout = carried_layout(self)
+                out[section] = {k: [self._block(shape, base, lead=lead)
+                                    for lead, base, shape, _ in layout[k]]
+                                for k in tree[section]}
+            else:
+                raise KeyError(f"no persisted section {section!r}")
         return out
 
     # -- batch --------------------------------------------------------------------

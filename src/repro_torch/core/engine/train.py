@@ -45,20 +45,26 @@ Three schedules of the microbatch loop and the epilogue:
               the last. The same ops in the same order as the fused
               async step, so the same bits: nothing runs on stale
               parameters.
+
+The carry is checkpointed in the JAX package's global layout
+(``carried_layout``, ``cross_step_carry_signature``): this rank's carry
+tensor is one row of a global array with a leading partial dim.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.fcdp import ParamGather
-from repro_torch.core.partition import tree_items
+from repro_torch.core.partition import _entry_axes, tree_items
 from repro_torch.core.schedule import (GatherScheduler,
                                        async_reduce_enabled,
                                        cross_step_enabled, leaf_stage1,
                                        leaf_stage1_reduce,
                                        stage1_resident_plans)
+from repro_torch.core.strategy import spec_axes
 from repro_torch.launch.mesh import fsdp_axes
 from repro_torch.optim.adamw import adamw_update, clip_by_global_norm
 
@@ -314,6 +320,58 @@ class TrainStep:
         self._mark("apply")
         self.primed = False
         return {"grad_norm": float(gnorm)}
+
+
+# -- the carry's global layout (the checkpoint's carry section) ---------------
+
+def _stage1_storage_spec(spec, pdef, plan) -> tuple:
+    """The storage spec of a leaf's stage-1-level view: the inter (DCN)
+    axes stripped from the fsdp entry; the spec itself for a leaf with
+    no stage 1."""
+    if pdef.fsdp_dim is None or not (plan.is_gathered and plan.inter_axes):
+        return tuple(spec)
+    entries = list(spec) + [None] * (len(pdef.shape) - len(spec))
+    axes = tuple(a for a in _entry_axes(entries[pdef.fsdp_dim])
+                 if a not in plan.inter_axes)
+    entries[pdef.fsdp_dim] = (axes if len(axes) > 1
+                              else (axes[0] if axes else None))
+    return tuple(entries)
+
+
+def carried_layout(bundle):
+    """The JAX package's global layout of the carry, per trainable leaf in
+    tree order: ``{"g_acc": [(lead axes, payload spec, global shape,
+    dtype), ...], "pending": [...]}``. A leaf's global array is its
+    logical shape behind a leading 'partial' dim over every mesh axis
+    the payload spec does not mention (tiled in mesh order), since the
+    partials differ along those axes; this rank's carry tensor is one
+    row of it. g_acc's payload is the storage spec, pending's the
+    stage-1 storage spec."""
+    ms = bundle.mesh_shape
+    dtype = bundle.run.system.torch_dtype
+    out = {"g_acc": [], "pending": []}
+    for i in bundle.train_idx:
+        d, plan = bundle.def_leaves[i], bundle.plan_leaves[i]
+        spec = bundle.leaf_specs[i]
+        for key, base in (("g_acc", tuple(spec)),
+                          ("pending", _stage1_storage_spec(spec, d, plan))):
+            lead = tuple(a for a in ms.axis_names if a not in spec_axes(base))
+            shape = (max(1, math.prod(ms.size(a) for a in lead)),) + d.shape
+            out[key].append((lead, base, shape, dtype))
+    return out
+
+
+def cross_step_carry_signature(bundle):
+    """``[(global_shape, dtype_str), ...]`` of the carry leaves in
+    checkpoint flatten order (g_acc before pending), as the JAX
+    package's function gives them: what ``runtime/elastic.reshard_state``
+    compares with a saved manifest's carry section. The leading partial
+    dim is mesh-shaped, so a mesh change shows here even when the
+    payload shapes agree."""
+    layout = carried_layout(bundle)
+    return [(tuple(shape), str(dtype).removeprefix("torch."))
+            for key in sorted(layout)
+            for _, _, shape, dtype in layout[key]]
 
 
 def carry_bytes(carry: Carry) -> int:

@@ -1,7 +1,8 @@
 """Training launcher: the FCDP train step on a (pod, data, model)
-mesh, tensor-parallel over 'model', one process per rank (the
-JAX package's ``launch/train.py`` without checkpointing, failure
-injection and the heartbeat, which come later).
+mesh, tensor-parallel over 'model', one process per rank, under the JAX
+package's checkpoint/restart driver (``drive``: checkpoints in its
+format, failure injection with ``--fail-at``, the heartbeat and the
+straggler monitor).
 
 Under torchrun (world size and rank from its environment)::
 
@@ -35,6 +36,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.base import (ACTIVATION_POLICIES, OptimizerConfig,
                                       RunConfig, ShapeCell, SystemConfig)
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
@@ -55,6 +57,11 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (MeshShape, RankMesh, device_for_rank,
                                      train_mesh_shape)
 from repro_torch.optim.adamw import init_opt_state
+from repro_torch.runtime.elastic import mesh_meta, reshard_state
+from repro_torch.runtime.fault_tolerance import (FailureInjector,
+                                                 HeartbeatMonitor,
+                                                 StragglerMonitor,
+                                                 run_with_restarts)
 
 TIMEOUT = timedelta(seconds=900)
 
@@ -74,9 +81,11 @@ class ModeRun:
     offload (``device_cache_fraction``, ``activation_policy``,
     ``host_offload``), and its steps (batches: under the cross-step
     schedule S batches take a prime, S - 1 piped calls and a flush).
-    ``defs_fn`` transforms the classified def tree (``StepBundle``'s
-    hook, as the JAX bundle's; a module-level function, since the job
-    is pickled to the ranks)."""
+    With ``ckpt_dir`` the run goes through the checkpoint/restart driver
+    (``drive``: a checkpoint every ``ckpt_every`` steps, failures
+    injected at the steps ``fail_at``). ``defs_fn`` transforms the
+    classified def tree (``StepBundle``'s hook, as the JAX bundle's; a
+    module-level function, since the job is pickled to the ranks)."""
     mode: str
     param_compress: str = "none"
     grad_compress: str = "none"
@@ -100,6 +109,9 @@ class ModeRun:
     activation_policy: str = "save_all"
     host_offload: bool = True
     defs_fn: Optional[Callable] = None
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 10
+    fail_at: tuple = ()
 
 
 @dataclass
@@ -108,15 +120,18 @@ class TrainJob:
     from the same initial weights (``params``, the JAX package's full
     numpy tree, or drawn from ``seed`` on ``draw_device``) and the same
     batches (``batches``, global numpy batches per step, or
-    ``SyntheticPackedLM``'s). ``return_params`` returns each rank's
+    ``SyntheticPackedLM``'s). A run with a ``ckpt_dir`` runs under the
+    checkpoint/restart driver (``drive``). ``return_params`` returns each
+    rank's
     shards after the first step (``params``) and after the last
     (``final_params``). Every run returns a SHA-256 of the bytes of
     this rank's shards after its last call (``final_digest``), which is
     equal for two runs whose shards are equal bit for bit. ``task``, a
     module-level function, runs on every rank after the runs as
-    ``task(job, mesh, coll, device)``; its result comes back under
-    "task" (e.g. a ``core.cache.MemoryPlanner`` search, whose attempts
-    run steps on every rank)."""
+    ``task(job, mesh, coll, device, state)``, ``state`` the last run's
+    final ``RunState`` under ``keep_last`` (else None); its result comes
+    back under "task" (e.g. a ``core.cache.MemoryPlanner`` search, whose
+    attempts run steps on every rank)."""
     run: RunConfig
     mesh: MeshShape
     runs: List[ModeRun]
@@ -127,46 +142,221 @@ class TrainJob:
     batches: Optional[list] = None
     return_params: bool = False
     task: Optional[Callable] = None
+    keep_last: bool = False
 
 
-def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
-              device: torch.device) -> dict:
-    sysc = dataclasses.replace(job.run.system, mode=mr.mode,
-                               param_compress=mr.param_compress,
-                               grad_compress=mr.grad_compress,
-                               dtype=mr.dtype, loss_chunk=mr.loss_chunk,
-                               master_dtype=mr.master_dtype,
-                               opt_state_dtype=mr.opt_state_dtype,
-                               fused_matmul=mr.fused_matmul, peft=mr.peft,
-                               lora_rank=mr.lora_rank,
-                               lora_alpha=mr.lora_alpha,
-                               mode_overrides=mr.mode_overrides,
-                               act_psum=mr.act_psum,
-                               prefetch_depth=mr.prefetch_depth,
-                               async_grad_reduce=mr.async_grad_reduce,
-                               cross_step_pipeline=mr.cross_step_pipeline,
-                               device_cache_fraction=(
-                                   mr.device_cache_fraction),
-                               activation_policy=mr.activation_policy,
-                               host_offload=mr.host_offload)
-    run = dataclasses.replace(job.run, system=sysc,
-                              microbatch=mr.microbatch)
-    bundle = StepBundle(run, device=device, mesh=mesh,
-                        defs_fn=unfreeze_all if mr.all_trainable
-                        else mr.defs_fn)
-    if job.params is not None:
-        from repro_torch.convert import shards_from_jax
-        params = shards_from_jax(job.params, bundle)
-    else:
-        params = bundle.init_all_params(job.seed, job.draw_device)
-    train, frozen = bundle.split(params)
+class RunState:
+    """The training state of one run on this rank, as the JAX launcher's
+    ``RunState`` holds it: the bundle, this rank's parameter shards
+    (``params``; ``train_p`` / ``frozen_p`` its two lists), the
+    optimizer state, the step and, under the cross-step schedule, the
+    outstanding carry. ``do_train_step`` runs one step under whichever
+    schedule is live (``last_kind``: "step", "prime" or "piped");
+    ``flush_carry`` drains the pipeline; ``state_tree`` / ``load_state``
+    are what a checkpoint persists and restores."""
+
+    def __init__(self, job: "TrainJob", mr: ModeRun, mesh: RankMesh,
+                 coll: Collectives, device: torch.device):
+        sysc = dataclasses.replace(
+            job.run.system, mode=mr.mode, param_compress=mr.param_compress,
+            grad_compress=mr.grad_compress, dtype=mr.dtype,
+            loss_chunk=mr.loss_chunk, master_dtype=mr.master_dtype,
+            opt_state_dtype=mr.opt_state_dtype,
+            fused_matmul=mr.fused_matmul, peft=mr.peft,
+            lora_rank=mr.lora_rank, lora_alpha=mr.lora_alpha,
+            mode_overrides=mr.mode_overrides, act_psum=mr.act_psum,
+            prefetch_depth=mr.prefetch_depth,
+            async_grad_reduce=mr.async_grad_reduce,
+            cross_step_pipeline=mr.cross_step_pipeline,
+            device_cache_fraction=mr.device_cache_fraction,
+            activation_policy=mr.activation_policy,
+            host_offload=mr.host_offload)
+        self.run = run = dataclasses.replace(job.run, system=sysc,
+                                             microbatch=mr.microbatch)
+        self.bundle = bundle = StepBundle(
+            run, device=device, mesh=mesh,
+            defs_fn=unfreeze_all if mr.all_trainable else mr.defs_fn)
+        if job.params is not None:
+            from repro_torch.convert import shards_from_jax
+            self.params = shards_from_jax(job.params, bundle)
+        else:
+            self.params = bundle.init_all_params(job.seed, job.draw_device)
+        self.train_p, self.frozen_p = bundle.split(self.params)
+        self.opt = init_opt_state(bundle.opt_shards(self.train_p), sysc)
+        self.step_fn = bundle.make_train_step(coll)
+        self.cross_step = self.step_fn.use_xstep
+        self.carry = None
+        self.steps_taken = 0     # steps since init / restore
+        self.last_primed = False
+        self.last_kind: Optional[str] = None
+        self.metrics_log: List[dict] = []
+        self.batches = job.batches
+        self.loader = ShardedLoader(SyntheticPackedLM(run.model, run.shape,
+                                                      DataConfig(job.seed)),
+                                    bundle)
+
+    def batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """This rank's rows of batch ``step`` (the job's, else the
+        synthetic data's)."""
+        if self.batches:
+            return self.bundle.shard_batch(self.batches[step])
+        return self.loader.get(step)
+
+    def do_train_step(self, batch) -> Dict[str, float]:
+        """One step under the live schedule. With the cross-step
+        pipeline the first call primes the carry (no update; its grad
+        norm is 0, not a norm: ``last_primed``), the next ones run piped;
+        call ``flush_carry`` before reading the final state."""
+        self.last_primed = False
+        self.steps_taken += 1
+        if not self.cross_step:
+            self.last_kind = "step"
+            return self.step_fn(self.params, self.opt, batch)
+        if self.carry is None:
+            self.last_primed, self.last_kind = True, "prime"
+            self.carry, m = self.step_fn.prime(self.params, self.opt, batch)
+        else:
+            self.last_kind = "piped"
+            self.carry, m = self.step_fn.piped(self.params, self.opt,
+                                               self.carry, batch)
+        return m
+
+    def flush_carry(self) -> Optional[Dict[str, float]]:
+        """Finalize the outstanding cross-step epilogue, if any, so the
+        shards and the optimizer state reflect every step taken (the
+        next step re-primes). The flushed grad norm, the last step's, is
+        appended to ``metrics_log`` as a ``flush`` row."""
+        if self.carry is None:
+            return None
+        self.last_kind = "flush"
+        m = self.step_fn.flush(self.params, self.opt, self.carry)
+        self.carry = None
+        self.metrics_log.append({"flush": True, "grad_norm": m["grad_norm"]})
+        return m
+
+    def state_tree(self) -> dict:
+        """The persisted training state: the trainable shards and the
+        optimizer state, and the cross-step carry exactly when one is
+        outstanding, so a checkpoint taken mid-pipeline round-trips
+        bit-exactly."""
+        tree = {"params": self.train_p, "opt": self.opt}
+        if self.carry is not None:
+            tree["carry"] = self.carry
+        return tree
+
+    def load_state(self, tree: dict) -> None:
+        """Load a restored state (this rank's blocks) into the live
+        tensors in place, so nothing the step keeps points at old
+        storage; a restored carry resumes the pipeline mid-flight,
+        without one the next step re-primes."""
+        with torch.no_grad():
+            for dst, src in zip(self.train_p, tree["params"]):
+                dst.copy_(src)
+            for k in ("m", "v", "master"):
+                for dst, src in zip(self.opt[k], tree["opt"][k]):
+                    dst.copy_(src)
+        self.opt["step"] = int(tree["opt"]["step"])
+        self.carry = tree.get("carry")
+        self.step_fn.primed = self.carry is not None
+        self.steps_taken = 0
+
+
+def drive(st: RunState, steps: int, ckpt_dir: str, ckpt_every: int = 10,
+          fail_at: tuple = (), call: Optional[Callable] = None,
+          flush: Optional[Callable] = None, log: Optional[Callable] = None
+          ) -> dict:
+    """The JAX launcher's checkpoint/restart loop over ``st``, on every
+    rank: a blocking step-0 checkpoint when ``ckpt_dir`` holds none, an
+    async checkpoint every ``ckpt_every`` steps and at the end (taken
+    mid-pipeline: the carry rides along, with the mesh signature in
+    ``meta``), failures injected at the steps ``fail_at`` (on every
+    rank), and on a failure the in-flight epilogue flushed, the pending
+    writes drained and the last checkpoint restored; a carry the restore
+    had to drop (a mesh change) re-runs the step before it to re-prime.
+    ``call(step)`` runs one step (default ``st.do_train_step``),
+    ``flush()`` drains the pipeline at the end (default
+    ``st.flush_carry``), ``log`` takes a line per restore. Returns
+    ``run_with_restarts``' result with the last loss of every step, the
+    checkpoints left, what each restore did, and the seconds each save
+    took on this thread and each restore took."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    ckpt = Checkpointer(ckpt_dir, rank=rank, world=world,
+                        barrier=dist.barrier if world > 1 else None)
+    injector = FailureInjector(fail_at_steps=tuple(fail_at))
+    monitor = StragglerMonitor()
+    hb = HeartbeatMonitor(timeout_s=600).start()
+    call = call or (lambda s: st.do_train_step(st.batch(s)))
+    io = {"save_s": [], "restore_s": [], "restored": []}
+
+    def do_step(step: int):
+        injector.maybe_fail(step)
+        m = call(step)
+        row = {"step": step, "loss": m["loss"], "grad_norm": m["grad_norm"]}
+        if st.last_primed:
+            row["primed"] = True
+        st.metrics_log.append(row)
+
+    def save(step: int, blocking: bool = False):
+        t0 = time.perf_counter()
+        tree = st.state_tree()
+        ckpt.save(step, tree, blocking=blocking, meta=mesh_meta(st.bundle),
+                  blocks=st.bundle.state_blocks(tree))
+        io["save_s"].append(time.perf_counter() - t0)
+
+    def restore() -> int:
+        # drain the in-flight save first (every rank's part of it), or
+        # latest_step() would miss it and resume a whole interval early
+        ckpt.wait()
+        latest = ckpt.latest_step()
+        if latest == 0 and st.steps_taken == 0 and st.carry is None:
+            return 0            # the step-0 seed just written: live state
+        if latest is None:
+            st.flush_carry()
+            return 0
+        t0 = time.perf_counter()
+        state, carry_invalidated = reshard_state(
+            ckpt, latest, st.bundle, {"params": st.train_p, "opt": st.opt})
+        st.load_state(state)
+        io["restore_s"].append(time.perf_counter() - t0)
+        resume = max(latest - 1, 0) if carry_invalidated else latest
+        io["restored"].append({"step": latest, "resume": resume,
+                               "carry": "carry" in state,
+                               "carry_invalidated": carry_invalidated})
+        if log is not None:
+            log(f"restored checkpoint at step {latest}"
+                + (f"; cross-step carry invalidated -> re-running step "
+                   f"{resume} to re-prime" if carry_invalidated else ""))
+        return resume
+
+    try:
+        if ckpt.latest_step() is None:
+            save(0, blocking=True)
+        result = run_with_restarts(steps, do_step, save, restore,
+                                   checkpoint_every=ckpt_every,
+                                   monitor=monitor, heartbeat=hb,
+                                   flush_fn=st.flush_carry)
+        (flush or st.flush_carry)()
+    finally:
+        hb.stop()
+    ckpt.wait()
+    losses = {}
+    for row in st.metrics_log:           # the last run of a step wins
+        if "step" in row:
+            losses[row["step"]] = row["loss"]
+    return dict(result, losses=losses, ckpt_steps=ckpt.all_steps(), **io)
+
+
+def _run_mode(job: "TrainJob", mr: ModeRun, mesh: RankMesh,
+              coll: Collectives, device: torch.device):
+    """Run ``mr`` on this rank: its steps (through ``drive`` when it has
+    a ``ckpt_dir``), each call recorded. Returns (the record, the final
+    ``RunState``)."""
+    st = RunState(job, mr, mesh, coll, device)
+    bundle, step, run = st.bundle, st.step_fn, st.run
     # host copies: the check must not add to the peak device memory
-    frozen0 = [t.detach().to("cpu", copy=True) for t in frozen]
-    opt = init_opt_state(bundle.opt_shards(train), sysc)
-    step = bundle.make_train_step(coll)
+    frozen0 = [t.detach().to("cpu", copy=True) for t in st.frozen_p]
     sched = step.gather.scheduler
-    loader = ShardedLoader(SyntheticPackedLM(run.model, run.shape,
-                                             DataConfig(job.seed)), bundle)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -196,43 +386,31 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
            "params_total": sum(d.size() for d in bundle.def_leaves),
            "params_trainable": sum(bundle.def_leaves[i].size()
                                    for i in bundle.train_idx)}
-    carry = None
     peak = 0               # the run's peak: the step resets it each call
 
-    def call(kind: str, s: int):
+    def call(s: int, flush: bool = False):
         """One call of the step (a fused step, or the cross-step
         schedule's prime, piped or flush), timed and recorded."""
-        nonlocal carry, peak
+        nonlocal peak
         before = coll.snapshot()
         launches = {k: f.launches for k, f in ops.INT8_KERNELS.items()}
         calls = {k: f.calls for k, f in ops.INT8_KERNELS.items()}
         mm_launches, mm_calls = mm.launches, mm.calls
-        batch = None
-        if kind != "flush":
-            batch = (bundle.shard_batch(job.batches[s]) if job.batches
-                     else loader.get(s))
+        batch = None if flush else st.batch(s)
         dist.barrier()
         if device.type == "cuda":
             peak = max(peak, torch.cuda.max_memory_allocated(device))
         t0 = time.perf_counter()
-        if kind == "step":
-            m = step(params, opt, batch)
-        elif kind == "prime":
-            carry, m = step.prime(params, opt, batch)
-        elif kind == "piped":
-            carry, m = step.piped(params, opt, carry, batch)
-        else:
-            m = step.flush(params, opt, carry)
-            carry = None
+        m = st.flush_carry() if flush else st.do_train_step(batch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         out["step_s"].append(time.perf_counter() - t0)
-        out["kinds"].append(kind)
+        out["kinds"].append(st.last_kind)
         out["memory"].append(dict(step.memory))
         peak = max([peak] + [p for p, _ in step.memory.values()])
-        out["carry_bytes"].append(carry_bytes(carry) if carry else 0)
+        out["carry_bytes"].append(carry_bytes(st.carry) if st.carry else 0)
         if step.use_xstep:       # prime's grad norm is not a norm yet
-            m = dict(m, primed=kind == "prime")
+            m = dict(m, primed=st.last_kind == "prime")
         out["metrics"].append(m)
         after = coll.snapshot()
         out["bytes"].append({k: v - before.get(k, 0.0)
@@ -249,36 +427,57 @@ def _run_mode(job: TrainJob, mr: ModeRun, mesh: RankMesh, coll: Collectives,
         out["cached"].append(dict(step.gather.cached))
         out["cache_places"].append({k: sorted(v) for k, v in
                                     step.gather.cache_places.items()})
+        return m
 
-    for s in range(mr.steps):
-        call(("piped" if s else "prime") if step.use_xstep else "step", s)
-        if job.return_params and s == 0:
-            out["params"] = {path: t.detach().cpu().float().numpy()
-                             for path, t in tree_items(params)}
-            out["specs"] = dict(zip(bundle.paths, bundle.leaf_specs))
-            out["opt_dtypes"] = {k: str(opt[k][0].dtype).split(".")[-1]
-                                 for k in ("m", "v", "master")}
-    if step.use_xstep:
-        call("flush", mr.steps)
-    digest = hashlib.sha256()
-    for _, t in tree_items(params):
-        digest.update(t.detach().cpu().contiguous().view(torch.uint8)
-                      .numpy().tobytes())
-    out["final_digest"] = digest.hexdigest()
+    def final_flush():
+        if st.carry is not None:
+            call(mr.steps, flush=True)
+
+    if mr.ckpt_dir is not None:
+        out["restart"] = drive(
+            st, mr.steps, mr.ckpt_dir, mr.ckpt_every, mr.fail_at, call=call,
+            flush=final_flush, log=print if dist.get_rank() == 0 else None)
+    else:
+        for s in range(mr.steps):
+            call(s)
+            if job.return_params and s == 0:
+                out["params"] = {path: t.detach().cpu().float().numpy()
+                                 for path, t in tree_items(st.params)}
+                out["specs"] = dict(zip(bundle.paths, bundle.leaf_specs))
+                out["opt_dtypes"] = {
+                    k: str(st.opt[k][0].dtype).split(".")[-1]
+                    for k in ("m", "v", "master")}
+        final_flush()
+    out["final_digest"] = state_digest(st.params)
     if job.return_params:
         out["final_params"] = {path: t.detach().cpu().float().numpy()
-                               for path, t in tree_items(params)}
-    if frozen:
+                               for path, t in tree_items(st.params)}
+    if st.frozen_p:
         out["frozen_unchanged"] = all(
-            torch.equal(a, b.detach().cpu()) for a, b in zip(frozen0, frozen))
+            torch.equal(a, b.detach().cpu())
+            for a, b in zip(frozen0, st.frozen_p))
         out["lora_b_moved"] = any(
             bool(t.detach().abs().max() > 0)
-            for path, t in tree_items(params) if path.endswith("_lora_b"))
+            for path, t in tree_items(st.params) if path.endswith("_lora_b"))
     if device.type == "cuda":
         out["peak_mem_bytes"] = max(
             peak, torch.cuda.max_memory_allocated(device))
-    del params, opt, step, frozen0
-    return out
+    return out, st
+
+
+def state_digest(tree) -> str:
+    """A SHA-256 of the bytes of a tree's tensors (and the values of its
+    other leaves) in checkpoint order: equal for two trees equal bit for
+    bit."""
+    from repro_torch.checkpoint.checkpointer import flatten_with_path
+    digest = hashlib.sha256()
+    for _, leaf in flatten_with_path(tree)[0]:
+        if torch.is_tensor(leaf):
+            digest.update(leaf.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes())
+        else:
+            digest.update(repr(leaf).encode())
+    return digest.hexdigest()
 
 
 def _init_group(rank: int, world: int, local_world: int,
@@ -306,10 +505,16 @@ def run_job(job: TrainJob, rank: int, world: int, local_world: int,
     try:
         mesh = RankMesh(job.mesh, backend)
         coll = Collectives(mesh)
-        results = [_run_mode(job, mr, mesh, coll, device)
-                   for mr in job.runs]
-        task = (job.task(job, mesh, coll, device) if job.task is not None
-                else None)
+        results, st = [], None
+        for mr in job.runs:
+            st = None           # the previous run's state is freed first
+            out, st = _run_mode(job, mr, mesh, coll, device)
+            results.append(out)
+        if not job.keep_last:
+            st = None
+        task = (job.task(job, mesh, coll, device, st)
+                if job.task is not None else None)
+        del st
         dist.barrier()
         return {"rank": rank, "coords": mesh.coords, "backend": backend,
                 "device": str(device), "runs": results, "task": task}
@@ -478,6 +683,13 @@ def parser() -> argparse.ArgumentParser:
                          "save_collectives (its input and its 'model' "
                          "all-reduce outputs)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_ckpt"),
+                    help="checkpoint directory; a run resumes from its "
+                         "latest checkpoint")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[],
+                    help="inject a failure (on every rank) at these steps")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     return ap
@@ -509,7 +721,10 @@ def main(argv=None):
                                  device_cache_fraction=(
                                      sysc.device_cache_fraction),
                                  activation_policy=(
-                                     sysc.activation_policy))],
+                                     sysc.activation_policy),
+                                 ckpt_dir=args.ckpt_dir,
+                                 ckpt_every=args.ckpt_every,
+                                 fail_at=tuple(args.fail_at))],
                    device=args.device, seed=args.seed)
     t0 = time.perf_counter()
     res = run_job(job, rank, world, local_world, "env://")
@@ -519,6 +734,12 @@ def main(argv=None):
             loss = f"loss {m['loss']:.4f} " if "loss" in m else ""
             print(f"{kind} {s:5d} {loss}gnorm {m['grad_norm']:.3f} "
                   f"({r['step_s'][s]:.2f}s)")
+        restart = {k: r["restart"][k] for k in
+                   ("final_step", "restarts", "ckpt_steps", "restored")}
+        if not r["kinds"]:
+            print(json.dumps({"restart": restart,
+                              "note": "no step left to run"}))
+            return res
         last = max(i for i, k in enumerate(r["kinds"]) if k != "flush")
         print(json.dumps({
             "mode": args.mode, "mesh": job.mesh.shape,
@@ -547,6 +768,7 @@ def main(argv=None):
             "cache_accounting": r["cache_accounting"],
             "memory": r["memory"][last],
             "trainable_frac": r["params_trainable"] / r["params_total"],
+            "restart": restart,
             "wall_s": time.perf_counter() - t0}))
     return res
 

@@ -243,13 +243,17 @@ def test_train_launcher_parses_peft_and_builds_the_composite():
     assert (sysc.lora_alpha, sysc.lora_targets) == (8.0, ("wq", "wo"))
 
 
-def test_train_launcher_runs_a_peft_step_on_the_cpu(monkeypatch, capsys):
+def test_train_launcher_runs_a_peft_step_on_the_cpu(monkeypatch, capsys,
+                                                   tmp_path):
     """One CPU rank trains the adapters: the JSON line reports the
-    trainable fraction; the frozen trunk is left as it was."""
+    trainable fraction; the frozen trunk is left as it was. (The
+    launcher resumes from the latest checkpoint in its --ckpt-dir, so
+    the run gets a directory of its own.)"""
     from repro_torch.launch import train as launcher
     _one_rank_env(monkeypatch)
     res = launcher.main(PEFT_FLAGS + ["--steps", "2", "--batch", "2",
-                                      "--seq-len", "32"])
+                                      "--seq-len", "32",
+                                      "--ckpt-dir", str(tmp_path)])
     r = res["runs"][0]
     assert all(np.isfinite(m["loss"]) for m in r["metrics"])
     assert r["frozen_unchanged"] and r["lora_b_moved"]

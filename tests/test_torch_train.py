@@ -413,12 +413,13 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_launcher_runs_under_torchrun_env_on_one_pod(monkeypatch):
+def test_launcher_runs_under_torchrun_env_on_one_pod(monkeypatch, tmp_path):
     """``python -m repro_torch.launch.train`` reads torchrun's
     environment. One CPU rank without --multi-pod: a (data 1, model 1)
     mesh has no stage 1, so the cache boundary sits after stage 2 and
     fcdp keeps the whole gathered weight on the host; nothing crosses a
-    wire."""
+    wire. (The launcher resumes from the latest checkpoint in its
+    --ckpt-dir, so the run gets a directory of its own.)"""
     from repro_torch.launch import train as launcher
     for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
                  "MASTER_ADDR": "127.0.0.1",
@@ -426,7 +427,7 @@ def test_launcher_runs_under_torchrun_env_on_one_pod(monkeypatch):
         monkeypatch.setenv(k, v)
     res = launcher.main(["--arch", "qwen2.5-3b", "--smoke", "--steps", "2",
                          "--batch", "2", "--seq-len", "32",
-                         "--device", "cpu"])
+                         "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     r = res["runs"][0]
     assert res["backend"] == "gloo" and res["coords"] == {"data": 0,
                                                           "model": 0}
