@@ -204,6 +204,34 @@ non-zero:
                 written: the same per-step losses and final shards
                 (SHA-256 a rank) after the restore. Fails when the
                 disk cannot hold two dense checkpoints.
+ 21. family_train -- training of the ssm and hybrid families: the Mamba
+                scan's forward and gradient (``ops.mamba_scan_train``,
+                the adjoint on the same kernel) against autograd of its
+                plain version at [2, 64, 512] fp32, with h0 and without
+                (the kernel launched twice each), and the forward and
+                the adjoint timed at a rank's hybrid shape; then, one
+                step an arm on phase 5's 4 ranks (riding on phase 17's
+                spawn after its arms), seq 512, global batch 8, bf16:
+                rwkv6-3b at full width and depth 2 under zero3 and fcdp,
+                and jamba's widths in one period of 2 layers ((attention,
+                MLP), (Mamba, MoE), 4 of its 16 experts) under zero3,
+                fcdp with int8 qwZ/qgZ and the fused matmul (ag_matmul),
+                and the mixed layout (experts mics, embedding hier).
+                Checks finite losses the ranks agree on, an aux loss on
+                the hybrid arms only, the losses and the mixed grad
+                norm equal to zero3's (int8 within INT8_DRIFT), every
+                rank's scan, int8 and chunk-matmul launches equal to
+                the plans and to the calls (no plain version ran), and
+                fcdp's pod all-gather below zero3's on both families;
+                reports the bytes, peaks and step times.
+ 22. family_parity -- tests/test_system.py's t-jamba and t-rwkv at
+                (2, 2, 1), fp32: one fcdp step each on the card and on
+                the CPU (riding on phase 6's jobs), from the same
+                weights: loss, aux loss and grad norm within the step
+                tolerances, the same bytes, the scan's plan launched on
+                the card and only called on the CPU.
+
+Each parity phase runs its card and its CPU job side by side.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
 plain versions at the train and PEFT phases' shapes, at the int8 TP
@@ -1818,6 +1846,32 @@ def _rel(a, b):
     return abs(a - b) / abs(b)
 
 
+def spawn_card_and_cpu(make_job, timeout_s=300):
+    """The ranks of ``make_job("cuda")`` and of ``make_job("cpu")`` side
+    by side (the CPU job's spawn in a thread): {device: (rank 0's runs,
+    wall seconds)}. A parity phase's two jobs share no state, so the
+    CPU ranks need not wait for the card's."""
+    import threading
+
+    from repro_torch.launch.train import spawn
+    out, errors = {}, []
+
+    def one(dev):
+        try:
+            t0 = time.perf_counter()
+            rs = spawn(make_job(dev), timeout_s=timeout_s)[0]["runs"]
+            out[dev] = (rs, time.perf_counter() - t0)
+        except BaseException as e:       # re-raised on the main thread
+            errors.append(e)
+    cpu = threading.Thread(target=one, args=("cpu",))
+    cpu.start()
+    one("cuda")
+    cpu.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
 def phase_train():
     """The train path at full width, depth 2, 4 ranks on the card."""
     import math
@@ -2148,19 +2202,17 @@ def phase_train_parity():
     weights put matmul outputs on rounding ties that the card's and the
     CPU's matmuls break apart (tests/test_torch_train.py measures the
     same against JAX); fp32 also runs the chunk matmul's CUDA-core
-    path."""
+    path. Returns phase family_parity's runs ({device: records}), which
+    ride on the same jobs after these two."""
     from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.launch.train import ModeRun, spawn
+    from repro_torch.launch.train import ModeRun
 
     runs = [ModeRun("fcdp", "int8_pod", "int8_pod", dtype="float32"),
             ModeRun("fcdp", fused_matmul="ag_matmul", dtype="float32")]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        job = _train_job(get_smoke_config("qwen2.5-3b"), 64, 8, runs,
-                         dtype="float32", device=dev, draw_device="cpu")
-        t0 = time.perf_counter()
-        rs = spawn(job, timeout_s=300)[0]["runs"]
-        out[dev] = (rs, time.perf_counter() - t0)
+    runs += family_parity_runs()        # phase family_parity's, checked there
+    out = spawn_card_and_cpu(
+        lambda dev: _train_job(get_smoke_config("qwen2.5-3b"), 64, 8, runs,
+                               dtype="float32", device=dev, draw_device="cpu"))
     (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
     report = {}
     for name, g, c in zip(("int8", "ag_matmul"), gs, cs):
@@ -2189,6 +2241,7 @@ def phase_train_parity():
           "the fused parity run launched no chunk matmul")
     emit("train_parity", model="qwen2.5-smoke", dtype="float32",
          runs=report, wall_s={"cuda": t_g, "cpu": t_c})
+    return {"cuda": gs[2:], "cpu": cs[2:]}
 
 
 # -- phases 11 and 12: PEFT / FCDP-Comm ------------------------------------------
@@ -2326,19 +2379,15 @@ def phase_peft_parity():
     fp32, the same 4-rank steps on the card (kernels) and on the CPU
     (plain versions) from the same weights (drawn on the CPU)."""
     from repro_torch.configs.base import ModelConfig
-    from repro_torch.launch.train import ModeRun, spawn
+    from repro_torch.launch.train import ModeRun
 
     peft = dict(peft=True, lora_rank=PEFT_RANK, dtype="float32")
     runs = [ModeRun("fcdp", "int8_pod", "int8_pod", **peft),
             ModeRun("fcdp", mode_overrides=PEFT_MIXED, **peft)]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        job = _train_job(ModelConfig(**PEFT_SMOKE), 64, 8, runs,
-                         dtype="float32", grad_clip=1e9, device=dev,
-                         draw_device="cpu")
-        t0 = time.perf_counter()
-        rs = spawn(job, timeout_s=300)[0]["runs"]
-        out[dev] = (rs, time.perf_counter() - t0)
+    out = spawn_card_and_cpu(
+        lambda dev: _train_job(ModelConfig(**PEFT_SMOKE), 64, 8, runs,
+                               dtype="float32", grad_clip=1e9, device=dev,
+                               draw_device="cpu"))
     (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
     report = {}
     for name, g, c in zip(("int8", "mixed"), gs, cs):
@@ -2498,24 +2547,45 @@ def phase_tp_train():
     return launches
 
 
-def phase_tp_parity():
-    """tests/test_torch_tp.py's DENSE model at (2, 2, 2), fp32: fcdp with
-    the int8 TP activation all-reduce and fcdp with the gather-fused
-    matmul, the same 8-rank steps on the card (kernels) and on the CPU
-    (plain versions) from the same weights (drawn on the CPU)."""
+def tp2_parity_jobs():
+    """The runs of the three 8-rank parity phases (tp_parity,
+    sched_parity, stream_parity; the last on its 3-layer model) on one
+    job a device, the card's and the CPU's side by side, which spares
+    two spawns on each: {phase: {device: (rank 0's records of its runs,
+    the shared job's wall seconds)}}."""
     from repro_torch.configs.base import ModelConfig
-    from repro_torch.launch.train import ModeRun, spawn
+    from repro_torch.launch.train import ModeRun
 
-    runs = [ModeRun("fcdp", act_psum="int8", dtype="float32"),
-            ModeRun("fcdp", fused_matmul="ag_matmul", dtype="float32")]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        job = _train_job(ModelConfig(**TP_PARITY_MODEL), 64, 8, runs,
-                         dtype="float32", mesh=(2, 2, 2), device=dev,
-                         draw_device="cpu")
-        t0 = time.perf_counter()
-        rs = spawn(job, timeout_s=300)[0]["runs"]
-        out[dev] = (rs, time.perf_counter() - t0)
+    stream = ModelConfig(**STREAM_PARITY_MODEL)
+    groups = {
+        "tp": [ModeRun("fcdp", act_psum="int8", dtype="float32"),
+               ModeRun("fcdp", fused_matmul="ag_matmul", dtype="float32")],
+        "sched": [ModeRun("fcdp", prefetch_depth=1, dtype="float32"),
+                  ModeRun("hier", dtype="float32")],
+        "stream": [ModeRun("fcdp", dtype="float32", microbatch=STREAM_MB,
+                           steps=2, async_grad_reduce=True, model=stream),
+                   ModeRun("fcdp", dtype="float32", microbatch=STREAM_MB,
+                           steps=2, async_grad_reduce=True,
+                           cross_step_pipeline=True, model=stream)]}
+    runs = [r for g in groups.values() for r in g]
+    out = spawn_card_and_cpu(
+        lambda dev: _train_job(ModelConfig(**TP_PARITY_MODEL), 64, 8, runs,
+                               dtype="float32", mesh=(2, 2, 2), device=dev,
+                               draw_device="cpu"))
+    split, i = {}, 0
+    for name, g in groups.items():
+        split[name] = {dev: (rs[i:i + len(g)], wall)
+                       for dev, (rs, wall) in out.items()}
+        i += len(g)
+    return split
+
+
+def phase_tp_parity(out):
+    """tests/test_torch_tp.py's DENSE model at (2, 2, 2), fp32: fcdp with the
+    int8 TP activation all-reduce and fcdp with the gather-fused
+    matmul, the same 8-rank steps on the card (kernels) and on the CPU
+    (plain versions) from the same weights (drawn on the CPU). ``out``:
+    this phase's share of ``tp2_parity_jobs``."""
     (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
     report = {}
     for name, g, c in zip(("act_int8", "ag_matmul"), gs, cs):
@@ -2669,24 +2739,12 @@ def phase_sched_train(train_fcdp_bytes):
     return launches
 
 
-def phase_sched_parity():
-    """tests/test_torch_sched.py's DENSE model at (2, 2, 2), fp32: fcdp
-    at prefetch depth 1 and hier, the same 8-rank steps on the card and
-    on the CPU from the same weights (drawn on the CPU): loss within
-    tolerance, the same bytes."""
-    from repro_torch.configs.base import ModelConfig
-    from repro_torch.launch.train import ModeRun, spawn
-
-    runs = [ModeRun("fcdp", prefetch_depth=1, dtype="float32"),
-            ModeRun("hier", dtype="float32")]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        job = _train_job(ModelConfig(**TP_PARITY_MODEL), 64, 8, runs,
-                         dtype="float32", mesh=(2, 2, 2), device=dev,
-                         draw_device="cpu")
-        t0 = time.perf_counter()
-        rs = spawn(job, timeout_s=300)[0]["runs"]
-        out[dev] = (rs, time.perf_counter() - t0)
+def phase_sched_parity(out):
+    """tests/test_torch_sched.py's DENSE model at (2, 2, 2), fp32: fcdp at
+    prefetch depth 1 and hier, the same 8-rank steps on the card and on
+    the CPU from the same weights (drawn on the CPU): loss within
+    tolerance, the same bytes. ``out``: this phase's share of
+    ``tp2_parity_jobs``."""
     (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
     report = {}
     for name, g, c in zip(("fcdp_d1", "hier"), gs, cs):
@@ -2801,11 +2859,15 @@ def _xstep_checks(name, xs, carry_bytes):
               f"stream {name}: the prime reports a grad norm")
 
 
-def phase_stream_train():
+def phase_stream_train(extra=(), task=None):
     """The scheduler's streams 2 and 3 on the train path: qwen2.5-3b at
     full width, depth 2, seq 512, global batch 8, on phase train's 4
     ranks (pod 2, data 2) sharing the card, microbatch 2:
-    ``STREAM_RUNS``."""
+    ``STREAM_RUNS``. The ``extra`` runs (phase family_train's arms,
+    each with its own model, and phase cache_train's) and the job's
+    ``task`` (cache_train's) ride on the same ranks after them, which
+    spares spawns; returns (the launches, every rank's record of each
+    extra run, every rank's result, the spawn's wall seconds)."""
     import math
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import ModeRun, spawn
@@ -2814,7 +2876,7 @@ def phase_stream_train():
                               num_layers=TRAIN_DEPTH)
     job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH,
                      [ModeRun(microbatch=STREAM_MB, **kw)
-                      for _, kw in STREAM_RUNS])
+                      for _, kw in STREAM_RUNS] + list(extra), task=task)
     t0 = time.perf_counter()
     ranks = spawn(job, timeout_s=900)
     wall = time.perf_counter() - t0
@@ -2897,31 +2959,20 @@ def phase_stream_train():
     emit("stream_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
          seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, microbatch=STREAM_MB,
          mesh=job.mesh.shape, backend=ranks[0]["backend"], wall_s=wall,
+         spawn_shared_with=["family_train", "cache_train"],
          kernel_launches_total=launches, runs=summary)
-    return launches
+    n = len(STREAM_RUNS)
+    return (launches, [[rk["runs"][n + j] for rk in ranks]
+                       for j in range(len(extra))], ranks, wall)
 
 
-def phase_stream_parity():
+def phase_stream_parity(out):
     """tests/test_torch_streams.py's DENSE model at (2, 2, 2), fp32,
     microbatch 2: fcdp async (2 steps) and fcdp cross-step (2 batches),
     the same 8-rank calls on the card and on the CPU from the same
     weights (drawn on the CPU): losses and grad norms within tolerance,
-    the same bytes and carry."""
-    from repro_torch.configs.base import ModelConfig
-    from repro_torch.launch.train import ModeRun, spawn
-
-    runs = [ModeRun("fcdp", dtype="float32", microbatch=STREAM_MB, steps=2,
-                    async_grad_reduce=True),
-            ModeRun("fcdp", dtype="float32", microbatch=STREAM_MB, steps=2,
-                    async_grad_reduce=True, cross_step_pipeline=True)]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        job = _train_job(ModelConfig(**STREAM_PARITY_MODEL), 64, 8, runs,
-                         dtype="float32", mesh=(2, 2, 2), device=dev,
-                         draw_device="cpu")
-        t0 = time.perf_counter()
-        rs = spawn(job, timeout_s=300)[0]["runs"]
-        out[dev] = (rs, time.perf_counter() - t0)
+    the same bytes and carry. ``out``: this phase's share of
+    ``tp2_parity_jobs``."""
     (gs, t_g), (cs, t_c) = out["cuda"], out["cpu"]
     report = {}
     for name, g, c in zip(("fcdp_async", "fcdp_xstep"), gs, cs):
@@ -3024,13 +3075,23 @@ def _gib_parts(memory):
             for p, pv in memory.items()}
 
 
-def phase_cache_train():
+def cache_runs():
+    """Phase cache_train's runs (``CACHE_RUNS``), which ride on phase
+    stream_train's spawn with ``_cache_task``."""
+    from repro_torch.launch.train import ModeRun
+    return [ModeRun(**kw) for _, kw in CACHE_RUNS]
+
+
+def phase_cache_train(results, ranks, wall):
     """FCDP-Cache on the train path: qwen2.5-3b at full width, depth 2,
     seq 512, global batch 8, on phase train's 4 ranks: ``CACHE_RUNS``,
     then the planner's walk and mid-budget plan on every rank
     (``_cache_task``), the walk's trial steps giving fractions 1.0 and
     0.0 (the measured cache tiers against the analytic ones); then one
-    ``plan_serve`` over the paged serve cell's pool on this process."""
+    ``plan_serve`` over the paged serve cell's pool on this process.
+    The runs and the task ride on phase stream_train's spawn:
+    ``results`` holds every rank's record of each run, ``ranks`` every
+    rank's result (its task's), ``wall`` the spawn's seconds."""
     import math
 
     import torch
@@ -3041,18 +3102,10 @@ def phase_cache_train():
     from repro_torch.core.engine.serve import default_paged_kv
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import MeshShape
-    from repro_torch.launch.train import ModeRun, spawn
 
     cfg = dataclasses.replace(get_config("qwen2.5-3b"),
                               num_layers=TRAIN_DEPTH)
-    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH,
-                     [ModeRun(**kw) for _, kw in CACHE_RUNS],
-                     task=_cache_task)
-    t0 = time.perf_counter()
-    ranks = spawn(job, timeout_s=900)
-    wall = time.perf_counter() - t0
-    by = {name: [rk["runs"][i] for rk in ranks]
-          for i, (name, _) in enumerate(CACHE_RUNS)}
+    by = {name: rs for (name, _), rs in zip(CACHE_RUNS, results)}
     arms = {}
     for name, kw in CACHE_RUNS:
         rs = by[name]
@@ -3211,8 +3264,10 @@ def phase_cache_train():
                 "prefetch_buffer_bytes": it["prefetch_buffer_bytes"],
                 "stage1_dcn_gather_bytes": it.get("stage1_dcn_gather_bytes")}
     emit("cache_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
-         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
-         backend=ranks[0]["backend"], wall_s=wall, hbm_per_chip=total,
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+         mesh={"pod": 2, "data": 2, "model": 1},
+         backend=ranks[0]["backend"], spawn_shared_with="stream_train",
+         wall_s=wall, hbm_per_chip=total,
          arms=arms,
          walk=[dict(gib(it), measured_cached=t["cached"],
                     loss=t["metrics"]["loss"],
@@ -3232,6 +3287,281 @@ def phase_cache_train():
                                   for it in serve_plan["iterations"]]},
          serve_plan_s=serve_s, kernel_launches_total=launches)
     return launches
+
+
+# -- phase 21: training of the moe, ssm and hybrid families ------------------
+
+FAMILY_DEPTH = 2
+# jamba's 16 experts cut to 4: at 16 the cut holds ~3.68 B parameters,
+# more than the card holds for 4 ranks (PERF.md section 4)
+FAMILY_EXPERTS = 4
+# the reference's headline composite: experts on mics, embedding on hier
+MIXED_RULES = (("blocks.*.moe.we_*", "mics"), ("embed", "hier"))
+FAMILY_RUNS = {
+    "rwkv6-3b": (("zero3", dict(mode="zero3")),
+                 ("fcdp", dict(mode="fcdp"))),
+    "jamba-v0.1-52b": (
+        ("zero3", dict(mode="zero3")),
+        ("fcdp_q8_ag", dict(mode="fcdp", param_compress="int8_pod",
+                            grad_compress="int8_pod",
+                            fused_matmul="ag_matmul")),
+        ("mixed", dict(mode="fcdp", mode_overrides=MIXED_RULES)))}
+# the scan's gradient on the card against autograd of its plain version
+SCAN_GRAD_SHAPE = (2, 64, 512)
+# tests/test_system.py's t-jamba and t-rwkv
+FAMILY_PARITY_MODELS = {
+    "t-jamba": dict(name="t-jamba", family="hybrid", num_layers=4,
+                    d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                    vocab_size=256, mamba=dict(d_state=8, dt_rank=8),
+                    moe=dict(num_experts=4, top_k=2, d_ff_expert=128,
+                             moe_period=2, moe_offset=1),
+                    hybrid_period=2, hybrid_attn_positions=(0,)),
+    "t-rwkv": dict(name="t-rwkv", family="ssm", num_layers=2, d_model=64,
+                   num_heads=0, num_kv_heads=0, d_ff=128, vocab_size=256,
+                   rwkv=dict(head_dim=16, decay_lora=8))}
+AUX_RTOL = 1e-4
+
+
+def family_config(arch):
+    """The family arm's model: rwkv6-3b at full width, depth 2; jamba's
+    widths in one period of 2 layers ((attention, MLP), (Mamba, MoE):
+    jamba-smoke's layout) with 4 of its 16 experts."""
+    from repro_torch.configs.registry import get_config
+    if arch == "rwkv6-3b":
+        return dataclasses.replace(get_config(arch), num_layers=FAMILY_DEPTH)
+    cfg = jamba_config(FAMILY_DEPTH, period=2, attn_positions=(0,))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=FAMILY_EXPERTS))
+
+
+def _launch_checks(name, r):
+    """Every call of a run launched each kernel as often as its plan
+    says and called no plain version on the card."""
+    for s, (launched, called) in enumerate(zip(r["launches"], r["calls"])):
+        check(launched == r["int8_plan"] == called,
+              f"{name} step {s}: int8 launches {launched} / calls {called} "
+              f"!= the plans' {r['int8_plan']}")
+    check(r["mm_launches"] == r["mm_calls"]
+          == [r["mm_plan"]] * len(r["metrics"]),
+          f"{name}: matmul_chunk launches {r['mm_launches']} / calls "
+          f"{r['mm_calls']} != the plans' {r['mm_plan']}")
+    check(r["scan_launches"] == r["scan_calls"]
+          == [r["scan_plan"]] * len(r["metrics"]),
+          f"{name}: mamba_scan launches {r['scan_launches']} / calls "
+          f"{r['scan_calls']} != the plans' {r['scan_plan']}")
+
+
+def scan_grad_case(shape, gen, with_h0):
+    """``ops.mamba_scan_train``'s forward and gradient on the card
+    against autograd of ``ref.mamba_scan_plain`` (fp32, a ~ U(0.2,
+    0.999), b, h0 and the output's gradient ~ N(0, 1)), each within
+    SCAN_TOL x max(1, max |plain|); the kernel must launch twice (the
+    forward and the adjoint)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    B, S, C = shape
+    dev = "cuda"
+    a = torch.rand(shape, generator=gen, device=dev) * 0.799 + 0.2
+    b = torch.randn(shape, generator=gen, device=dev)
+    gy = torch.randn(shape, generator=gen, device=dev)
+    h0 = torch.randn(B, C, generator=gen, device=dev) if with_h0 else None
+    leaves = [t.clone().requires_grad_() for t in (a, b, h0)
+              if t is not None]
+    plain = [t.clone().requires_grad_() for t in (a, b, h0)
+             if t is not None]
+    before = ops.mamba_scan.launches
+    hs = ops.mamba_scan_train(*leaves, *([] if with_h0 else [None]))
+    grads = torch.autograd.grad(hs, leaves, gy)
+    torch.cuda.synchronize()
+    launches = ops.mamba_scan.launches - before
+    want = ref.mamba_scan_plain(*plain, *([] if with_h0 else [None]))
+    want_grads = torch.autograd.grad(want, plain, gy)
+    out = {"case": "scan_grad", "shape": list(shape), "h0": with_h0,
+           "launches": launches}
+    for name, g, w in zip(("hs", "da", "db", "dh0"), (hs,) + grads,
+                          (want,) + want_grads):
+        scale = max(1.0, w.abs().max().item())
+        err = (g.detach() - w.detach()).abs().max().item()
+        out[f"{name}_max_abs_err"] = err
+        check(bool(torch.isfinite(g).all().item()),
+              f"scan_grad {name}: not finite")
+        check(err <= SCAN_TOL * scale,
+              f"scan_grad {name}: max |diff| {err} > {SCAN_TOL} x {scale}")
+    check(launches == 2, f"scan_grad: the kernel launched {launches} times "
+          "for a forward and its gradient, not 2")
+    return out
+
+
+def scan_adjoint_time(shape, gen):
+    """The scan's forward and its backward (the adjoint: flips, the
+    kernel, the products) timed at the hybrid arm's shape, fp32, from
+    zero state, beside the least time of each: the forward's
+    (``scan_bound``) and the adjoint's, whose function reads a, hs and
+    the gradient and writes da and db (the flipped copies are the
+    implementation's), 3 fp32 operations an element (lambda's FMA, da's
+    product)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    B, S, C = shape
+    a = (torch.rand(shape, generator=gen, device="cuda") * 0.799
+         + 0.2).requires_grad_()
+    b = torch.randn(shape, generator=gen, device="cuda").requires_grad_()
+    gy = torch.randn(shape, generator=gen, device="cuda")
+    hs = ops.mamba_scan_train(a, b)
+    out = {"case": "scan_adjoint_time", "shape": list(shape),
+           "fwd_ms": cuda_ms(lambda: ops.mamba_scan_train(a, b), 5),
+           "adjoint_ms": cuda_ms(lambda: torch.autograd.grad(
+               hs, (a, b), gy, retain_graph=True), 5)}
+    out["fwd_bound_ms"], out["fwd_bound_by"] = scan_bound(B, S, C, 4, False)
+    n = B * S * C
+    t_bytes, t_ops = 5 * 4 * n / PEAK_HBM_BYTES, 3 * n / PEAK_F32_FLOPS
+    out["adjoint_bound_ms"] = max(t_bytes, t_ops) * 1e3
+    out["adjoint_bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+    del a, b, gy, hs
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_runs():
+    """Phase family_train's arms, in ``FAMILY_RUNS`` order: (arch, arm,
+    ModeRun), each ModeRun with its family's model."""
+    from repro_torch.launch.train import ModeRun
+    cfgs = {arch: family_config(arch) for arch in FAMILY_RUNS}
+    return [(arch, name, ModeRun(model=cfgs[arch], **kw))
+            for arch, runs in FAMILY_RUNS.items() for name, kw in runs]
+
+
+def phase_family_train(arms, results):
+    """The scan's gradient on the card, then the training of the ssm and
+    hybrid families at full width, one step an arm on phase 5's 4 ranks
+    (``family_runs``: ``results`` holds every rank's record of each,
+    from the stream_train spawn they rode on). Returns the kernels'
+    launches and the adjoint's timing."""
+    import math
+
+    import torch
+
+    gpu = gpu_line()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grad = [scan_grad_case(SCAN_GRAD_SHAPE, gen, h0) for h0 in (False, True)]
+    # a rank's scan in the hybrid arm: 2 rows, 512 steps, d_inner 8,192
+    # x d_state 16 channels
+    grad.append(scan_adjoint_time((TRAIN_BATCH // 4, TRAIN_SEQ, 8192 * 16),
+                                  gen))
+    for c in grad:
+        emit("family_train", **c)
+    adjoint = grad[-1]
+    launches = {k: 0 for k in QUANT_NAMES}
+    launches.update(matmul_chunk=0, mamba_scan=0)
+    by = {}
+    for (arch, name, mr), rs in zip(arms, results):
+        cfg = mr.model
+        by[arch, name] = rs
+        r0 = rs[0]
+        m = r0["metrics"][0]
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"{arch} {name}: a metric is not finite: {m}")
+        check(all(r["metrics"] == r0["metrics"] for r in rs),
+              f"{arch} {name}: the ranks disagree on the metrics")
+        check((m["aux_loss"] > 0) == (cfg.moe is not None),
+              f"{arch} {name}: aux loss {m['aux_loss']}")
+        for r in rs:
+            _launch_checks(f"{arch} {name}", r)
+        for k in QUANT_NAMES:
+            launches[k] += sum(s[k] for r in rs for s in r["launches"])
+        launches["matmul_chunk"] += sum(sum(r["mm_launches"]) for r in rs)
+        launches["mamba_scan"] += sum(sum(r["scan_launches"]) for r in rs)
+        emit("family_train", arch=arch, arm=name, layers=FAMILY_DEPTH,
+             experts=cfg.moe.num_experts if cfg.moe else None,
+             params=r0["params_total"], seq=TRAIN_SEQ,
+             global_batch=TRAIN_BATCH, mesh={"pod": 2, "data": 2, "model": 1},
+             loss=m["loss"],
+             aux_loss=m["aux_loss"], grad_norm=m["grad_norm"],
+             pod_bytes={k: v for k, v in r0["bytes"][0].items()
+                        if k.endswith("/pod")},
+             bytes_per_step=r0["bytes"][0],
+             peak_mem_gib=[r["peak_mem_bytes"] / 2**30 for r in rs],
+             step_s=[r["step_s"][0] for r in rs],
+             scan_launches=r0["scan_launches"][0], scan_plan=r0["scan_plan"],
+             int8_launches=r0["launches"][0],
+             matmul_chunk_launches=r0["mm_launches"][0], gpu=gpu)
+    for arch, runs in FAMILY_RUNS.items():
+        z3 = by[arch, "zero3"][0]["metrics"][0]
+        for name, _ in runs:
+            m = by[arch, name][0]["metrics"][0]
+            tol = INT8_DRIFT if "q8" in name else LOSS_RTOL
+            check(_rel(m["loss"], z3["loss"]) <= tol,
+                  f"{arch} {name}: loss {m['loss']} != zero3 {z3['loss']}")
+        fc = "fcdp" if arch == "rwkv6-3b" else "fcdp_q8_ag"
+        ag = {n: by[arch, n][0]["bytes"][0].get("all_gather/pod", 0)
+              for n in (fc, "zero3")}
+        check(ag[fc] < ag["zero3"],
+              f"{arch}: fcdp's pod all-gather {ag[fc]} not below zero3's "
+              f"{ag['zero3']}")
+    q8 = by["jamba-v0.1-52b", "fcdp_q8_ag"][0]
+    check(all(v > 0 for v in q8["launches"][0].values())
+          and q8["mm_launches"][0] > 0 and q8["scan_launches"][0] > 0,
+          "hybrid: the int8, chunk-matmul or scan kernel launched no time")
+    z3 = by["jamba-v0.1-52b", "zero3"][0]["metrics"][0]
+    mx = by["jamba-v0.1-52b", "mixed"][0]["metrics"][0]
+    check(_rel(mx["grad_norm"], z3["grad_norm"]) <= GNORM_RTOL,
+          f"hybrid mixed: grad norm {mx['grad_norm']} != zero3 "
+          f"{z3['grad_norm']}")
+    return launches, adjoint
+
+
+def family_parity_runs():
+    """Phase family_parity's runs: one fcdp step in fp32 for each of
+    ``FAMILY_PARITY_MODELS``."""
+    from repro_torch.configs.base import (MambaConfig, ModelConfig,
+                                          MoEConfig, RWKVConfig)
+    from repro_torch.launch.train import ModeRun
+
+    sub = {"moe": MoEConfig, "mamba": MambaConfig, "rwkv": RWKVConfig}
+    return [ModeRun("fcdp", dtype="float32", model=ModelConfig(
+        **{k: sub[k](**v) if k in sub else v for k, v in kw.items()}))
+        for kw in FAMILY_PARITY_MODELS.values()]
+
+
+def phase_family_parity(got):
+    """tests/test_system.py's t-jamba and t-rwkv at (2, 2, 1), fp32: one
+    fcdp step each on the card (the scan kernel in both directions) and
+    on the CPU (plain versions) from the same weights (drawn on the
+    CPU), run on train_parity's jobs (``got``: {device: rank 0's
+    records}): loss, aux loss and grad norm within the step tolerances,
+    the same bytes, the scan's plan launched on the card and only called
+    on the CPU."""
+    report = {}
+    for i, name in enumerate(FAMILY_PARITY_MODELS):
+        g, c = got["cuda"][i], got["cpu"][i]
+        mg, mc = g["metrics"][0], c["metrics"][0]
+        check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
+              f"{name}: card loss {mg['loss']} != CPU {mc['loss']}")
+        check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
+              f"{name}: card grad norm {mg['grad_norm']} != CPU "
+              f"{mc['grad_norm']}")
+        check(abs(mg["aux_loss"] - mc["aux_loss"])
+              <= AUX_RTOL * abs(mc["aux_loss"]),
+              f"{name}: card aux loss {mg['aux_loss']} != CPU "
+              f"{mc['aux_loss']}")
+        check(g["bytes"] == c["bytes"],
+              f"{name}: card and CPU moved different bytes")
+        check(g["scan_launches"] == g["scan_calls"] == [g["scan_plan"]]
+              and c["scan_launches"] == [0]
+              and c["scan_calls"] == [c["scan_plan"]],
+              f"{name}: scan launches card {g['scan_launches']} / CPU "
+              f"{c['scan_launches']}, plan {g['scan_plan']}")
+        report[name] = {
+            "loss": {"cuda": mg["loss"], "cpu": mc["loss"]},
+            "aux_loss": {"cuda": mg["aux_loss"], "cpu": mc["aux_loss"]},
+            "grad_norm": {"cuda": mg["grad_norm"], "cpu": mc["grad_norm"]},
+            "scan_launches_cuda": g["scan_launches"][0],
+            "bytes": g["bytes"][0], "step_s": {"cuda": g["step_s"][0],
+                                               "cpu": c["step_s"][0]}}
+    emit("family_parity", dtype="float32",
+         mesh={"pod": 2, "data": 2, "model": 1}, runs=report)
 
 
 def main() -> int:
@@ -3276,17 +3606,27 @@ def main() -> int:
     jamba_launches = phase_jamba_serve()
     phase_jamba_parity()
     train_launches, train_fcdp_bytes, dense_ckpt = phase_train()
-    phase_train_parity()
+    family_parity = phase_train_parity()
     peft_launches, peft_restart = phase_peft_train(train_fcdp_bytes)
     phase_restart(dense_ckpt, peft_restart)
     phase_peft_parity()
     tp_launches = phase_tp_train()
-    phase_tp_parity()
+    tp2_parity = tp2_parity_jobs()
+    phase_tp_parity(tp2_parity["tp"])
     sched_launches = phase_sched_train(train_fcdp_bytes)
-    phase_sched_parity()
-    stream_launches = phase_stream_train()
-    phase_stream_parity()
-    cache_launches = phase_cache_train()
+    phase_sched_parity(tp2_parity["sched"])
+    family_arms = family_runs()
+    cache = cache_runs()
+    stream_launches, extra, stream_ranks, stream_wall = phase_stream_train(
+        [mr for _, _, mr in family_arms] + cache, task=_cache_task)
+    family_results, cache_results = (extra[:len(family_arms)],
+                                     extra[len(family_arms):])
+    phase_stream_parity(tp2_parity["stream"])
+    cache_launches = phase_cache_train(cache_results, stream_ranks,
+                                       stream_wall)
+    family_launches, scan_adjoint = phase_family_train(family_arms,
+                                                       family_results)
+    phase_family_parity(family_parity)
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
@@ -3307,7 +3647,7 @@ def main() -> int:
             "replaces": QUANT_TPU_KERNELS[k],
             "launches": train_launches[k] + peft_launches[k]
             + tp_launches[k] + sched_launches[k] + stream_launches[k]
-            + cache_launches[k],
+            + cache_launches[k] + family_launches[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
                              if e["kernel"] == QUANT_NAMES[k]}}
@@ -3316,7 +3656,8 @@ def main() -> int:
         "replaces": MM_TPU_KERNEL,
         "launches": train_launches["matmul_chunk"]
         + tp_launches["matmul_chunk"] + sched_launches["matmul_chunk"]
-        + stream_launches["matmul_chunk"] + cache_launches["matmul_chunk"],
+        + stream_launches["matmul_chunk"] + cache_launches["matmul_chunk"]
+        + family_launches["matmul_chunk"],
         **entry(mm_main),
         "shape": mm_main["case"],
         "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}, {
@@ -3326,8 +3667,11 @@ def main() -> int:
         "decode": entry(wkv_decode)}, {
         "name": "mamba_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_TPU_KERNEL,
-        "launches": jamba_launches["mamba_scan"], **entry(scan_prefill),
-        "shape": "prefill", "decode": entry(scan_decode)}]}
+        "launches": jamba_launches["mamba_scan"]
+        + family_launches["mamba_scan"], **entry(scan_prefill),
+        "shape": "prefill", "decode": entry(scan_decode),
+        "train_launches": family_launches["mamba_scan"],
+        "train_adjoint": scan_adjoint}]}
     print(gpu)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

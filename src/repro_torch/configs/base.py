@@ -48,7 +48,7 @@ class RWKVConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | ssm | hybrid
+    family: str                 # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -150,7 +150,13 @@ class SystemConfig:
     block_io, as in the JAX package, where no value carries the
     activation mark it would offload; "save_collectives" the layer's
     input and the outputs of its 'model' all-reduces, the rest
-    recomputed (``models/stack.py``)."""
+    recomputed (``models/stack.py``).
+
+    MoE, as in the JAX package: ``moe_token_chunk`` is the number of
+    tokens one dispatch takes (its [E, C, D] buffer; more are dispatched
+    in chunks of it where it divides them); ``moe_weight_resident``
+    gives the experts ``fsdp_scope`` 'inter_only' (sharded over 'pod'
+    only, resident within the pod)."""
     dtype: str = "bfloat16"
     serve_frozen: bool = True
     mode: str = "fcdp"
@@ -173,6 +179,8 @@ class SystemConfig:
     device_cache_fraction: float = 0.0
     activation_policy: str = "save_all"
     host_offload: bool = True
+    moe_token_chunk: int = 8192
+    moe_weight_resident: bool = False
 
     def __post_init__(self):
         if self.mode_overrides:

@@ -389,18 +389,22 @@ def _act_allreduces(bundle) -> int:
     (micro)batch: under ``act_psum="int8"`` at tp > 1 each attention
     and MLP sublayer of each layer reduces its output in the forward
     (``int8_psum``) and its normed input's gradient in the backward
-    (``int8_bwd_psum``); the block_io and offload_acts activation
-    policies run the forward's again in the recompute, all but the
-    layer's last (``models/common.CollectiveTape``; save_collectives
-    keeps their outputs)."""
+    (``int8_bwd_psum``), a Mamba sublayer its output only (the JAX mixer
+    opens no int8 region: its input's gradient is summed exactly); the
+    block_io and offload_acts activation policies run the forward's
+    again in the recompute, all but the layer's last sublayer's
+    (``models/common.CollectiveTape``; save_collectives keeps their
+    outputs)."""
     model = bundle.model
     sys = bundle.run.system
     if sys.act_psum != "int8" or model.tp == 1:
         return 0
-    n = sum(k in ("attn", "mlp") for kinds in model.plan for k in kinds)
-    again = n - 1 if sys.activation_policy in ("block_io",
-                                                "offload_acts") else 0
-    return model.n_groups * (2 * n + again)
+    kinds = [k for ks in model.plan for k in ks]
+    fwd = [k in ("attn", "mlp", "mamba") for k in kinds]
+    bwd = sum(k in ("attn", "mlp") for k in kinds)
+    again = sum(fwd[:-1]) if sys.activation_policy in (
+        "block_io", "offload_acts") else 0
+    return model.n_groups * (sum(fwd) + bwd + again)
 
 
 def act_int8_launch_plan(bundle) -> Dict[str, int]:
@@ -453,8 +457,10 @@ def matmul_chunk_launch_plan(bundle) -> int:
     more where the activation policy's recompute reads the ring's
     product (``models/common.CollectiveTape.reads``: block_io and
     offload_acts, and save_collectives at tp 1, for every sublayer's
-    output projection but the layer's last), and under 'both' n more in
-    the dx ring and n in the dw ring. Microbatches multiply."""
+    output projection but the layer's last; under every recomputing
+    policy for the channel-mix's ``w_v``, whose product the gate's
+    gradient reads), and under 'both' n more in the dx ring and n in
+    the dw ring. Microbatches multiply."""
     model, pol = bundle.model, bundle.run.system.activation_policy
     again = pol in ("block_io", "offload_acts") or (
         pol == "save_collectives" and model.tp == 1)
@@ -466,6 +472,22 @@ def matmul_chunk_launch_plan(bundle) -> int:
             continue
         uses = d.shape[d.dims.index("stack")] if "stack" in d.dims else 1
         n = bundle.mesh_shape.size(plan.intra_axes[0])
-        rings = 1 + (again and not bundle.paths[i].startswith(last))
+        path = bundle.paths[i]
+        if ".rwkv_cm." in path:
+            rings = 1 + (pol != "save_all")
+        else:
+            rings = 1 + (again and not path.startswith(last))
         out += uses * n * (rings + (2 if plan.fused == "both" else 0))
     return out * max(bundle.run.microbatch, 1)
+
+
+def mamba_scan_launch_plan(bundle) -> int:
+    """How many times one step calls the Mamba scan
+    (``ops.mamba_scan_train``): per Mamba sublayer of each layer once in
+    the forward and once, the adjoint, in the backward, and once more
+    where the activation policy recomputes the layer (its forward ran
+    without autograd). Microbatches multiply."""
+    model = bundle.model
+    n = model.n_groups * sum(k == "mamba" for ks in model.plan for k in ks)
+    per = 2 + (bundle.run.system.activation_policy != "save_all")
+    return n * per * max(bundle.run.microbatch, 1)

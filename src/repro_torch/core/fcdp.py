@@ -20,7 +20,9 @@ for the JAX package's remat policy: when an op saves a gathered weight,
 the pack hook stores a handle to its cache instead, and the first unpack
 in the backward rebuilds the weight from it (once per layer, shared by
 every op that saved it, dropped after the last). A saved tensor is
-recognised by its storage, offset, shape, stride, dtype and device; the
+recognised by its storage, offset, shape, stride, dtype and device, and
+a saved view of a gathered weight (a row of it) by its storage, and
+taken from the rebuilt weight; the
 scope holds each gathered weight until it ends, so no activation can
 take a weight's address meanwhile and be mistaken for it. Where the
 cache lives is the strategy's placement:
@@ -265,6 +267,22 @@ class _Saved:
         return v
 
 
+class _SavedView:
+    """What the backward holds in place of a view of a gathered weight
+    (a row of it, say): the weight's handle and the view's geometry
+    within it, re-applied to the rebuilt weight."""
+    __slots__ = ("saved", "offset", "shape", "stride")
+
+    def __init__(self, saved: _Saved, offset: int, shape, stride):
+        self.saved, self.offset = saved, offset
+        self.shape, self.stride = shape, stride
+
+    def take(self) -> torch.Tensor:
+        full = self.saved.take()
+        return full.as_strided(self.shape, self.stride,
+                               full.storage_offset() + self.offset)
+
+
 def _key(t: torch.Tensor):
     return (t.untyped_storage().data_ptr(), t.storage_offset(),
             tuple(t.shape), tuple(t.stride()), t.dtype, t.device)
@@ -288,6 +306,7 @@ class ParamGather:
         self.host_offload = host_offload
         self._promote = False
         self._entries: Optional[dict] = None
+        self._views: Optional[dict] = None
         self.cached = defaultdict(int)
         self.cache_places = defaultdict(set)
 
@@ -326,9 +345,12 @@ class ParamGather:
         if self._entries is not None and plan.is_gathered:
             # the entry holds the weight until the layer scope ends, so
             # no other tensor can take its address and be mistaken for it
-            self._entries[_key(full)] = (full, _Saved(
+            entry = (full, _Saved(
                 self._rebuilder(w.detach(), stage1.detach(), full.detach(),
                                 plan, cast, placement)))
+            self._entries[_key(full)] = entry
+            self._views[(full.untyped_storage().data_ptr(), full.dtype,
+                         full.device)] = entry
         sync = plan.sync_axes + (("model",) if over_model else ())
         if sync and plan.residency.receives_gradient:
             full = SumOver.apply(full, self.coll, sync)
@@ -381,15 +403,27 @@ class ParamGather:
 
     # -- the layer scope ---------------------------------------------------
     def _pack(self, t: torch.Tensor):
-        hit = self._entries.get(_key(t)) if self._entries else None
+        if not self._entries:
+            return t
+        hit = self._entries.get(_key(t))
+        if hit is not None:
+            hit[1].uses += 1
+            return hit[1]
+        # a view of a gathered weight: the JAX remat recomputes it from
+        # the regathered weight, so it is rebuilt from the same cache
+        hit = self._views.get((t.untyped_storage().data_ptr(), t.dtype,
+                               t.device))
         if hit is None:
             return t
-        hit[1].uses += 1
-        return hit[1]
+        full, saved = hit
+        saved.uses += 1
+        return _SavedView(saved, t.storage_offset() - full.storage_offset(),
+                          tuple(t.shape), tuple(t.stride()))
 
     @staticmethod
     def _unpack(obj):
-        return obj.take() if isinstance(obj, _Saved) else obj
+        return (obj.take() if isinstance(obj, (_Saved, _SavedView))
+                else obj)
 
     @contextlib.contextmanager
     def layer(self):
@@ -397,10 +431,10 @@ class ParamGather:
         rebuilt for the backward from their caches, never kept."""
         if self._entries is not None:
             raise RuntimeError("layer scopes do not nest")
-        self._entries = {}
+        self._entries, self._views = {}, {}
         try:
             with torch.autograd.graph.saved_tensors_hooks(self._pack,
                                                           self._unpack):
                 yield
         finally:
-            self._entries = None
+            self._entries = self._views = None

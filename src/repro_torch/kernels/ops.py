@@ -138,6 +138,54 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor,
 mamba_scan.launches = mamba_scan.calls = 0
 
 
+class _MambaScanTrain(torch.autograd.Function):
+    """The scan with its gradient, both directions through
+    ``mamba_scan`` (the kernel on the card, the plain scan on the CPU).
+
+    The adjoint of h_t = a_t h_{t-1} + b_t is itself a first-order
+    linear scan, backwards in time: with g_t the gradient of hs[:, t],
+    lambda_t = g_t + a_{t+1} lambda_{t+1} (lambda_S = 0). So the same
+    scan runs on the time-flipped g with the time-flipped a shifted by
+    one step (its first coefficient meets the zero initial state, so
+    its value is never read); then da_t = lambda_t h_{t-1} (h_{-1} = h0,
+    or zeros), db_t = lambda_t and dh0 = a_0 lambda_0. The adjoint runs
+    in fp32 whatever a's type."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        hs = mamba_scan(a, b, h0)
+        ctx.save_for_backward(a, hs, h0)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        a, hs, h0 = ctx.saved_tensors
+        wide = torch.promote_types(a.dtype, torch.float32)
+        rev = a.to(wide).flip(1)
+        a_rev = torch.cat([torch.zeros_like(rev[:, :1]), rev[:, :-1]], 1)
+        lam = mamba_scan(a_rev, g.to(wide).flip(1).contiguous()).flip(1)
+        first = (torch.zeros_like(hs[:, :1]) if h0 is None
+                 else h0.to(hs.dtype)[:, None])
+        h_prev = torch.cat([first, hs[:, :-1]], 1)
+        da = (lam * h_prev).to(ctx.dtypes[0])
+        db = lam.to(ctx.dtypes[1])
+        dh0 = None
+        if h0 is not None and ctx.needs_input_grad[2]:
+            dh0 = (a[:, 0].to(lam.dtype) * lam[:, 0]).to(h0.dtype)
+        return da, db, dh0
+
+
+def mamba_scan_train(a: torch.Tensor, b: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``mamba_scan`` (same arguments and result) with a gradient: the
+    backward runs the adjoint scan on the same kernel
+    (``_MambaScanTrain``), so on the card both directions count in
+    ``mamba_scan.launches``. The train step's scan; serving calls
+    ``mamba_scan``."""
+    return _MambaScanTrain.apply(a, b, h0)
+
+
 def collective_ag_matmul(x: torch.Tensor, w_shard: torch.Tensor, coll,
                          axis: str, mode: str = "ag_matmul",
                          sync_axes: Tuple[str, ...] = (),

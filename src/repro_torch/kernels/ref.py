@@ -200,14 +200,16 @@ def mamba_scan_plain(a: torch.Tensor, b: torch.Tensor,
     package's ``kernels/ref.py:mamba_scan_ref`` (the oracle of its
     Pallas ``mamba_scan``) with the channels flattened.
 
-    a, b: [B,S,C] fp32 or bf16; h0: [B,C] fp32 carried state (None =
-    zeros, the Pallas kernel's function). Returns every state hs
-    [B,S,C] fp32; hs[:, -1] is the state to carry."""
+    a, b: [B,S,C] fp32 or bf16 (or fp64, walked in fp64: the gradient
+    checks); h0: [B,C] fp32 carried state (None = zeros, the Pallas
+    kernel's function). Returns every state hs [B,S,C] fp32 (fp64 for
+    fp64 inputs); hs[:, -1] is the state to carry."""
     B, S, C = a.shape
-    h = (torch.zeros(B, C, dtype=torch.float32, device=a.device)
-         if h0 is None else h0.float())
-    af, bf = a.float(), b.float()
-    hs = torch.empty(B, S, C, dtype=torch.float32, device=a.device)
+    wide = torch.promote_types(a.dtype, torch.float32)
+    h = (torch.zeros(B, C, dtype=wide, device=a.device)
+         if h0 is None else h0.to(wide))
+    af, bf = a.to(wide), b.to(wide)
+    hs = torch.empty(B, S, C, dtype=wide, device=a.device)
     for t in range(S):
         h = af[:, t] * h + bf[:, t]
         hs[:, t] = h

@@ -37,14 +37,16 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs.base import (ACTIVATION_POLICIES, OptimizerConfig,
-                                      RunConfig, ShapeCell, SystemConfig)
+from repro_torch.configs.base import (ACTIVATION_POLICIES, ModelConfig,
+                                      OptimizerConfig, RunConfig, ShapeCell,
+                                      SystemConfig)
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.cache import cache_bytes_per_chip
 from repro_torch.core.collectives import Collectives, pick_backend
 from repro_torch.core.engine import StepBundle
 from repro_torch.core.engine.train import (act_int8_launch_plan,
                                            carry_bytes, int8_launch_plan,
+                                           mamba_scan_launch_plan,
                                            matmul_chunk_launch_plan)
 from repro_torch.core.partition import tree_items
 from repro_torch.core.peft import unfreeze_all
@@ -79,11 +81,16 @@ class ModeRun:
     (``async_grad_reduce``, ``cross_step_pipeline``), the microbatch
     count, FCDP-Cache's device fraction, activation policy and host
     offload (``device_cache_fraction``, ``activation_policy``,
-    ``host_offload``), and its steps (batches: under the cross-step
+    ``host_offload``), the MoE's dispatch chunk and expert residency
+    (``moe_token_chunk``, ``moe_weight_resident``), and its steps
+    (batches: under the cross-step
     schedule S batches take a prime, S - 1 piped calls and a flush).
     With ``ckpt_dir`` the run goes through the checkpoint/restart driver
     (``drive``: a checkpoint every ``ckpt_every`` steps, failures
-    injected at the steps ``fail_at``). ``defs_fn`` transforms the
+    injected at the steps ``fail_at``). ``model`` trains another model
+    than the job's (its weights drawn from the job's seed; not with the
+    job's ``params``), so one job's ranks can take several models in
+    turn. ``defs_fn`` transforms the
     classified def tree (``StepBundle``'s hook, as the JAX bundle's; a
     module-level function, since the job is pickled to the ranks)."""
     mode: str
@@ -108,7 +115,10 @@ class ModeRun:
     device_cache_fraction: float = 0.0
     activation_policy: str = "save_all"
     host_offload: bool = True
+    moe_token_chunk: int = 8192
+    moe_weight_resident: bool = False
     defs_fn: Optional[Callable] = None
+    model: Optional[ModelConfig] = None
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 10
     fail_at: tuple = ()
@@ -170,9 +180,16 @@ class RunState:
             cross_step_pipeline=mr.cross_step_pipeline,
             device_cache_fraction=mr.device_cache_fraction,
             activation_policy=mr.activation_policy,
-            host_offload=mr.host_offload)
-        self.run = run = dataclasses.replace(job.run, system=sysc,
-                                             microbatch=mr.microbatch)
+            host_offload=mr.host_offload,
+            moe_token_chunk=mr.moe_token_chunk,
+            moe_weight_resident=mr.moe_weight_resident)
+        if mr.model is not None and job.params is not None:
+            raise ValueError("a run with a model of its own draws its "
+                             "weights; the job's params are another "
+                             "model's")
+        self.run = run = dataclasses.replace(
+            job.run, model=mr.model or job.run.model, system=sysc,
+            microbatch=mr.microbatch)
         self.bundle = bundle = StepBundle(
             run, device=device, mesh=mesh,
             defs_fn=unfreeze_all if mr.all_trainable else mr.defs_fn)
@@ -360,8 +377,8 @@ def _run_mode(job: "TrainJob", mr: ModeRun, mesh: RankMesh,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    mm = ops.matmul_chunk
-    for f in (*ops.INT8_KERNELS.values(), mm):    # counts start at 0 per run
+    mm, scan = ops.matmul_chunk, ops.mamba_scan
+    for f in (*ops.INT8_KERNELS.values(), mm, scan):  # 0 at each run's start
         f.launches = f.calls = 0
     ms, strategy = bundle.mesh_shape, bundle.strategy
     out = {"run": dataclasses.asdict(mr), "metrics": [], "bytes": [],
@@ -370,6 +387,8 @@ def _run_mode(job: "TrainJob", mr: ModeRun, mesh: RankMesh,
            "act_int8_plan": act_int8_launch_plan(bundle),
            "mm_launches": [], "mm_calls": [],
            "mm_plan": matmul_chunk_launch_plan(bundle),
+           "scan_launches": [], "scan_calls": [],
+           "scan_plan": mamba_scan_launch_plan(bundle),
            "live_depth": [], "ring_bytes": [],
            "prefetch_buffer_bytes": prefetch_buffer_bytes(
                strategy, bundle.def_leaves, bundle.plan_leaves, ms,
@@ -396,6 +415,7 @@ def _run_mode(job: "TrainJob", mr: ModeRun, mesh: RankMesh,
         launches = {k: f.launches for k, f in ops.INT8_KERNELS.items()}
         calls = {k: f.calls for k, f in ops.INT8_KERNELS.items()}
         mm_launches, mm_calls = mm.launches, mm.calls
+        scan_launches, scan_calls = scan.launches, scan.calls
         batch = None if flush else st.batch(s)
         dist.barrier()
         if device.type == "cuda":
@@ -422,6 +442,8 @@ def _run_mode(job: "TrainJob", mr: ModeRun, mesh: RankMesh,
                              for k, f in ops.INT8_KERNELS.items()})
         out["mm_launches"].append(mm.launches - mm_launches)
         out["mm_calls"].append(mm.calls - mm_calls)
+        out["scan_launches"].append(scan.launches - scan_launches)
+        out["scan_calls"].append(scan.calls - scan_calls)
         out["live_depth"].append(sched.live_depth)
         out["ring_bytes"].append(sched.ring_bytes)
         out["cached"].append(dict(step.gather.cached))
@@ -441,7 +463,8 @@ def _run_mode(job: "TrainJob", mr: ModeRun, mesh: RankMesh,
         for s in range(mr.steps):
             call(s)
             if job.return_params and s == 0:
-                out["params"] = {path: t.detach().cpu().float().numpy()
+                # a copy: an fp32 shard on the CPU is updated in place
+                out["params"] = {path: t.detach().cpu().float().numpy().copy()
                                  for path, t in tree_items(st.params)}
                 out["specs"] = dict(zip(bundle.paths, bundle.leaf_specs))
                 out["opt_dtypes"] = {
@@ -547,7 +570,11 @@ def spawn(job: TrainJob, rdzv_dir: Optional[str] = None,
     the ranks would start one after another."""
     import torch.multiprocessing as mp
     world = job.mesh.world
-    ctx = mp.get_context("spawn")
+    # the ranks fork from one server process that imported torch and
+    # this module once, rather than each importing them anew; the server
+    # holds no CUDA context, and it starts once per program
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", __name__])
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="repro_torch_rdzv_",
                                      dir=rdzv_dir) as tmp:
@@ -750,6 +777,8 @@ def main(argv=None):
             "int8_act_allreduce_plan": r["act_int8_plan"],
             "fused_matmul": args.fused_matmul,
             "matmul_chunk_calls_per_step": r["mm_calls"][last],
+            "mamba_scan_calls_per_step": r["scan_calls"][last],
+            "final_aux_loss": r["metrics"][last]["aux_loss"],
             "peft": args.peft, "mode_overrides": sysc.mode_overrides,
             "prefetch_depth": args.prefetch_depth,
             "live_depth": r["live_depth"][last],

@@ -26,13 +26,22 @@ hand where the JAX step's typing puts it:
                    consumer casts where it needs to (``region_vary``)
   pmax_tp(x)       forward max over 'model', no gradient (the
                    cross-entropy's stability shift)
+  all_to_all_tp(x) the MoE's expert-parallel exchange (its backward the
+                   same exchange of the gradient)
+  psum_scatter_tp(x, dim)
+                   sum over 'model' scattered on dim (backward: an
+                   all-gather)
+  all_gather_invariant_tp(x, dim)
+                   the gather of a value that is then the same on every
+                   rank (backward: this rank's block, no collective)
 
-Under a recomputing activation policy a layer's ``psum_tp_act``
-all-reduces go through its context's ``CollectiveTape``: the recompute in the
-backward runs them again (block_io, offload_acts) or takes the forward's
-outputs from the tape (save_collectives), and never runs the layer's
+Under a recomputing activation policy the collective that ends each
+sublayer (``psum_tp_act``, ``psum_tp_out``, ``all_gather_invariant_tp``)
+goes through its context's ``CollectiveTape``: the recompute in the
+backward runs it again (block_io, offload_acts) or takes the forward's
+output from the tape (save_collectives), and never runs the layer's
 last one, whose output the backward does not read; nor, where it does
-not read an all-reduce's input, the gather-fused ring of the output
+not read a collective's input, the gather-fused ring of the output
 projection that feeds it.
 
 A parameter that is replicated over 'model' and used inside the varying
@@ -117,26 +126,32 @@ def psum_tp(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
 
 
 class CollectiveTape:
-    """One layer's ``psum_tp_act`` all-reduces under a recomputing
+    """One layer's sublayer-output collectives under a recomputing
     activation policy (``models/stack.py``), carried by the layer's
-    ``TPContext``: one a sublayer, after its output projection (at tp 1
-    the identity). The layer's forward counts them and, with ``keep``
-    (save_collectives) at tp > 1, records their outputs; its recompute
-    (``replay``) runs them again, or takes the recorded outputs in
-    order, except the last: its output is read only by the layer's
-    output (the residual sum), which the backward never reads, so the
-    recompute hands the all-reduce's input on in its place (the same
-    gradient: the all-reduce's backward is the identity). ``reads(i)``
-    says whether the recompute reads all-reduce i's input; where it
-    does not, the output projection before it runs no gather-fused ring
-    (``core.fcdp.FusedParam.reads``), as XLA's remat drops a value no
-    backward reads."""
+    ``TPContext``: one a sublayer, the collective that ends it
+    (``psum_tp_act`` after attention's, the MLP's and Mamba's output
+    projections, the time-mix's ``psum_tp``, the MoE's and the
+    channel-mix's invariant all-gather; at tp 1 the identity). The
+    layer's forward counts them and, with ``keep`` (save_collectives)
+    at tp > 1, records their outputs; its recompute (``replay``) runs
+    them again, or takes the recorded outputs in order, except the
+    last: its output is read only by the layer's output (the residual
+    sum), which the backward never reads, so the recompute hands on a
+    stand-in with the collective's backward in its place (the same
+    gradient). ``reads(i)`` says whether the recompute reads collective
+    i's input; where it does not, the output projection before it runs
+    no gather-fused ring (``core.fcdp.FusedParam.reads``), as XLA's
+    remat drops a value no backward reads."""
 
     def __init__(self, keep: bool):
         self.keep = keep
         self.calls = 0
         self.outs: List[torch.Tensor] = []
         self.next: Optional[int] = None      # the recompute's position
+        # with keep, the outputs of the collectives inside the sublayers
+        # (``kept``), taken in order by the recompute
+        self.inner: List[torch.Tensor] = []
+        self.inner_next = 0
 
     def recorded(self) -> None:
         """The forward is done: drop the last output, never read."""
@@ -144,29 +159,86 @@ class CollectiveTape:
             self.outs.pop()
 
     def replay(self) -> "CollectiveTape":
-        self.next = 0
+        self.next = self.inner_next = 0
         return self
 
     def reads(self, i: int) -> bool:
-        """Whether the recompute reads the input of all-reduce i: not
+        """Whether the recompute reads the input of collective i: not
         for a recorded one nor for the layer's last."""
         return len(self.outs) <= i < self.calls - 1
 
 
 class _Replayed(torch.autograd.Function):
-    """A recorded all-reduce output standing in for the all-reduce of
-    ``x``: the backward is the all-reduce's, the identity."""
+    """A recorded or skipped collective's output standing in for the
+    collective of ``x``: the value ``out``, the collective's backward
+    ``bwd`` (the identity for an all-reduce)."""
 
     @staticmethod
-    def forward(ctx, x, out):
+    def forward(ctx, x, out, bwd):
+        ctx.bwd = bwd
         return out.view_as(out)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return ctx.bwd(g), None, None
+
+
+def taped(x: torch.Tensor, tpc: "TPContext", op, bwd=None,
+          shape=None) -> torch.Tensor:
+    """``op(x)``, the collective that ends a sublayer, through
+    ``tpc.tape``: counted and recorded in a recomputed layer's forward,
+    run again, replayed or skipped in its recompute (``CollectiveTape``).
+    ``bwd`` is the collective's backward on the output's gradient (None:
+    the identity, an all-reduce's), ``shape`` its output shape (None:
+    x's), for the stand-ins."""
+    tape = tpc.tape
+    if tape is not None and tape.next is not None:      # the recompute
+        i = tape.next
+        tape.next += 1
+        if tpc.tp == 1:
+            return op(x)
+        if i < len(tape.outs):
+            return _Replayed.apply(x, tape.outs[i], bwd or _identity)
+        if not tape.reads(i):
+            if bwd is None:
+                return x
+            return _Replayed.apply(x, x.new_zeros(shape), bwd)
+        return op(x)
+    out = op(x)
+    if tape is not None:
+        tape.calls += 1
+        if tape.keep and tpc.tp > 1:
+            tape.outs.append(out.detach())
+    return out
+
+
+def _identity(g):
+    return g
+
+
+def kept(x: torch.Tensor, tpc: "TPContext", op, bwd=None) -> torch.Tensor:
+    """``op(x)``, a collective inside a sublayer (the MoE's
+    ``all_to_all``s, Mamba's sum of its x_proj partial): under
+    save_collectives (``tpc.tape.keep``) a recomputed layer's forward
+    records its output and the recompute takes it from the record, with
+    the collective's backward ``bwd`` (None: the identity, an
+    all-reduce's), as the JAX policy saves psum and all_to_all outputs;
+    under the other policies it runs again."""
+    tape = tpc.tape
+    if tape is None or not tape.keep or tpc.tp == 1:
+        return op(x)
+    if tape.next is None:                               # the forward
+        out = op(x)
+        tape.inner.append(out.detach())
+        return out
+    out = tape.inner[tape.inner_next]
+    tape.inner_next += 1
+    return _Replayed.apply(x, out, bwd or _identity)
 
 
 def _allreduce_act(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    if tpc.tp == 1:
+        return x
     if tpc.int8_act:
         from repro_torch.core.act_compress import int8_psum
         return int8_psum(x, tpc.coll, "model")
@@ -176,21 +248,91 @@ def _allreduce_act(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
 def psum_tp_act(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
     """``psum_tp`` of a sublayer's output, carried in int8 blocks under
     act_psum "int8"; counted, recorded or replayed by ``tpc.tape``."""
-    tape = tpc.tape
-    if tape is not None and tape.next is not None:      # the recompute
-        i = tape.next
-        tape.next += 1
-        if i < len(tape.outs):
-            return _Replayed.apply(x, tape.outs[i])
-        if tpc.tp == 1 or not tape.reads(i):
-            return x
-        return _allreduce_act(x, tpc)
-    out = _allreduce_act(x, tpc) if tpc.tp > 1 else x
-    if tape is not None:
-        tape.calls += 1
-        if tape.keep and tpc.tp > 1:
-            tape.outs.append(out.detach())
-    return out
+    return taped(x, tpc, lambda t: _allreduce_act(t, tpc))
+
+
+def psum_tp_out(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """``psum_tp`` of a sublayer's output that stays exact under act_psum
+    "int8" (the time-mix's, as in the JAX package), through
+    ``tpc.tape``."""
+    return taped(x, tpc, lambda t: psum_tp(t, tpc))
+
+
+class _GatherInvariant(torch.autograd.Function):
+    """The JAX package's ``all_gather_invariant`` over 'model': every
+    rank's block concatenated on ``dim``; the output is the same on every
+    rank, so the backward takes this rank's block of the gradient and
+    moves nothing."""
+
+    @staticmethod
+    def forward(ctx, x, coll, dim):
+        ctx.dim, ctx.n, ctx.rank = dim, x.shape[dim], coll.index("model")
+        return coll.all_gather(x, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.n, ctx.rank), None, None
+
+
+def _block(g, dim, n, rank):
+    return g.narrow(dim, rank * n, n).contiguous()
+
+
+def all_gather_invariant_tp(x: torch.Tensor, tpc: TPContext,
+                            dim: int) -> torch.Tensor:
+    """The invariant all-gather over 'model' that ends a sublayer (the
+    MoE's tokens, the channel-mix's columns), through ``tpc.tape``."""
+    if tpc.tp == 1:
+        return taped(x, tpc, lambda t: t)
+    n, rank = x.shape[dim], tpc.rank
+    shape = list(x.shape)
+    shape[dim] *= tpc.tp
+    return taped(x, tpc,
+                 lambda t: _GatherInvariant.apply(t, tpc.coll, dim),
+                 lambda g: _block(g, dim, n, rank), tuple(shape))
+
+
+class _AllToAllTP(torch.autograd.Function):
+    """``all_to_all`` over 'model': block j of dim 0 goes to rank j, and
+    block i of the result came from rank i; its transpose is the same
+    exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, coll):
+        ctx.coll = coll
+        return coll.all_to_all(x, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_to_all(g, "model"), None
+
+
+def all_to_all_tp(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:
+    """The JAX package's tiled ``all_to_all`` over 'model' with split
+    and concat axis 0 (``x``'s dim 0 holds tp blocks), ``kept`` under
+    save_collectives; the identity at tp 1."""
+    if tpc.tp == 1:
+        return x
+    return kept(x, tpc, lambda t: _AllToAllTP.apply(t, tpc.coll),
+                lambda g: tpc.coll.all_to_all(g, "model"))
+
+
+class _PsumScatterTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll, dim):
+        ctx.coll, ctx.dim = coll, dim
+        return coll.reduce_scatter(x, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_gather(g, "model", ctx.dim), None, None
+
+
+def psum_scatter_tp(x: torch.Tensor, tpc: TPContext,
+                    dim: int) -> torch.Tensor:
+    """Sum over 'model' scattered on ``dim`` (this rank's block); the
+    backward all-gathers the gradient. The identity at tp 1."""
+    return _PsumScatterTP.apply(x, tpc.coll, dim) if tpc.tp > 1 else x
 
 
 def pvary_tp(x: torch.Tensor, tpc: TPContext) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Decoder-only language model of the dense, ssm and hybrid families:
-parameter defs, the training loss over this rank's shards (dense), the
+"""Decoder-only language model of the dense, moe, ssm and hybrid
+families: parameter defs, the training loss over this rank's shards, the
 paged serve steps (chunked prefill and decode over the paged KV cache;
 dense) and the contiguous serve steps (prefill and decode over the
 contiguous KV cache and the recurrent state), as the JAX package's
@@ -23,6 +23,8 @@ def layer_plan(cfg: ModelConfig) -> Tuple[List[Tuple[str, ...]], int]:
     """Returns (plan, n_groups). plan[i] = sublayer kinds at position i."""
     if cfg.family == "dense":
         return [("attn", "mlp")], cfg.num_layers
+    if cfg.family == "moe":
+        return [("attn", "moe")], cfg.num_layers
     if cfg.family == "ssm":
         return [("rwkv_tm", "rwkv_cm")], cfg.num_layers
     if cfg.family == "hybrid":
@@ -60,7 +62,7 @@ class LM:
                               init="embed"),
             "final_norm": ParamDef((cfg.d_model,), ("fsdp",), init="ones"),
             "blocks": stk.stack_defs(stk.group_defs(cfg, self.plan,
-                                                    self.tp),
+                                                    self.tp, self.sys),
                                      self.n_groups),
             "head": ParamDef((cfg.d_model, self.vpad), ("fsdp", "tp")),
         }
@@ -95,8 +97,9 @@ class LM:
         included), ``strategy`` the bundle's (the device segment's
         length). batch: ids / labels / mask
         [B_local, S], the same rows on every 'model' rank. Returns
-        (loss_sum, token_count, aux_sum); the caller sums them over the
-        data-parallel ranks."""
+        (loss_sum, token_count, aux_sum: the MoE sublayers' aux losses,
+        each summed over 'model' and weighted); the caller sums them
+        over the data-parallel ranks."""
         cfg, plans = self.cfg, gather.plans
         tpc = TPContext.of(gather.coll, self.sys.act_psum)
         if tpc.tp != self.tp:
@@ -107,19 +110,21 @@ class LM:
         x = embed_lookup(gather(params["embed"], plans["embed"]), ids, tpc)
         x = x.to(self.sys.torch_dtype)
         positions = torch.arange(S, device=ids.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for start, length, placement in self._segments(strategy):
-            x = stk.apply_stack_train(
+            x, a = stk.apply_stack_train(
                 cfg, self.plan, start + length, params["blocks"],
                 plans["blocks"], defs["blocks"], x, positions, gather,
                 self.lora_scale, tpc, start, placement,
-                self.sys.activation_policy)
+                self.sys.activation_policy, self.sys.moe_token_chunk)
+            aux = aux + a
         x = rms_norm(x, gather(params["final_norm"], plans["final_norm"],
                                torch.float32), cfg.norm_eps)
         head = gather(params["head"], plans["head"])
         loss_sum, cnt = chunked_tp_softmax_xent(
             x, head, labels, cfg.vocab_size, self.sys.loss_chunk,
             batch.get("mask"), tpc)
-        return loss_sum, cnt, torch.zeros((), device=x.device)
+        return loss_sum, cnt, aux
 
     # -- serving over the contiguous decode state ----------------------------
     def init_decode_state(self, batch: int, max_len: int, device):

@@ -16,7 +16,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SystemConfig
 from repro_torch.core.fcdp import FusedParam
 from repro_torch.core.partition import ParamDef, tree_map
 from repro_torch.core.schedule import _in_ring
@@ -37,22 +37,26 @@ KIND_DEFS = {
 RECURRENT_KINDS = ("mamba", "rwkv_tm", "rwkv_cm")
 
 
-def group_defs(cfg: ModelConfig, plan: List[Tuple[str, ...]], tp: int = 1
+def group_defs(cfg: ModelConfig, plan: List[Tuple[str, ...]], tp: int = 1,
+               sys: Optional[SystemConfig] = None
                ) -> Dict[str, Dict[str, Dict[str, ParamDef]]]:
     """Unstacked defs for one group: {pos{i}: {kind: {param: def}}}, at
-    tensor-parallel degree ``tp`` (which pads attention's q heads; only
-    the attention and MLP sublayers run tensor-parallel)."""
+    tensor-parallel degree ``tp`` (which pads attention's q heads and
+    the time-mix's heads); the MoE's experts are 'inter_only' under
+    ``sys.moe_weight_resident``."""
     out: Dict[str, Any] = {}
     for i, kinds in enumerate(plan):
         pos = {}
         for kind in kinds:
             if kind not in KIND_DEFS:
                 raise ValueError(f"sublayer kind {kind!r} is not ported yet")
-            if tp > 1 and kind not in ("attn", "mlp"):
-                raise ValueError(f"sublayer kind {kind!r} does not run "
-                                 "tensor-parallel yet")
-            pos[kind] = (sl.attn_defs(cfg, tp) if kind == "attn"
-                         else KIND_DEFS[kind](cfg))
+            if kind in ("attn", "rwkv_tm"):
+                pos[kind] = KIND_DEFS[kind](cfg, tp)
+            elif kind == "moe":
+                pos[kind] = sl.moe_defs(
+                    cfg, bool(sys and sys.moe_weight_resident))
+            else:
+                pos[kind] = KIND_DEFS[kind](cfg)
         out[f"pos{i}"] = pos
     return out
 
@@ -141,8 +145,8 @@ def apply_sublayer(kind: str, cfg, p, x, ctx: Dict[str, Any], state=None):
             return sl.mamba_decode(cfg, p, x, state)
         if ctx.get("prefill"):
             return sl.mamba_prefill(cfg, p, x)
-        raise ValueError("mamba runs only in the prefill and decode steps "
-                         "(hybrid training is not ported)")
+        raise ValueError("mamba without a state is the train branch "
+                         "(apply_stack_train)")
     if kind == "rwkv_tm":
         if ctx.get("decode"):
             return sl.rwkv_tm_decode(cfg, p, x, state)
@@ -190,6 +194,26 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
     return x, out
 
 
+def apply_sublayer_train(kind: str, cfg, p, x, positions,
+                         lora_scale: float, tpc: TPContext,
+                         moe_token_chunk: int = sl.MOE_TOKEN_CHUNK):
+    """One sublayer of the train forward, tensor-parallel over 'model'.
+    Returns (x, aux loss or None: only the MoE has one)."""
+    if kind == "attn":
+        return sl.attn_train(cfg, p, x, positions, lora_scale, tpc), None
+    if kind == "mlp":
+        return sl.mlp_apply(cfg, p, x, tpc), None
+    if kind == "moe":
+        return sl.moe_train(cfg, p, x, tpc, moe_token_chunk)
+    if kind == "mamba":
+        return sl.mamba_train(cfg, p, x, tpc), None
+    if kind == "rwkv_tm":
+        return sl.rwkv_tm_train(cfg, p, x, tpc), None
+    if kind == "rwkv_cm":
+        return sl.rwkv_cm_train(cfg, p, x, tpc), None
+    raise ValueError(f"unknown sublayer kind {kind!r}")
+
+
 class _Recompute(torch.autograd.Function):
     """One layer group under the block_io / offload_acts /
     save_collectives activation policies (the JAX package's
@@ -209,20 +233,25 @@ class _Recompute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, body, tape, x, *weights):
         ctx.body, ctx.tape = body, tape
-        y = body(x, weights, tape)
+        y, aux = body(x, weights, tape)
         tape.recorded()
         ctx.save_for_backward(x, *weights)
-        return y
+        return y, aux
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, gy, gaux):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[2:]
         ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
         with torch.enable_grad():
-            y = ctx.body(ins[0], ins[1:], ctx.tape.replay())
+            y, aux = ctx.body(ins[0], ins[1:], ctx.tape.replay())
+        outs, gouts = [y], [gy]
+        if aux.requires_grad and gaux is not None:    # the MoE's aux loss
+            outs.append(aux)
+            gouts.append(gaux)
         wanted = [t for t, n in zip(ins, need) if n]
-        grads = iter(torch.autograd.grad(y, wanted, gy, allow_unused=True))
+        grads = iter(torch.autograd.grad(outs, wanted, gouts,
+                                         allow_unused=True))
         return (None, None) + tuple(next(grads) if n else None for n in need)
 
 
@@ -231,7 +260,8 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                       stacked_defs, x, positions, gather,
                       lora_scale: float = 2.0, tpc: TPContext = SERIAL,
                       start: int = 0, placement: Optional[str] = None,
-                      policy: str = "save_all"):
+                      policy: str = "save_all",
+                      moe_token_chunk: int = sl.MOE_TOKEN_CHUNK):
     """The train forward of layers ``start .. n_groups - 1`` of the
     stack (one segment of ``LM._segments``): layer l gathers the shards
     ``leaf[l]`` through their plans (norm scales straight to fp32,
@@ -240,10 +270,13 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
     the group, tensor-parallel over 'model' (``tpc``), under the
     activation ``policy`` (``SystemConfig.activation_policy``: save_all
     keeps what autograd saves; the others recompute the group in its
-    backward, ``_Recompute``). The segment runs its own schedule, so the
+    backward, ``_Recompute``; the MoE dispatches ``moe_token_chunk``
+    tokens at a time). The segment runs its own schedule, so the
     prefetch ring starts again at ``start``; with ``placement`` "device"
     host-placed caches wait on the device (``ParamGather.promoted``).
-    Returns x. The JAX package differentiates its layer scan's carry at
+    Returns (x, the segment's aux-loss sum, fp32: the MoE sublayers',
+    zero without one), as the JAX group body carries it. The JAX
+    package differentiates its layer scan's carry at
     every layer, even when no gradient flows into the stack's input (a
     frozen embedding under PEFT); so does this loop, which makes the
     first layer's frozen weights needed, and rebuilt, in the backward
@@ -252,13 +285,8 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
         x = x.detach().requires_grad_(True)
     leaves = [(f"pos{i}", kind) for i, kinds in enumerate(plan)
               for kind in kinds]
-    for key, kind in leaves:
-        if kind not in ("attn", "mlp"):
-            raise ValueError(f"sublayer kind {kind!r} is not ported to "
-                             "training yet")
     names = [(key, kind, n) for key, kind in leaves
              for n in stacked_params[key][kind]]
-
     def issue(i):
         layer = start + i
         slot = {}
@@ -271,32 +299,35 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
 
     def body(h, weights, tape=None):
         """The group on input h with the gathered weights, in ``names``
-        order (a fused plan's as its stage-1 tensor), its 'model'
-        all-reduces through ``tape``. A fused weight is a sublayer's
-        output projection, feeding the sublayer's all-reduce: in the
-        recompute its ring runs only where the tape reads that
-        all-reduce's input."""
+        order (a fused plan's as its stage-1 tensor), its sublayers'
+        closing collectives through ``tape``; returns (h, aux). A fused
+        weight is a sublayer's output projection, feeding the
+        sublayer's closing collective: in the recompute its ring runs
+        only where the tape reads that collective's input, or where the
+        backward reads the product itself (the channel-mix's ``w_v``,
+        whose reduce-scattered product the gate's gradient reads)."""
         t = tpc if tape is None else dataclasses.replace(tpc, tape=tape)
         replay = tape is not None and tape.next is not None
         p = {}
         for (key, kind, n), w in zip(names, weights):
             if fused[key, kind, n]:
                 w = FusedParam(w, stacked_plans[key][kind][n], gather.coll,
-                               not replay
+                               not replay or kind == "rwkv_cm"
                                or tape.reads(leaves.index((key, kind))))
             p.setdefault((key, kind), {})[n] = w
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for key, kind in leaves:
-            if kind == "attn":
-                h = sl.attn_train(cfg, p[key, kind], h, positions,
-                                  lora_scale, t)
-            else:
-                h = sl.mlp_apply(cfg, p[key, kind], h, t)
-        return h
+            h, a = apply_sublayer_train(kind, cfg, p[key, kind], h,
+                                        positions, lora_scale, t,
+                                        moe_token_chunk)
+            if a is not None:
+                aux = aux + a
+        return h, aux
 
     fused = {}
 
     def compute(i, slot):
-        nonlocal x
+        nonlocal x, aux_sum
         layer = start + i
         with gather.layer():
             weights = []
@@ -304,16 +335,19 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                 w = gather(stacked_params[key][kind][n][layer],
                            stacked_plans[key][kind][n],
                            torch.float32 if n == "norm" else None,
-                           sl.model_summed(stacked_defs[key][kind], n, tpc),
+                           sl.model_summed(stacked_defs[key][kind], n, tpc,
+                                           kind),
                            slot.get((key, kind, n)) if slot else None)
                 fused[key, kind, n] = isinstance(w, FusedParam)
                 weights.append(w.cache if fused[key, kind, n] else w)
             if policy == "save_all":
-                x = body(x, weights)
+                x, a = body(x, weights)
             else:
                 tape = CollectiveTape(keep=policy == "save_collectives")
-                x = _Recompute.apply(body, tape, x, *weights)
+                x, a = _Recompute.apply(body, tape, x, *weights)
+            aux_sum = a if aux_sum is None else aux_sum + a
 
+    aux_sum = None
     with gather.promoted(placement == "device"):
         gather.scheduler.run(n_groups - start, issue, compute)
-    return x
+    return x, aux_sum

@@ -7,14 +7,17 @@ carry the JAX package's tensor-parallel tags (q/o head-parallel, k/v
 replicated; mlp in/gate column-, out row-parallel; experts over 'tp';
 mamba's d_inner and the rwkv heads over 'tp').
 
-The train sublayers (``attn_train``, ``mlp_apply``) run tensor-parallel
-over 'model' (``models/common.py``): the q heads padded to a multiple
-of tp (``pad_heads``), the normed input entering the region through
-``tp_region_in`` and the output summed by ``psum_tp_act``; at tp 1 both
-are the identity. Serving runs at tp 1, where the JAX package's
-tensor-parallel steps of the other sublayers (the MoE's token split and
-``all_to_all`` over 'model', the channel-mix's ``psum_scatter`` /
-``all_gather_invariant`` pair) are the identity and are left out."""
+The train sublayers (``attn_train``, ``mlp_apply``, ``moe_train``,
+``mamba_train``, ``rwkv_tm_train``, ``rwkv_cm_train``) run
+tensor-parallel over 'model' (``models/common.py``), as the JAX
+package's apply functions do: the q and rwkv heads padded to a multiple
+of tp (``pad_heads``), the MoE's tokens split over 'model' and its
+experts sharded there (expert parallelism, two ``all_to_all``s), the
+casts of invariant values that meet 'model'-sharded weights where the
+JAX typing puts them (``pvary_tp``), and each sublayer ending in its
+collective over 'model' (a sum, or the MoE's and the channel-mix's
+invariant all-gather); at tp 1 all of it is the identity. Serving runs
+at tp 1."""
 from __future__ import annotations
 
 import math
@@ -25,11 +28,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partition import ParamDef
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import (SERIAL, TPContext, pad_heads,
-                                       psum_tp_act, region_vary,
-                                       tp_region_in)
+from repro_torch.models.common import (SERIAL, TPContext,
+                                       all_gather_invariant_tp,
+                                       all_to_all_tp, kept, local_head_mask,
+                                       pad_heads, psum_scatter_tp, psum_tp,
+                                       psum_tp_act, psum_tp_out, pvary_tp,
+                                       region_vary, tp_region_in)
 from repro_torch.models.layers import act_fn, matmul, rms_norm
 
 
@@ -132,16 +138,23 @@ def attn_train(cfg, p, x, positions, lora_scale=2.0,
 
 
 def model_summed(defs: Dict[str, ParamDef], name: str,
-                 tpc: TPContext) -> bool:
-    """Whether the gradient of leaf ``name`` of an attention or MLP
-    sublayer (``defs``: the sublayer's defs) is summed over 'model':
-    where the JAX step's typing casts the weight to 'model'-varying.
-    That is a leaf replicated over 'model' (no 'tp' dim) that meets
-    varying values: inside an int8 region every leaf but the norm scale,
-    which is read before the region begins; otherwise only an adapter's
-    ``lora_b`` whose ``lora_a`` is 'model'-sharded (the row-parallel
-    projection's adapter, whose product varies)."""
+                 tpc: TPContext, kind: str = "attn") -> bool:
+    """Whether the gradient of leaf ``name`` of a ``kind`` sublayer
+    (``defs``: the sublayer's defs) is summed over 'model': where the
+    JAX step's typing casts the weight to 'model'-varying. That is a
+    leaf replicated over 'model' (no 'tp' dim) that meets varying
+    values: the MoE's router (it routes this rank's share of the
+    tokens); in attention and the MLP, inside an int8 region every leaf
+    but the norm scale, which is read before the region begins, and
+    otherwise only an adapter's ``lora_b`` whose ``lora_a`` is
+    'model'-sharded (the row-parallel projection's adapter, whose
+    product varies). The recurrent mixers' replicated leaves meet only
+    invariant values (their casts are on activations)."""
     if tpc.tp == 1 or defs[name].tp_dim is not None or name == "norm":
+        return False
+    if kind == "moe":
+        return True
+    if kind not in ("attn", "mlp"):
         return False
     if tpc.int8_act:
         return True
@@ -179,8 +192,7 @@ def mlp_apply(cfg, p, x, tpc: TPContext = SERIAL):
 
 
 # ===========================================================================
-# MoE (GShard-style capacity dispatch; at tp 1 the expert-parallel
-# all_to_all over 'model' is the identity)
+# MoE (GShard-style capacity dispatch, expert parallelism over 'model')
 # ===========================================================================
 
 # tokens of one dispatch (its [E, C, D] buffer), the JAX package's
@@ -188,14 +200,24 @@ def mlp_apply(cfg, p, x, tpc: TPContext = SERIAL):
 MOE_TOKEN_CHUNK = 8192
 
 
-def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def moe_defs(cfg: ModelConfig,
+             weight_resident: bool = False) -> Dict[str, ParamDef]:
+    """The router and the experts, sharded over 'model' on their first
+    dim (expert parallelism). ``weight_resident``
+    (``SystemConfig.moe_weight_resident``, as in the JAX package) gives
+    the experts ``fsdp_scope`` 'inter_only': sharded over 'pod' only,
+    each pod's shard resident."""
     m = cfg.moe
     d, fe, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    scope = "inter_only" if weight_resident else "full"
     return {
         "router": ParamDef((d, e), ("fsdp", None), init_scale=0.1),
-        "we_in": ParamDef((e, d, fe), ("tp", "fsdp", None)),
-        "we_gate": ParamDef((e, d, fe), ("tp", "fsdp", None)),
-        "we_out": ParamDef((e, fe, d), ("tp", None, "fsdp")),
+        "we_in": ParamDef((e, d, fe), ("tp", "fsdp", None),
+                          fsdp_scope=scope),
+        "we_gate": ParamDef((e, d, fe), ("tp", "fsdp", None),
+                            fsdp_scope=scope),
+        "we_out": ParamDef((e, fe, d), ("tp", None, "fsdp"),
+                           fsdp_scope=scope),
         "norm": ParamDef((d,), ("fsdp",), init="ones"),
     }
 
@@ -239,10 +261,15 @@ def _route(cfg, p, x_flat: torch.Tensor):
 
 
 def _moe_chunk(cfg, p, x_flat: torch.Tensor, capacity: int,
-               with_aux: bool):
-    """x_flat: [T, D] tokens; returns ([T, D], aux_loss_sum or None)."""
+               with_aux: bool, tpc: TPContext = SERIAL):
+    """x_flat: [T, D] tokens; returns ([T, D], aux_loss_sum or None).
+    The experts' buffer crosses 'model' and back: [E, C, D] goes out as
+    tp blocks of E/tp experts, and this rank's E/tp experts take the
+    [E/tp, tp*C, D] slots of every rank (the JAX package's tiled
+    ``all_to_all`` with split axis 0 and concat axis 1, then the
+    inverse)."""
     m = cfg.moe
-    E, k = m.num_experts, m.top_k
+    E, k, tp = m.num_experts, m.top_k, tpc.tp
     T, D = x_flat.shape
     probs, gate_vals, eid = _route(cfg, p, x_flat)
     eid_flat = eid.reshape(-1)                                # [T*k]
@@ -256,11 +283,17 @@ def _moe_chunk(cfg, p, x_flat: torch.Tensor, capacity: int,
                       device=x_flat.device)
     buf[e_idx, p_idx] = torch.where(keep[:, None], x_slots,
                                     torch.zeros_like(x_slots))
-    buf = buf[:E]                                             # [E, C, D]
+    buf = all_to_all_tp(buf[:E], tpc)                         # [E, C, D]
+    e_loc = E // tp
+    buf = (buf.reshape(tp, e_loc, capacity, D).transpose(0, 1)
+           .reshape(e_loc, tp * capacity, D))
     h = torch.bmm(buf, p["we_in"])
     g = torch.bmm(buf, p["we_gate"])
     z = act_fn(cfg.act)(g) * h
-    y = torch.bmm(z, p["we_out"])                             # [E, C, D]
+    y = torch.bmm(z, p["we_out"])                   # [E/tp, tp*C, D]
+    y = (y.reshape(e_loc, tp, capacity, D).transpose(0, 1)
+         .reshape(E, capacity, D))
+    y = all_to_all_tp(y, tpc)                                 # [E, C, D]
     # combine
     gathered = y[torch.where(keep, eid_flat, zero), p_idx]
     gathered = torch.where(keep[:, None], gathered,
@@ -277,30 +310,72 @@ def _moe_chunk(cfg, p, x_flat: torch.Tensor, capacity: int,
     return out, E * (f_e * p_e).sum() * T
 
 
-def moe_apply(cfg, p, x, token_chunk: int = MOE_TOKEN_CHUNK,
-              with_aux: bool = False):
-    """x: [B, S, D] -> (x + MoE(x), aux loss, or None unless
-    ``with_aux``: serving drops it). The B*S tokens are dispatched in
-    chunks of ``token_chunk`` when it divides them into several, else
-    all at once; each chunk's capacity comes from its own size."""
-    m = cfg.moe
-    B, S, D = x.shape
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
-    T = B * S
-    h_flat = h.reshape(T, D)
+def _moe_chunks(cfg, p, h_flat: torch.Tensor, token_chunk: int,
+                with_aux: bool, tpc: TPContext = SERIAL):
+    """The tokens [T, D] dispatched in chunks of ``token_chunk`` when it
+    divides them into several, else all at once; each chunk's capacity
+    comes from its own size. Returns ([T, D], the chunks' aux sum or
+    None)."""
+    T = h_flat.shape[0]
     chunk = min(token_chunk, T)
     n = T // chunk if T % chunk == 0 else 1
     if n == 1:
         chunk = T
     capacity = moe_capacity(cfg, chunk)
-    outs, auxes = [], []
+    outs, aux = [], None
     for c in range(n):
         out_c, aux_c = _moe_chunk(cfg, p, h_flat[c * chunk:(c + 1) * chunk],
-                                  capacity, with_aux)
+                                  capacity, with_aux, tpc)
         outs.append(out_c)
-        auxes.append(aux_c)
-    out = outs[0] if n == 1 else torch.cat(outs)
-    aux = sum(auxes) * m.aux_loss_weight if with_aux else None
+        if with_aux:
+            aux = aux_c if aux is None else aux + aux_c
+    return (outs[0] if n == 1 else torch.cat(outs)), aux
+
+
+def moe_apply(cfg, p, x, token_chunk: int = MOE_TOKEN_CHUNK,
+              with_aux: bool = False):
+    """x: [B, S, D] -> (x + MoE(x), aux loss, or None unless
+    ``with_aux``: serving drops it), on one rank."""
+    B, S, D = x.shape
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    out, aux = _moe_chunks(cfg, p, h.reshape(B * S, D), token_chunk,
+                           with_aux)
+    aux = aux * cfg.moe.aux_loss_weight if with_aux else None
+    return x + out.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_train(cfg, p, x, tpc: TPContext = SERIAL,
+              token_chunk: int = MOE_TOKEN_CHUNK):
+    """The MoE sublayer of the train step, as the JAX package's
+    ``moe_apply``: the B*S tokens padded to a multiple of tp and split
+    over 'model' (each rank dispatches its own share, cast to
+    'model'-varying first), dispatched in chunks through the experts of
+    every rank (``_moe_chunk``), and put back together by the invariant
+    all-gather; the aux loss summed over 'model' and scaled by
+    ``aux_loss_weight``. Returns (x + MoE(x), aux fp32).
+
+    The JAX chunk runs under ``jax.checkpoint(nothing_saveable)``, but
+    the layer's save_all policy saves matmul and ``all_to_all`` outputs
+    (``src/repro/core/fcdp.py:make_remat_policy``'s SAVE_PRIMS) and
+    wins, so the JAX backward runs no ``all_to_all`` again (its trace: 4
+    a layer, the 2 of the forward and their 2 transposes). Autograd
+    keeps the same values here; a recomputing activation policy reruns
+    the whole layer (``models/stack.py``)."""
+    B, S, D = x.shape
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    t_orig = B * S
+    h_flat = h.reshape(t_orig, D)
+    t_pad = -(-t_orig // tpc.tp) * tpc.tp
+    if t_pad != t_orig:
+        h_flat = F.pad(h_flat, (0, 0, 0, t_pad - t_orig))
+    t = t_pad // tpc.tp
+    h_flat = pvary_tp(h_flat, tpc)[tpc.rank * t:(tpc.rank + 1) * t]
+    out, aux = _moe_chunks(cfg, p, h_flat, token_chunk, True, tpc)
+    out = all_gather_invariant_tp(out, tpc, 0)[:t_orig]
+    # a recomputing policy's backward reads no aux value, only its
+    # gradient (the sum's: the identity), so its recompute sums nothing
+    replay = tpc.tape is not None and tpc.tape.next is not None
+    aux = (aux if replay else psum_tp(aux, tpc)) * cfg.moe.aux_loss_weight
     return x + out.reshape(B, S, D).to(x.dtype), aux
 
 
@@ -311,7 +386,8 @@ def moe_apply(cfg, p, x, token_chunk: int = MOE_TOKEN_CHUNK,
 # JAX package stores it (sublayers.py:606,624); the scan state h stays
 # fp32. The scan runs in ``ops.mamba_scan``: the CUDA kernel on the card
 # (prefill from zeros, decode from the carried h), the sequential plain
-# version on the CPU.
+# version on the CPU. Training runs it through ``ops.mamba_scan_train``,
+# whose backward is the adjoint scan on the same kernel.
 
 def mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     mc = cfg.mamba
@@ -340,9 +416,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _mamba_core(cfg, p, xz, conv_state=None, h_state=None):
-    """xz: [B, S, 2*d_in]. Returns (y [B,S,d_in], (conv state [B, d_conv
-    - 1, d_in] in xz's dtype, h [B, d_in, d_state] fp32))."""
+def _mamba_core(cfg, p, xz, conv_state=None, h_state=None,
+                tpc: TPContext = SERIAL, train: bool = False):
+    """xz: [B, S, 2*d_in] (this rank's d_in channels at tp > 1). Returns
+    (y [B,S,d_in], (conv state [B, d_conv - 1, d_in] in xz's dtype, h
+    [B, d_in, d_state] fp32)). At tp > 1, as in the JAX package: the
+    x_proj partial summed over 'model' (its dt, B and C then the same on
+    every rank) and cast back where they meet this rank's channels.
+    ``train`` differentiates the scan (``ops.mamba_scan_train``)."""
     mc = cfg.mamba
     ns = mc.d_state
     dt_rank = mc.dt_rank or -(-cfg.d_model // 16)
@@ -360,19 +441,22 @@ def _mamba_core(cfg, p, xz, conv_state=None, h_state=None):
            + torch.arange(k, device=xz.device)[None, :])
     xs = x_pad[:, idx]                                    # [B,S,k,d_in]
     xc = F.silu(torch.einsum("bskd,dk->bsd", xs, p["conv_w"]) + p["conv_b"])
-    xdb = xc @ p["x_proj"]                                # [B,S,r+2n]
+    xdb = kept(xc @ p["x_proj"], tpc,
+               lambda t: psum_tp(t, tpc))                 # [B,S,r+2n]
     dt_in, Bc, Cc = torch.split(xdb, [dt_rank, ns, ns], dim=-1)
-    dt = softplus(dt_in @ p["dt_proj"] + p["dt_bias"])    # [B,S,d_in]
+    dt = softplus(pvary_tp(dt_in, tpc) @ p["dt_proj"]
+                  + p["dt_bias"])                         # [B,S,d_in]
     A = -torch.exp(p["A_log"].float())                    # [d_in, ns]
     dtf, xcf = dt.float(), xc.float()
     a = (dtf[..., None] * A).exp_()                       # [B,S,d_in,ns]
-    b = (dtf * xcf)[..., None] * Bc.float()[..., None, :]
+    b = (dtf * xcf)[..., None] * pvary_tp(Bc.float()[..., None, :], tpc)
     h0 = None if h_state is None else h_state.reshape(B, d_in * ns)
-    hs = ops.mamba_scan(a.view(B, S, d_in * ns), b.view(B, S, d_in * ns),
-                        h0).view(B, S, d_in, ns)
+    scan = ops.mamba_scan_train if train else ops.mamba_scan
+    hs = scan(a.view(B, S, d_in * ns), b.view(B, S, d_in * ns),
+              h0).view(B, S, d_in, ns)
     del a, b
     h_last = hs[:, -1].contiguous()
-    y = torch.einsum("bsdn,bsn->bsd", hs, Cc.float())
+    y = torch.einsum("bsdn,bsn->bsd", hs, pvary_tp(Cc.float(), tpc))
     y = y + p["D_skip"].float() * xcf
     y = (y * F.silu(z.float())).to(xz.dtype)
     return y, (new_conv_state, h_last)
@@ -385,6 +469,21 @@ def mamba_prefill(cfg, p, x):
     y, (conv_s, h_s) = _mamba_core(cfg, p, h @ p["in_proj"])
     return (x + matmul(y, p["out_proj"]),
             {"conv": conv_s.to(torch.bfloat16), "h": h_s})
+
+
+def mamba_train(cfg, p, x, tpc: TPContext = SERIAL):
+    """The Mamba sublayer of the train step, tensor-parallel over
+    'model' (d_inner sharded), as the JAX package's ``mamba_apply``: the
+    normed input cast to 'model'-varying where it meets ``in_proj`` (an
+    exact sum of its gradient, even under act_psum "int8": the JAX
+    mixer opens no int8 region), the scan differentiated through its
+    adjoint kernel, ``out_proj`` through the gather-fused ring where its
+    plan says so, and the output summed over 'model' (``psum_tp_act``,
+    int8 under act_psum "int8")."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    y, _ = _mamba_core(cfg, p, pvary_tp(h, tpc) @ p["in_proj"], tpc=tpc,
+                       train=True)
+    return x + psum_tp_act(matmul(y, p["out_proj"]), tpc)
 
 
 def mamba_init_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
@@ -417,10 +516,11 @@ def mamba_decode(cfg, p, x, state):
 DDLERP_RANK = 32    # the JAX package fixes the ddlerp rank whatever the width
 
 
-def rwkv_tm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def rwkv_tm_defs(cfg: ModelConfig, tp: int = 1) -> Dict[str, ParamDef]:
+    """The heads padded to a multiple of ``tp``."""
     rc = cfg.rwkv
     d = cfg.d_model
-    da = (d // rc.head_dim) * rc.head_dim       # attention width (tp 1)
+    da = pad_heads(d // rc.head_dim, tp) * rc.head_dim  # attention width
     lr = rc.decay_lora
     return {
         "norm": ParamDef((d,), ("fsdp",), init="ones"),
@@ -506,6 +606,78 @@ def _rwkv_tm_core(cfg, p, x, xprev_last=None, s0=None):
     return matmul(out, p["w_o"]), (x[:, -1], s_new)
 
 
+class _Recomputed(torch.autograd.Function):
+    """``fn(*inputs)`` keeping only its inputs for the backward, which
+    runs ``fn`` again under autograd and differentiates it (the JAX
+    package's ``jax.checkpoint(..., nothing_saveable)`` of one
+    function)."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.fn = fn
+        ctx.save_for_backward(*inputs)
+        return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[1:]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ctx.fn(*ins)
+        wanted = [t for t, n in zip(ins, need) if n]
+        grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        return (None,) + tuple(next(grads) if n else None for n in need)
+
+
+def wkv_chunked(r, k, v, logw, u, chunk: int = 64):
+    """RWKV-6 WKV from zero state, chunked, under autograd: the JAX
+    package's ``models/sublayers._wkv_chunked``, which its train step
+    differentiates (under ``jax.checkpoint(nothing_saveable)``; here
+    ``_Recomputed``), in its torch port ``kernels.ref.wkv6_plain``. No
+    kernel runs here, because the JAX train path runs none either: the
+    Pallas WKV kernel has no VJP, and neither package has a backward WKV
+    kernel. Serving calls ``ops.wkv6``.
+
+    r, k, v: [B,S,H,hd]; logw: [B,S,H,hd] (log decay, <= 0); u: [H,hd].
+    Returns [B,S,H,hd] in r's dtype."""
+    return _Recomputed.apply(
+        lambda *t: ref.wkv6_plain(*t, chunk=chunk)[0], r, k, v, logw, u)
+
+
+def rwkv_tm_train(cfg, p, x, tpc: TPContext = SERIAL):
+    """The time-mix sublayer of the train step, as the JAX package's
+    ``rwkv_tm_apply``: the heads padded to tp and split over 'model'
+    (the padding heads' output masked, ``local_head_mask``), the mixed
+    inputs cast to 'model'-varying where they meet this rank's heads,
+    the WKV differentiated under recompute (``wkv_chunked``), ``w_o``
+    through the gather-fused ring where its plan says so, and the output
+    summed over 'model', exactly under either act_psum (the JAX mixer
+    calls ``psum_tp``)."""
+    hd = cfg.rwkv.head_dim
+    n_heads = cfg.d_model // hd
+    hp = pad_heads(n_heads, tpc.tp)
+    h_local = hp // tpc.tp
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    B, S, D = h.shape
+    xw, xk, xv, xr, xg = _rwkv_mix(p, h, _token_shift(h))
+    r = (pvary_tp(xr, tpc) @ p["w_r"]).reshape(B, S, h_local, hd)
+    k = (pvary_tp(xk, tpc) @ p["w_k"]).reshape(B, S, h_local, hd)
+    v = (pvary_tp(xv, tpc) @ p["w_v"]).reshape(B, S, h_local, hd)
+    g = F.silu(pvary_tp(xg, tpc) @ p["w_g"])
+    logw = -torch.exp((p["decay_base"] + pvary_tp(
+        torch.tanh(xw @ p["decay_w1"]), tpc) @ p["decay_w2"]).float()
+    ).reshape(B, S, h_local, hd)
+    u = p["u"].float().reshape(h_local, hd)
+    out = wkv_chunked(r, k, v, logw, u)
+    if hp != n_heads:
+        mask = local_head_mask(tpc, hp, n_heads, out.device)
+        out = out * mask[None, None, :, None].to(out.dtype)
+    out = _group_norm_heads(out, p["ln_x"], cfg.norm_eps)
+    out = out * g.to(out.dtype)
+    return x + psum_tp_out(matmul(out, p["w_o"]), tpc)
+
+
 def rwkv_tm_apply(cfg, p, x):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     y, _ = _rwkv_tm_core(cfg, p, h)
@@ -562,6 +734,29 @@ def rwkv_cm_apply(cfg, p, x):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     y, _ = _rwkv_cm_core(cfg, p, h)
     return x + y
+
+
+def rwkv_cm_train(cfg, p, x, tpc: TPContext = SERIAL):
+    """The channel-mix sublayer of the train step, as the JAX package's
+    ``rwkv_cm_apply``: the key column-parallel over 'model', ``w_v``'s
+    row-parallel partial reduce-scattered over 'model' on the model dim
+    (``w_v`` through the gather-fused ring where its plan says so),
+    gated by this rank's receptance columns, and gathered back whole
+    (the invariant all-gather).
+
+    The JAX save_all policy lists the reduce-scatter as "psum_scatter",
+    but jax 0.9 names the primitive "reduce_scatter", so the JAX
+    backward runs it again to read its output (the gate's gradient);
+    autograd keeps the output here, so the port moves half the
+    reference's 'model' reduce-scatter bytes (a pinned divergence)."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    dx = _token_shift(h) - h
+    xk = h + dx * p["mu_k"]
+    xr = h + dx * p["mu_r"]
+    kk = torch.square(F.relu(pvary_tp(xk, tpc) @ p["w_k"]))
+    kv = psum_scatter_tp(matmul(kk, p["w_v"]), tpc, 2)      # [B,S,D/tp]
+    gate = torch.sigmoid(pvary_tp(xr, tpc) @ p["w_r"])      # [B,S,D/tp]
+    return x + all_gather_invariant_tp(gate * kv, tpc, 2)
 
 
 def rwkv_cm_prefill(cfg, p, x):
