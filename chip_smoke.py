@@ -231,6 +231,45 @@ non-zero:
                 tolerances, the same bytes, the scan's plan launched on
                 the card and only called on the CPU.
 
+ 23. arch_kernels -- the flash kernel at the head dims of the six archs
+                the port gained last, against its plain version at their
+                serve paths' shapes: gemma-2b's paged prefill chunk and
+                decode (hd 256, 8 q heads on 1 kv head, 528 keys) and
+                kimi-k2's contiguous prefill and decode (hd 112, 64 / 8
+                heads, 544 positions), timed (a CUDA graph, host us,
+                the bound, SDPA); nvcc's report of each kernel must show
+                no spill.
+ 24. arch_serve -- the six archs served at full width in bf16 (random
+                weights from a seed): gemma-2b (18 layers), granite-3-8b
+                (40), yi-34b (30 of 60) and chameleon-34b (24 of 48)
+                through the paged engine (8 of the serve phase's
+                mixed_requests: 512 positions, 16 generated, batch 8,
+                chunks of 128);
+                kimi-k2 and llama4-maverick at one layer with all their
+                experts (384, 128) through the contiguous steps (batch
+                8, a 512-token prompt, 32 greedy decode steps). Checks
+                every request's tokens, the flash launches (one a layer
+                and call), finite logits and the caches' idx; reports
+                TTFT, TPOT, tokens/s, the variant a step takes, the peak
+                memory and the card.
+ 25. arch_train -- gemma-2b and granite-3-8b at depth 2, yi-34b and
+                chameleon-34b at depth 1, full width, one fcdp step each
+                on phase 5's 4 ranks (riding on phase 17's spawn), seq
+                512, global batch 8, bf16: finite metrics the ranks
+                agree on; reports the bytes by (op, axis) (gemma's tied
+                table gathered and reduced at both ends), the peaks and
+                the step times. kimi-k2 and llama4-maverick do not train
+                on one card (their embedding and head alone hold ~2.1-
+                2.4 B parameters); the CPU tests hold their step.
+ 26. arch_parity -- card against CPU: the six archs' smoke configs, one
+                fcdp step each at (2, 2, 1) in fp32 on phase 6's jobs
+                (loss, aux loss, grad norm, bytes); then gemma-2b and
+                kimi-k2 (8 of its experts) at full width, depth 1, bf16,
+                through the contiguous steps (a 64-token prompt, batch
+                2, 8 decode steps; the CPU's tokens fed to both, MoE
+                routing as in jamba_parity): logits within 0.1, tokens
+                equal up to near-ties.
+
 Each parity phase runs its card and its CPU job side by side.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
@@ -354,8 +393,14 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# the script's start on the host clock: every phase line carries its
+# seconds since then (``t_s``), so a run's time splits by phase
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0,
+                      **kw}), flush=True)
 
 
 def gpu_line() -> str:
@@ -1554,37 +1599,43 @@ def _bf16_step(x):
         x.abs().clamp_min(2.0 ** -126))) - 7)
 
 
-def phase_jamba_parity():
-    """jamba at full width and depth 2 in bf16 on the card (kernels) and
-    on the CPU (plain versions), from the same weights (drawn on the
-    card, ~1 s, and copied to the CPU), the CPU's greedy tokens fed to
-    both. The router logits agree
-    within ROUTER_STEPS bf16 steps. A token may be routed to other
-    experts on the two sides only where the CPU's margin between its
-    choice and the card's is within ROUTER_STEPS bf16 steps (a near-tie
-    in the router; reported). Where any token was so routed, the CPU
-    runs again with the card's choices forced at those tokens, so that
-    both sides dispatch alike (the slot positions, and so the capacity
-    drops, follow from the choices), and its routing must then equal
-    the card's. Every row's logits at every step are within 0.1 of the
-    CPU run whose dispatch equals the card's; the card's greedy tokens
-    equal its, up to near-ties (top-2 logit margin within 0.1)."""
-    import numpy as np
+def contiguous_parity(phase, cfg, cp, draw=None):
+    """``cfg`` through the contiguous serve steps in bf16 on the card
+    (kernels) and on the CPU (plain versions), from the same weights
+    (drawn on the card, then ``draw(params, generator)`` if given, and
+    copied to the CPU), the CPU's greedy tokens fed to both; ``cp``:
+    batch, prompt, decode steps, logit tolerance. With a MoE layer (at
+    most one), the router logits agree within ROUTER_STEPS bf16 steps,
+    and a token may be routed to other experts on the two sides only
+    where the CPU's margin between its choice and the card's is within
+    ROUTER_STEPS bf16 steps (a near-tie in the router; reported). Where
+    any token was so routed, the CPU runs again with the card's choices
+    forced at those tokens, so that both sides dispatch alike (the slot
+    positions, and so the capacity drops, follow from the choices), and
+    its routing must then equal the card's. Every row's logits at every
+    step are within the tolerance of the CPU run whose dispatch equals
+    the card's; the card's greedy tokens equal its, up to near-ties
+    (top-2 logit margin within the tolerance). The card launches the
+    flash and scan kernels once an attention and a Mamba layer a step,
+    the CPU none. Emits the ``phase`` line; returns it."""
     import torch
     from repro_torch.configs.base import RunConfig, ShapeCell
     from repro_torch.core.engine import StepBundle
     from repro_torch.core.partition import tree_map
     from repro_torch.kernels import ops
     from repro_torch.models import sublayers
+    from repro_torch.models.lm import layer_plan
 
-    cp = JAMBA_PARITY
-    cfg = jamba_config(cp["depth"], 2, (0,))
     run = RunConfig(model=cfg, shape=ShapeCell(
-        "jamba_parity", "decode", cp["prompt"] + cp["decode"], cp["batch"]))
+        phase, "decode", cp["prompt"] + cp["decode"], cp["batch"]))
     cpu, gpu = StepBundle(run, device="cpu"), StepBundle(run)
+    plan, groups = layer_plan(cfg)
+    n_moe = groups * sum(k[1] == "moe" for k in plan)
+    check(n_moe <= 1, f"{phase}: {n_moe} MoE layers (at most 1)")
     t0 = time.perf_counter()
     p_gpu = gpu.init_all_params(seed=0)
-    draw_mamba_leaves(p_gpu, torch.Generator(gpu.device).manual_seed(1))
+    if draw is not None:
+        draw(p_gpu, torch.Generator(gpu.device).manual_seed(1))
     p_cpu = tree_map(lambda t: t.to(cpu.device), p_gpu)
     draw_s = time.perf_counter() - t0
     ids = torch.randint(1, cfg.vocab_size, (cp["batch"], cp["prompt"]),
@@ -1620,19 +1671,18 @@ def phase_jamba_parity():
     # the CPU's run fixes the tokens both sides are fed
     lc, tc, rc, nc, t_c = serve(cpu, p_cpu)
     lg, tg, rg, ng, t_g = serve(gpu, p_gpu, feed=tc)
-    k = cfg.moe.top_k
     S = cp["prompt"]
     route_diffs, force, router_steps = [], {}, 0.0
-    check(len(rc) == len(rg) == 1 + cp["decode"],
-          f"router calls: CPU {len(rc)}, card {len(rg)}")
+    check(len(rc) == len(rg) == n_moe * (1 + cp["decode"]),
+          f"{phase}: router calls: CPU {len(rc)}, card {len(rg)}")
     for step, ((l_c, e_c), (l_g, e_g)) in enumerate(zip(rc, rg)):
         # the router logits agree within ROUTER_STEPS bf16 steps at each
         # token's largest |logit|
         unit = _bf16_step(l_c.abs().amax(-1))
         steps_off = (l_g - l_c).abs().amax(-1) / unit
         router_steps = max(router_steps, steps_off.max().item())
-        check(router_steps <= ROUTER_STEPS, f"step {step}: router logits "
-              f"differ by {router_steps} bf16 steps")
+        check(router_steps <= ROUTER_STEPS, f"{phase} step {step}: router "
+              f"logits differ by {router_steps} bf16 steps")
         same = (e_c.sort(-1).values == e_g.sort(-1).values).all(-1)
         for t in torch.nonzero(~same).flatten().tolist():
             # the CPU's margin between its choice and the card's
@@ -1644,47 +1694,63 @@ def phase_jamba_parity():
                 "step": step, "row": row, "pos": pos,
                 "cpu": e_c[t].tolist(), "card": e_g[t].tolist(),
                 "cpu_margin_bf16_steps": margin})
-            check(margin <= ROUTER_STEPS, f"step {step} token {t}: MoE "
-                  f"routing {e_c[t].tolist()} (CPU) vs {e_g[t].tolist()} "
-                  f"(card) at a CPU margin of {margin} bf16 steps")
+            check(margin <= ROUTER_STEPS, f"{phase} step {step} token {t}: "
+                  f"MoE routing {e_c[t].tolist()} (CPU) vs "
+                  f"{e_g[t].tolist()} (card) at a CPU margin of {margin} "
+                  f"bf16 steps")
             force.setdefault(step, {})[t] = e_g[t].tolist()
     rerun_s = None
     if force:
         lc, tc, rf, _, rerun_s = serve(cpu, p_cpu, feed=tc, force=force)
         for step, ((_, e_f), (_, e_g)) in enumerate(zip(rf, rg)):
             check(torch.equal(e_f.sort(-1).values, e_g.sort(-1).values),
-                  f"step {step}: the forced CPU run routes otherwise")
+                  f"{phase} step {step}: the forced CPU run routes "
+                  "otherwise")
     diffs = []
     for step, (a, b) in enumerate(zip(lg, lc)):
         d = (a - b).abs().amax(-1)
         for row, v in enumerate(d.tolist()):
-            check(v <= cp["logit_tol"], f"step {step} row {row}: card "
-                  f"and CPU logits differ by {v}")
+            check(v <= cp["logit_tol"], f"{phase} step {step} row {row}: "
+                  f"card and CPU logits differ by {v}")
         diffs.append(d.tolist())
     near_ties = []
     for step, (a, b) in enumerate(zip(tg, tc)):
         for row in torch.nonzero(a != b).flatten().tolist():
             top2 = lc[step][row].topk(2).values
             check(float(top2[0] - top2[1]) <= cp["logit_tol"],
-                  f"step {step} row {row}: tokens {b[row].item()} (CPU) vs "
-                  f"{a[row].item()} (card)")
+                  f"{phase} step {step} row {row}: tokens {b[row].item()} "
+                  f"(CPU) vs {a[row].item()} (card)")
             near_ties.append([step, row])
     steps = 1 + cp["decode"]
-    check(ng == (steps, steps) and nc == (0, 0),
-          f"launches (scan, attention): card {ng}, expected {(steps,) * 2} "
-          f"(1 mamba and 1 attention layer x {steps} steps); CPU {nc}")
-    emit("jamba_parity", layers=cfg.num_layers, dtype="bfloat16",
-         batch=cp["batch"], prompt=cp["prompt"], decode_steps=cp["decode"],
-         logit_tol=cp["logit_tol"], logits_max_abs_diff=diffs,
-         router_logits_max_bf16_steps=router_steps,
-         routing_differences=route_diffs, cpu_rerun_forced=bool(force),
-         token_near_ties=near_ties,
-         tokens_cpu=[t.tolist() for t in tc],
-         tokens_gpu=[t.tolist() for t in tg],
-         launches={"gpu": ng, "cpu": nc}, draw_s=draw_s, cpu_s=t_c,
-         gpu_s=t_g, cpu_rerun_s=rerun_s)
+    want = tuple(groups * sum(k[0] == kind for k in plan) * steps
+                 for kind in ("mamba", "attn"))
+    check(ng == want and nc == (0, 0),
+          f"{phase}: launches (scan, attention): card {ng}, expected {want}; "
+          f"CPU {nc}")
+    line = dict(model=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
+                batch=cp["batch"], prompt=cp["prompt"],
+                decode_steps=cp["decode"], logit_tol=cp["logit_tol"],
+                logits_max_abs_diff=diffs,
+                router_logits_max_bf16_steps=router_steps,
+                routing_differences=route_diffs, cpu_rerun_forced=bool(force),
+                token_near_ties=near_ties,
+                tokens_cpu=[t.tolist() for t in tc],
+                tokens_gpu=[t.tolist() for t in tg],
+                launches={"gpu": ng, "cpu": nc}, draw_s=draw_s, cpu_s=t_c,
+                gpu_s=t_g, cpu_rerun_s=rerun_s)
+    emit(phase, **line)
     del p_gpu
     torch.cuda.empty_cache()
+    return line
+
+
+def phase_jamba_parity():
+    """jamba at full width and depth 2 (attention + MLP, Mamba + MoE) in
+    bf16, card against CPU (``contiguous_parity``), its constant leaves
+    drawn (``draw_mamba_leaves``)."""
+    cp = JAMBA_PARITY
+    contiguous_parity("jamba_parity", jamba_config(cp["depth"], 2, (0,)), cp,
+                      draw_mamba_leaves)
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1732,7 +1798,6 @@ def phase_profile():
     times (one stream, so they do not overlap); idle share is the rest
     of the traced wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import RunConfig, ShapeCell
     from repro_torch.configs.registry import get_config
@@ -1755,24 +1820,74 @@ def phase_profile():
         engine.serve(params, reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
-    dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    host = [e for e in avgs if e.device_type == DeviceType.CPU]
-    busy_us = sum(e.self_device_time_total for e in dev)
-    n_kernels = sum(e.count for e in dev)
+    t1 = time.perf_counter()
+    dev, host = profile_self_times(prof)
+    busy_us = sum(us for _, us in dev.values())
+    n_kernels = sum(n for n, _ in dev.values())
     steps = engine.prefill_calls + engine.decode_calls
 
-    def top(rows, key, n=12):
-        rows = sorted(rows, key=key, reverse=True)[:n]
-        return [{"name": e.key[:90], "count": e.count,
-                 "ms": key(e) / 1e3} for e in rows]
+    def top(rows, n=12):
+        rows = sorted(rows.items(), key=lambda kv: kv[1][1], reverse=True)
+        return [{"name": k[:90], "count": c, "ms": us / 1e3}
+                for k, (c, us) in rows[:n]]
     emit("profile", wall_s=wall, device_busy_s=busy_us / 1e6,
          device_idle_share=1 - busy_us / 1e6 / wall,
          prefill_calls=engine.prefill_calls,
          decode_calls=engine.decode_calls,
          device_launches=n_kernels, launches_per_step=n_kernels / steps,
-         top_device=top(dev, lambda e: e.self_device_time_total),
-         top_host=top(host, lambda e: e.self_cpu_time_total))
+         top_device=top(dev), top_host=top(host),
+         analysis_s=time.perf_counter() - t1)
+
+
+def profile_self_times(prof):
+    """({name: (count, self us)} of the trace's device events, the same
+    of its host ops): what ``prof.key_averages()`` sums as
+    ``self_device_time_total`` / ``self_cpu_time_total``, read from the
+    raw kineto events. A device event has no children, so its self time
+    is its duration; a host op's is its duration less its direct
+    children's on the same thread, ops nesting by time as in torch's
+    event tree (an op that ends after the open one is not its child; an
+    only child of the same name is folded into its parent).
+    key_averages builds a Python object of every event first: ~95 s for
+    the serve phase's ~10^6 events on the card's host, 11x this."""
+    from torch.autograd import DeviceType
+    dev, host, threads = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name.startswith("[") or e.is_hidden_event():
+            continue                   # memory records, hidden events
+        if e.device_type() == DeviceType.CUDA:
+            c, us = dev.get(name, (0, 0.0))
+            dev[name] = (c + 1, us + e.duration_ns() / 1e3)
+        elif e.device_type() == DeviceType.CPU and not e.is_async() \
+                and e.start_thread_id() == e.end_thread_id():
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), name))
+
+    def close(stack):
+        node = stack.pop()             # [end, name, duration, children]
+        while len(node[3]) == 1 and node[3][0][1] == node[1]:
+            node[3] = node[3][0][3]
+        if stack:
+            stack[-1][3].append(node)
+            return
+        todo = [node]
+        while todo:
+            n = todo.pop()
+            c, us = host.get(n[1], (0, 0.0))
+            host[n[1]] = (c + 1, us + (n[2] - sum(k[2] for k in n[3])) / 1e3)
+            todo.extend(n[3])
+    for evs in threads.values():
+        evs.sort()
+        stack = []
+        for start, neg_end, name in evs:
+            end = -neg_end
+            while stack and (stack[-1][0] <= start or end > stack[-1][0]):
+                close(stack)
+            stack.append([end, name, end - start, []])
+        while stack:
+            close(stack)
+    return dev, host
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -2209,7 +2324,8 @@ def phase_train_parity():
 
     runs = [ModeRun("fcdp", "int8_pod", "int8_pod", dtype="float32"),
             ModeRun("fcdp", fused_matmul="ag_matmul", dtype="float32")]
-    runs += family_parity_runs()        # phase family_parity's, checked there
+    # phase family_parity's and phase arch_parity's, checked there
+    runs += family_parity_runs() + arch_parity_runs()
     out = spawn_card_and_cpu(
         lambda dev: _train_job(get_smoke_config("qwen2.5-3b"), 64, 8, runs,
                                dtype="float32", device=dev, draw_device="cpu"))
@@ -2959,7 +3075,7 @@ def phase_stream_train(extra=(), task=None):
     emit("stream_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
          seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, microbatch=STREAM_MB,
          mesh=job.mesh.shape, backend=ranks[0]["backend"], wall_s=wall,
-         spawn_shared_with=["family_train", "cache_train"],
+         spawn_shared_with=["family_train", "arch_train", "cache_train"],
          kernel_launches_total=launches, runs=summary)
     n = len(STREAM_RUNS)
     return (launches, [[rk["runs"][n + j] for rk in ranks]
@@ -3564,6 +3680,337 @@ def phase_family_parity(got):
          mesh={"pod": 2, "data": 2, "model": 1}, runs=report)
 
 
+# -- the six remaining decoder-only archs -----------------------------------
+
+# the serve arms' batch, prompt and greedy decode steps (the contiguous
+# cache holds prompt + decode positions); the paged arms' requests of
+# the serve phase's mixed_requests shape (up to 512 positions, 16
+# generated, in prefill chunks of 128)
+ARCH_SERVE_BATCH, ARCH_PROMPT, ARCH_DECODE = 8, 512, 32
+ARCH_REQUESTS, ARCH_GEN, ARCH_CHUNK = 8, 16, 128
+# each serve arm's depth on the card: the dense and vlm archs whole or
+# cut to ~35 GB of bf16 weights, the moe archs to one layer with all
+# their experts (PERF.md section 4)
+ARCH_SERVE_DEPTH = {"gemma-2b": 18, "granite-3-8b": 40, "yi-34b": 30,
+                    "chameleon-34b": 24, "kimi-k2-1t-a32b": 1,
+                    "llama4-maverick-400b-a17b": 1}
+# the train arms' depth: the dense and vlm archs at ~0.7-1.8 B parameters
+# for 4 ranks on one card; the moe archs' embedding and head alone
+# (~2.1-2.4 B) do not fit there (PERF.md section 4)
+ARCH_TRAIN_DEPTH = {"gemma-2b": 2, "granite-3-8b": 2, "yi-34b": 1,
+                    "chameleon-34b": 1}
+# card against CPU through the contiguous steps at full width, depth 1
+ARCH_PARITY = dict(batch=2, prompt=64, decode=8, logit_tol=0.1)
+ARCH_PARITY_EXPERTS = 8
+
+def phase_arch_kernels():
+    """The flash kernel at the new archs' head dims, against its plain
+    version at the shapes their serve paths give it: gemma-2b's paged
+    prefill chunk and decode (hd 256, MQA: 8 q heads on 1 kv head, 528
+    keys a row) and kimi-k2's contiguous prefill and decode (hd 112, 64 /
+    8 heads over the 544-position cache), each timed (a CUDA graph, the
+    wrapper's host us, the bound, SDPA); then, untimed, yi-34b's and
+    llama4-maverick's (hd 128, groups of 7 and 5). nvcc's report of the
+    kernel each case ran must show no spill."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    B, kv_len = ARCH_SERVE_BATCH, ARCH_PROMPT + ARCH_DECODE
+    chunk_offs = (torch.randint(0, 400 // 16, (B,), generator=gen,
+                                device="cuda") * 16).tolist()
+    dec_offs = torch.randint(16, 528, (B,), generator=gen, device="cuda")
+    kimi_offs = torch.randint(ARCH_PROMPT, kv_len, (B,), generator=gen,
+                              device="cuda")
+    cases = {
+        "gemma_prefill_chunk": kernel_case(
+            "gemma_prefill_chunk", B, 128, 528, 8, 1, 256, chunk_offs, True,
+            gen, timed=True),
+        "gemma_decode": kernel_case(
+            "gemma_decode", B, 1, 528, 8, 1, 256, dec_offs.tolist(), True,
+            gen, timed=True),
+        "kimi_prefill": kernel_case(
+            "kimi_prefill", B, ARCH_PROMPT, kv_len, 64, 8, 112, [0] * B,
+            True, gen, timed=True),
+        "kimi_decode": kernel_case(
+            "kimi_decode", B, 1, kv_len, 64, 8, 112, kimi_offs.tolist(),
+            True, gen, timed=True)}
+    # the other archs' shapes that no earlier phase holds: yi's GQA group
+    # of 7 and llama4's of 5 (hd 128) take the mma.sync prefill and the
+    # split-KV decode at a group size the kernels phase does not run
+    others = [
+        kernel_case("yi_prefill_chunk", B, 128, 512, 56, 8, 128, chunk_offs,
+                    True, gen),
+        kernel_case("yi_decode", B, 1, 512, 56, 8, 128, dec_offs.tolist(),
+                    True, gen),
+        kernel_case("llama4_prefill", B, ARCH_PROMPT, kv_len, 40, 8, 128,
+                    [0] * B, True, gen),
+        kernel_case("llama4_decode", B, 1, kv_len, 40, 8, 128,
+                    kimi_offs.tolist(), True, gen)]
+    for c in list(cases.values()) + others:
+        name = c["case"]
+        check(c["variant"] == "mma" or name not in cases,
+              f"{name}: variant {c['variant']}")
+        check(c["ptxas"].get("spill_bytes") == 0,
+              f"{name}: {c['ptxas']['kernel']} spills "
+              f"({c['ptxas'].get('spill_bytes')} bytes)")
+        emit("arch_kernels", **c)
+    return cases
+
+
+def arch_config(arch, depth, experts=None):
+    """``arch`` at full width, its depth cut to ``depth`` (and its experts
+    to ``experts``)."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+    if experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=experts))
+    return cfg
+
+
+def _arch_paged_arm(cfg):
+    """The paged engine over ``ARCH_REQUESTS`` of the serve phase's
+    mixed_requests shape (512 positions, 16 generated, batch 8, chunks
+    of 128)."""
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.core.engine.serve import default_paged_kv
+    from repro_torch.core.serve_schedule import PagedServeEngine, summarize
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.launch.serve import mixed_requests
+
+    cell = ShapeCell("arch_serve", "decode", ARCH_PROMPT, ARCH_SERVE_BATCH)
+    bundle = StepBundle(RunConfig(model=cfg, shape=cell))
+    t0 = time.perf_counter()
+    params = bundle.init_all_params(seed=0)
+    engine = PagedServeEngine(bundle, default_paged_kv(bundle, cell),
+                              chunk=ARCH_CHUNK)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    requests = mixed_requests(ARCH_REQUESTS, ARCH_PROMPT, ARCH_GEN,
+                              cfg.vocab_size, seed=0)
+    ops.flash_attention.launches = 0
+    results, wall = engine.serve(params, requests)
+    torch.cuda.synchronize()
+    launches = ops.flash_attention.launches
+    calls = {"prefill": engine.prefill_calls, "decode": engine.decode_calls}
+    check(len(results) == ARCH_REQUESTS
+          and all(len(r.tokens) == ARCH_GEN for r in results),
+          f"{cfg.name}: served {len(results)} requests of "
+          f"{[len(r.tokens) for r in results]} tokens")
+    check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens),
+          f"{cfg.name}: a token id lies outside the vocabulary")
+    L = cfg.num_layers
+    check(launches == L * sum(calls.values()), f"{cfg.name}: flash "
+          f"launched {launches} times, expected {L} x {calls}")
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    step_variants = {"prefill": {fa.variant(ARCH_CHUNK, H, Hk, hd): L},
+                     "decode": {fa.variant(1, H, Hk, hd): L}}
+    summary = summarize(results, wall)
+    del params, engine
+    return dict(path="paged", calls=calls, launches=launches,
+                flash_launches_a_step=step_variants,
+                requests=ARCH_REQUESTS, seq_len=ARCH_PROMPT, gen=ARCH_GEN,
+                chunk=ARCH_CHUNK, init_s=init_s,
+                ttft_p50_s=summary["ttft_s"]["p50"],
+                tpot_p50_s=summary["tpot_s"]["p50"],
+                tok_s=summary["throughput_tok_s"], summary=summary,
+                row0_tokens=sorted(results, key=lambda r: r.rid)[0].tokens)
+
+
+def _arch_contiguous_arm(cfg):
+    """The contiguous prefill of ARCH_PROMPT tokens and ARCH_DECODE greedy
+    decode steps at batch ARCH_SERVE_BATCH, as jamba_serve runs them."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.kernels import flash_attention as fa, ops
+
+    max_len = ARCH_PROMPT + ARCH_DECODE
+    cell = ShapeCell("arch_serve", "decode", max_len, ARCH_SERVE_BATCH)
+    bundle = StepBundle(RunConfig(model=cfg, shape=cell))
+    t0 = time.perf_counter()
+    params = bundle.init_all_params(seed=0)
+    ids = torch.randint(1, cfg.vocab_size, (ARCH_SERVE_BATCH, ARCH_PROMPT),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(2), device="cuda")
+    prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
+    pick = bundle.make_greedy_pick()
+    state = bundle.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, state = prefill(params, ids, state)
+    tok = pick(logits)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite, tokens, tpot = [torch.isfinite(logits).all()], [tok], []
+    for _ in range(ARCH_DECODE):
+        t1 = time.perf_counter()
+        logits, state = decode(params, tok[:, None], state)
+        tok = pick(logits)
+        torch.cuda.synchronize()
+        tpot.append(time.perf_counter() - t1)
+        finite.append(torch.isfinite(logits).all())
+        tokens.append(tok)
+    wall = time.perf_counter() - t0
+    launches = ops.flash_attention.launches
+    steps = 1 + ARCH_DECODE
+    L = cfg.num_layers
+    check(launches == L * steps, f"{cfg.name}: flash launched {launches} "
+          f"times, expected {L} x {steps}")
+    check(all(bool(f.item()) for f in finite),
+          f"{cfg.name}: a logit is not finite")
+    toks = torch.stack(tokens, dim=1).cpu()
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all().item()),
+          f"{cfg.name}: a token id lies outside the vocabulary")
+    idx = state["pos0"]["attn"]["idx"].tolist()
+    check(idx == [max_len] * L, f"{cfg.name}: KV cache idx {idx}")
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    tp = np.asarray(tpot)
+    del params, state, logits
+    return dict(path="contiguous", launches=launches,
+                flash_launches_a_step={
+                    "prefill": {fa.variant(ARCH_PROMPT, H, Hk, hd): L},
+                    "decode": {fa.variant(1, H, Hk, hd): L}},
+                prompt=ARCH_PROMPT, decode_steps=ARCH_DECODE, init_s=init_s,
+                ttft_s=prefill_s, prefill_s=prefill_s,
+                tpot_p50_s=float(np.percentile(tp, 50)),
+                tpot_p90_s=float(np.percentile(tp, 90)),
+                tok_s=ARCH_SERVE_BATCH * steps / wall,
+                decode_tok_s=ARCH_SERVE_BATCH * ARCH_DECODE / float(tp.sum()),
+                wall_s=wall, row0_tokens=toks[0].tolist())
+
+
+def phase_arch_serve():
+    """The six archs served on the card at full width, bf16, the depth
+    of ``ARCH_SERVE_DEPTH`` (every expert kept): the paged engine for the
+    dense and vlm archs, the contiguous steps for the moe ones (the
+    paged path refuses a MoE stack, as in the JAX package). Returns the
+    flash kernel's launches."""
+    import torch
+    from repro_torch.configs.base import SystemConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.partition import tree_items
+    from repro_torch.models.lm import LM
+
+    gpu = gpu_line()
+    total = 0
+    for arch, depth in ARCH_SERVE_DEPTH.items():
+        cfg = arch_config(arch, depth)
+        params = sum(d.size() for _, d in tree_items(LM(cfg,
+                                                        SystemConfig()).defs))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        arm = (_arch_contiguous_arm(cfg) if cfg.moe is not None
+               else _arch_paged_arm(cfg))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        total += arm["launches"]
+        emit("arch_serve", arch=arch, layers=depth,
+             layers_full=get_config(arch).num_layers,
+             experts=cfg.moe.num_experts if cfg.moe else None,
+             params=params, weights_gib=params * 2 / 2**30,
+             batch=ARCH_SERVE_BATCH, peak_mem_gib=peak, gpu=gpu, **arm)
+    check_split_counters("arch_serve")
+    return total
+
+
+def arch_train_runs():
+    """Phase arch_train's arms, in ``ARCH_TRAIN_DEPTH`` order: (arch,
+    ModeRun), one fcdp step each of the arch at full width and its cut
+    depth, riding on phase stream_train's spawn."""
+    from repro_torch.launch.train import ModeRun
+    return [(arch, ModeRun("fcdp", model=arch_config(arch, depth)))
+            for arch, depth in ARCH_TRAIN_DEPTH.items()]
+
+
+def phase_arch_train(arms, results):
+    """The dense and vlm archs' train step at full width on phase 5's 4
+    ranks (pod 2, data 2, model 1), seq 512, global batch 8, bf16, one
+    fcdp step each (``results``: every rank's record of each arm, from
+    the stream_train spawn they rode on): finite metrics the ranks agree
+    on, no aux loss, no kernel launched that no plan asks for; reports
+    the loss, the grad norm, the bytes by (op, axis) (gemma's tied table
+    gathered and reduced at both ends of the step), the peak a rank and
+    the step time."""
+    import math
+
+    gpu = gpu_line()
+    for (arch, mr), rs in zip(arms, results):
+        r0 = rs[0]
+        m = r0["metrics"][0]
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"arch_train {arch}: a metric is not finite: {m}")
+        check(all(r["metrics"] == r0["metrics"] for r in rs),
+              f"arch_train {arch}: the ranks disagree on the metrics")
+        check(m["aux_loss"] == 0, f"arch_train {arch}: aux loss "
+              f"{m['aux_loss']}")
+        for r in rs:
+            _launch_checks(f"arch_train {arch}", r)
+        emit("arch_train", arch=arch, layers=mr.model.num_layers,
+             tied=mr.model.tie_embeddings, params=r0["params_total"],
+             seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+             mesh={"pod": 2, "data": 2, "model": 1}, mode=mr.mode,
+             loss=m["loss"], grad_norm=m["grad_norm"],
+             pod_bytes={k: v for k, v in r0["bytes"][0].items()
+                        if k.endswith("/pod")},
+             bytes_per_step=r0["bytes"][0],
+             peak_mem_gib=[r["peak_mem_bytes"] / 2**30 for r in rs],
+             step_s=[r["step_s"][0] for r in rs], gpu=gpu)
+
+
+def arch_parity_runs():
+    """Phase arch_parity's train runs: one fcdp step in fp32 of each new
+    arch's smoke config, riding on train_parity's jobs."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.train import ModeRun
+    return [ModeRun("fcdp", dtype="float32", model=get_smoke_config(a))
+            for a in ARCH_SERVE_DEPTH]
+
+
+def phase_arch_parity(got):
+    """Card against CPU for the six archs: their smoke configs' fcdp step
+    at (2, 2, 1) in fp32 (``got``: {device: rank 0's records} of
+    ``arch_parity_runs`` on train_parity's jobs; loss, aux loss and grad
+    norm within the step tolerances, the same bytes), then gemma-2b and
+    kimi-k2 (8 of its experts) at full width, depth 1, through the
+    contiguous serve steps in bf16 (``contiguous_parity``: the card's
+    kernels, hd 256 and 112, against the CPU's plain versions)."""
+    from repro_torch.configs.registry import get_smoke_config
+    report = {}
+    for arch, g, c in zip(ARCH_SERVE_DEPTH, got["cuda"], got["cpu"]):
+        name = get_smoke_config(arch).name
+        mg, mc = g["metrics"][0], c["metrics"][0]
+        check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
+              f"{name}: card loss {mg['loss']} != CPU {mc['loss']}")
+        check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
+              f"{name}: card grad norm {mg['grad_norm']} != CPU "
+              f"{mc['grad_norm']}")
+        check(abs(mg["aux_loss"] - mc["aux_loss"])
+              <= AUX_RTOL * abs(mc["aux_loss"]),
+              f"{name}: card aux loss {mg['aux_loss']} != CPU "
+              f"{mc['aux_loss']}")
+        check(g["bytes"] == c["bytes"],
+              f"{name}: card and CPU moved different bytes")
+        report[name] = {
+            "loss": {"cuda": mg["loss"], "cpu": mc["loss"]},
+            "aux_loss": {"cuda": mg["aux_loss"], "cpu": mc["aux_loss"]},
+            "grad_norm": {"cuda": mg["grad_norm"], "cpu": mc["grad_norm"]},
+            "bytes": g["bytes"][0]}
+    emit("arch_parity", part="train", dtype="float32",
+         mesh={"pod": 2, "data": 2, "model": 1}, runs=report)
+    contiguous_parity("arch_parity", arch_config("gemma-2b", 1),
+                      ARCH_PARITY)
+    contiguous_parity("arch_parity", arch_config("kimi-k2-1t-a32b", 1,
+                                                 ARCH_PARITY_EXPERTS),
+                      ARCH_PARITY)
+
+
 def main() -> int:
     try:
         import torch
@@ -3598,6 +4045,7 @@ def main() -> int:
     mm_main, mm_extra = phase_mm_kernels()
     wkv_prefill, wkv_decode = phase_wkv_kernels()
     scan_prefill, scan_decode = phase_mamba_kernels()
+    flash_arch = phase_arch_kernels()
     launches = phase_serve()
     phase_profile()
     phase_parity()
@@ -3605,6 +4053,7 @@ def main() -> int:
     phase_rwkv_parity()
     jamba_launches = phase_jamba_serve()
     phase_jamba_parity()
+    arch_launches = phase_arch_serve()
     train_launches, train_fcdp_bytes, dense_ckpt = phase_train()
     family_parity = phase_train_parity()
     peft_launches, peft_restart = phase_peft_train(train_fcdp_bytes)
@@ -3616,17 +4065,23 @@ def main() -> int:
     sched_launches = phase_sched_train(train_fcdp_bytes)
     phase_sched_parity(tp2_parity["sched"])
     family_arms = family_runs()
+    arch_arms = arch_train_runs()
     cache = cache_runs()
     stream_launches, extra, stream_ranks, stream_wall = phase_stream_train(
-        [mr for _, _, mr in family_arms] + cache, task=_cache_task)
-    family_results, cache_results = (extra[:len(family_arms)],
-                                     extra[len(family_arms):])
+        [mr for _, _, mr in family_arms] + [mr for _, mr in arch_arms]
+        + cache, task=_cache_task)
+    n_fam, n_arch = len(family_arms), len(arch_arms)
+    family_results, arch_results, cache_results = (
+        extra[:n_fam], extra[n_fam:n_fam + n_arch], extra[n_fam + n_arch:])
     phase_stream_parity(tp2_parity["stream"])
     cache_launches = phase_cache_train(cache_results, stream_ranks,
                                        stream_wall)
     family_launches, scan_adjoint = phase_family_train(family_arms,
                                                        family_results)
     phase_family_parity(family_parity)
+    phase_arch_train(arch_arms, arch_results)
+    phase_arch_parity({dev: rs[len(FAMILY_PARITY_MODELS):]
+                       for dev, rs in family_parity.items()})
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
@@ -3638,11 +4093,14 @@ def main() -> int:
     kernels = {"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
-        "launches": launches + cache_launches["flash_attention"],
+        "launches": launches + cache_launches["flash_attention"]
+        + arch_launches,
         **entry(prefill), "shape": "prefill_chunk",
         "decode": entry(decode),
         "jamba_launches": jamba_launches["flash_attention"],
-        "jamba_shapes": {n: entry(c) for n, c in flash_jamba.items()}}] + [{
+        "jamba_shapes": {n: entry(c) for n, c in flash_jamba.items()},
+        "arch_launches": arch_launches,
+        "arch_shapes": {n: entry(c) for n, c in flash_arch.items()}}] + [{
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
             "replaces": QUANT_TPU_KERNELS[k],
             "launches": train_launches[k] + peft_launches[k]

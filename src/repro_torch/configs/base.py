@@ -48,7 +48,7 @@ class RWKVConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid
+    family: str                 # dense | moe | ssm | hybrid | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -60,12 +60,17 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    # the head is the embedding table's transpose (no ``head`` leaf)
+    tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
     # hybrid (jamba): within each period, which positions are attention
     hybrid_period: int = 0           # 0 -> not hybrid
     hybrid_attn_positions: Tuple[int, ...] = ()
+    # vlm: the VQ image tokenizer is a stub, inputs are token ids over
+    # the unified vocabulary; "vq_image" gives attention its qk-norm
+    frontend: str = "none"           # none | vq_image
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

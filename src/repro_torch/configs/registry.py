@@ -1,6 +1,9 @@
-"""Architecture registry: --arch <id> resolution. The port has
-qwen2.5-3b (dense), rwkv6-3b (ssm) and jamba-v0.1-52b (hybrid); the
-other archs of the JAX package follow with their families."""
+"""Architecture registry: --arch <id> resolution. The port has the nine
+decoder-only archs of the JAX package, in its order: qwen2.5-3b,
+gemma-2b, granite-3-8b and yi-34b (dense), kimi-k2-1t-a32b and
+llama4-maverick-400b-a17b (moe), chameleon-34b (vlm), rwkv6-3b (ssm)
+and jamba-v0.1-52b (hybrid); seamless-m4t-medium (encdec) is not
+ported yet."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +13,12 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "gemma-2b": "gemma_2b",
+    "granite-3-8b": "granite_3_8b",
+    "yi-34b": "yi_34b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "chameleon-34b": "chameleon_34b",
     "rwkv6-3b": "rwkv6_3b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
 }

@@ -1,0 +1,17 @@
+"""yi-34b [dense]: 60L d_model=7168 56H (GQA kv=8) d_ff=20480
+vocab=64000 -- llama-arch GQA. [arXiv:2403.04652; hf]
+56 heads pad to 64 for tp=16 (padded heads masked, zero-init)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b", family="dense",
+    num_layers=60, d_model=7168, num_heads=56, num_kv_heads=8,
+    d_ff=20480, vocab_size=64000, head_dim=128,
+    act="swiglu", qkv_bias=False, rope_theta=5_000_000.0,
+    norm_eps=1e-5)
+
+SMOKE = ModelConfig(
+    name="yi-smoke", family="dense",
+    num_layers=2, d_model=64, num_heads=6, num_kv_heads=2,  # pad 6->8
+    d_ff=128, vocab_size=512, head_dim=16,
+    act="swiglu")

@@ -49,17 +49,22 @@
 //     splits wholly past the causal offset load nothing, and the last CTA
 //     of each (b, kv head) merges the splits' (m, l, acc) in the same
 //     launch (see the section below);
-//   - everything else (short queries, hd 16/32, larger GQA groups): one
+//   - everything else (short queries, hd 16/32/112/256, larger GQA
+//     groups; decode at hd 112 and 256 with one live row of 64): one
 //     thread block per (q tile, head, batch row), a loop inside the block
 //     walks the kv tiles (the TPU grid's sequential minor axis); Q/K/V
 //     tiles in padded shared memory, m/l/acc in fp32 registers; both
 //     products on mma.sync m16n8k16; four warps per block, 16 query rows
-//     each.
+//     each. At hd 256 (gemma) a warp's O alone would take 128 registers
+//     a thread, so eight warps share the 64 rows, two to each 16, each
+//     with half of O's columns (both compute the rows' S), and the Q
+//     fragments are read from shared memory at each k16 step instead of
+//     being held (101,376 B of shared memory, opted in).
 // All: masked scores are -1e30 as in the JAX code, and their p is set
 // to exactly 0, so stale or scratch KV rows (finite) contribute nothing;
 // P is rounded to bf16 for the P.V product, the one place these kernels
-// round where the TPU kernel does not. Not yet done: other head dims and
-// dtypes in the prefill and decode variants.
+// round where the TPU kernel does not. Not yet done: other head dims
+// (112, 256) and dtypes in the prefill and decode variants.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,8 +75,14 @@
 namespace {
 
 constexpr int BK = 64;               // keys per kv tile
-constexpr int NW = 4;                // warps per block
-constexpr int BQ = 16 * NW;          // query rows per block, 16 per warp
+constexpr int NW = 4;                // 16-row groups per block
+constexpr int BQ = 16 * NW;          // query rows per block
+// warps per 16-row group: past hd 128 two warps share a group's rows,
+// each holding half of O's columns (at hd 256 a whole row of O would take
+// 128 registers a thread and spill); both compute the group's S
+__host__ __device__ constexpr int mma_wpr(int hd) {
+  return hd > 128 ? 2 : 1;
+}
 constexpr float NEG_INF = -1e30f;    // the JAX code's mask value
 
 __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
@@ -99,8 +110,23 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// the m16n8k16 A fragment of rows r0 and r0 + 8, k16 step ks, of a Q tile
+// in shared memory with row stride LD
+template <int LD>
+__device__ __forceinline__ void q_frag(const __nv_bfloat16* Qs, int r0,
+                                       int ks, int t4, uint32_t (&f)[4]) {
+  const __nv_bfloat16* p0 = Qs + r0 * LD + ks * 16 + t4 * 2;
+  const __nv_bfloat16* p1 = p0 + 8 * LD;
+  f[0] = ld32(p0);
+  f[1] = ld32(p1);
+  f[2] = ld32(p0 + 8);
+  f[3] = ld32(p1 + 8);
+}
+
+// One block an SM is all the launch bound promises: without it ptxas
+// aims at more and spills at hd 16 and 112 (nvcc -Xptxas -v).
 template <int HD>
-__global__ void __launch_bounds__(NW * 32)
+__global__ void __launch_bounds__(NW * 32 * mma_wpr(HD), 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -108,11 +134,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ out,
                  int Sq, int Skv, int H, int Hk, int causal, float scale) {
   constexpr int LD = HD + 8;         // shared-memory row stride (elements)
+  constexpr int WPR = mma_wpr(HD);
   constexpr int NT_S = BK / 8;       // n8 tiles of a warp's S block
-  constexpr int NT_O = HD / 8;       // n8 tiles of a warp's O block
+  constexpr int NT_O = HD / 8 / WPR; // n8 tiles of a warp's O block
   constexpr int KS = HD / 16;        // k16 steps over hd
   constexpr int VPR = HD / 8;        // 16-byte vectors per row
-  constexpr int NTHR = NW * 32;
+  constexpr int NTHR = NW * WPR * 32;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -122,6 +149,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;   // mma group / thread in group
+  const int rg = warp / WPR;                // this warp's 16-row group
+  const int col0 = (warp % WPR) * NT_O * 8; // its first column of O
   const int q_start = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -146,18 +175,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  // this warp's 16 query rows as mma A fragments, held for the whole loop
-  const int r0 = warp * 16 + g;             // rows r0 and r0 + 8
-  const bool live = q_start + warp * 16 < Sq;   // warp-uniform
-  uint32_t qf[KS][4];
+  // this warp's 16 query rows as mma A fragments: held in registers for
+  // the whole loop up to hd 128; at hd 256 they would take 64 registers
+  // beside O's and S's, so each k16 step reads its fragment from the Q
+  // tile in shared memory again (8 KB a warp a kv tile, against the 32 KB
+  // of K it reads there)
+  const int r0 = rg * 16 + g;               // rows r0 and r0 + 8
+  const bool live = q_start + rg * 16 < Sq; // warp-uniform
+  constexpr bool Q_IN_REGS = HD <= 128;
+  [[maybe_unused]] uint32_t qf[Q_IN_REGS ? KS : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* p0 = Qs + r0 * LD + ks * 16 + t4 * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * LD;
-    qf[ks][0] = ld32(p0);
-    qf[ks][1] = ld32(p1);
-    qf[ks][2] = ld32(p0 + 8);
-    qf[ks][3] = ld32(p1 + 8);
+    for (int ks = 0; ks < KS; ++ks) q_frag<LD>(Qs, r0, ks, t4, qf[ks]);
   }
 
   float o[NT_O][4];
@@ -196,15 +225,27 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     if (!live) continue;                    // still meets every barrier
 
-    // S = Q K^T for this warp's 16 rows x BK keys
+    // S = Q K^T for this warp's 16 rows x BK keys, k16 steps outermost
+    // (one Q fragment at a time when it is read from shared memory)
     float s[NT_S][4];
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+    for (int nt = 0; nt < NT_S; ++nt)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      if constexpr (Q_IN_REGS) {
+        a[0] = qf[ks][0];
+        a[1] = qf[ks][1];
+        a[2] = qf[ks][2];
+        a[3] = qf[ks][3];
+      } else {
+        q_frag<LD>(Qs, r0, ks, t4, a);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT_S; ++nt) {
         const __nv_bfloat16* kr = Ks + (nt * 8 + g) * LD + ks * 16 + t4 * 2;
-        mma_16816(s[nt], qf[ks], ld32(kr), ld32(kr + 8));
+        mma_16816(s[nt], a, ld32(kr), ld32(kr + 8));
       }
     }
 
@@ -262,7 +303,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       a[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int dt = 0; dt < NT_O; ++dt) {
-        const __nv_bfloat16* vr = Vs + (kk * 16 + t4 * 2) * LD + dt * 8 + g;
+        const __nv_bfloat16* vr =
+            Vs + (kk * 16 + t4 * 2) * LD + col0 + dt * 8 + g;
         mma_16816(o[dt], a, pack_bf16(vr[0], vr[LD]),
                   pack_bf16(vr[8 * LD], vr[9 * LD]));
       }
@@ -281,7 +323,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = q_start + r0 + 8 * r;
     if (qi >= Sq) continue;
     __nv_bfloat16* orow =
-        out + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD + t4 * 2;
+        out + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD + col0 +
+        t4 * 2;
 #pragma unroll
     for (int dt = 0; dt < NT_O; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8) =
@@ -826,7 +869,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NW * 32, smem, stream>>>(
+  kern<<<grid, NW * 32 * mma_wpr(HD), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -855,8 +898,14 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, q_offset, out, B, Sq, Skv, H, Hk, causal,
                          scale, s);
+    case 112:
+      return launch<112>(q, k, v, q_offset, out, B, Sq, Skv, H, Hk, causal,
+                          scale, s);
     case 128:
       return launch<128>(q, k, v, q_offset, out, B, Sq, Skv, H, Hk, causal,
+                          scale, s);
+    case 256:
+      return launch<256>(q, k, v, q_offset, out, B, Sq, Skv, H, Hk, causal,
                           scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

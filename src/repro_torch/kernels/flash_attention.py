@@ -13,7 +13,8 @@ of qwen2.5-3b's paged chunks and of jamba's prompts; the decode variant
 (split-KV, one CTA per (key split, kv head, batch row) serving the whole
 GQA group, the splits merged in the same launch) takes Sq 1, hd 64 or
 128 and H / Hk <= 16 -- the decode of both serve paths; everything else
-(Sq 2-63, hd 16/32, larger groups) takes the mma.sync kernel.
+(Sq 2-63, hd 16/32, larger groups, and hd 112 / 256 at every Sq: kimi's
+and gemma's prefill and decode) takes the mma.sync kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 # the decode variant: head dims, the largest GQA group (the m16 tile's
 # rows) and the keys of one split
 SPLIT_HEAD_DIMS = (64, 128)

@@ -1,5 +1,5 @@
-"""Attention sublayer: GQA with qkv bias and RoPE, over the paged KV
-cache (continuous batching), over the contiguous KV cache (the
+"""Attention sublayer: GQA with qkv bias, qk-norm and RoPE, over the
+paged KV cache (continuous batching), over the contiguous KV cache (the
 prefill/decode steps), without a cache, or in training.
 
 The serving branches hand their core to ``kernels.ops.flash_attention``
@@ -35,7 +35,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.common import (SERIAL, TPContext, local_head_mask,
                                        region_vary)
-from repro_torch.models.layers import apply_rope, matmul
+from repro_torch.models.layers import apply_rope, matmul, rms_norm
 
 
 def _write_pages(pool: torch.Tensor, table: torch.Tensor,
@@ -137,9 +137,12 @@ def _add_lora(y, x, lora, name, scale):
 
 
 def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora=None,
-             lora_scale=2.0, tpc: TPContext = SERIAL):
+             lora_scale=2.0, tpc: TPContext = SERIAL, q_norm=None,
+             k_norm=None):
     """q [B,S,H_local,hd] (this rank's q heads), k and v [B,S,KVH,hd],
-    RoPE applied to q and k; the adapter terms go in before RoPE. Where
+    RoPE applied to q and k; the adapter terms go in before RoPE, and so
+    does the qk-norm (chameleon: ``q_norm`` / ``k_norm`` [hd], an
+    RMSNorm of each head's q and k), as in the JAX package. Where
     the region's input meets a 'model'-sharded weight (x and wq, the wq
     adapter's product and its ``lora_b``), its gradient is summed over
     'model' (``region_vary``)."""
@@ -160,10 +163,13 @@ def _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora=None,
                  * lora_scale).to(q.dtype)
     k = _add_lora(k, x, lora, "wk", lora_scale)
     v = _add_lora(v, x, lora, "wv", lora_scale)
-    q = apply_rope(q.reshape(B, S, wq.shape[1] // hd, hd), positions,
-                   cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions,
-                   cfg.rope_theta)
+    q = q.reshape(B, S, wq.shape[1] // hd, hd)
+    k = k.reshape(B, S, cfg.num_kv_heads, hd)
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, cfg.num_kv_heads, hd)
 
 
@@ -199,7 +205,8 @@ def slice_expand_kv(k_all: torch.Tensor, v_all: torch.Tensor, h_local: int,
 def attention_train(x, wq, wk, wv, wo, bq, bk, bv, cfg,
                     positions: torch.Tensor, lora=None,
                     lora_scale: float = 2.0,
-                    tpc: TPContext = SERIAL) -> torch.Tensor:
+                    tpc: TPContext = SERIAL, q_norm=None,
+                    k_norm=None) -> torch.Tensor:
     """Causal self-attention sublayer of the train step, under autograd,
     on this rank's q heads: x: [B, S, D] (the normed input, after
     ``tp_region_in``); wq [D, H_local*hd], wo [H_local*hd, D], wk/wv
@@ -212,7 +219,7 @@ def attention_train(x, wq, wk, wv, wo, bq, bk, bv, cfg,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora,
-                       lora_scale, tpc)
+                       lora_scale, tpc, q_norm, k_norm)
     h_local = q.shape[2]
     padded = h_local * tpc.tp
     if padded % cfg.num_kv_heads:
@@ -232,7 +239,8 @@ def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
                     positions: torch.Tensor,
                     paged_kv: Optional[Tuple] = None,
                     kv_cache: Optional[Tuple] = None, causal: bool = True,
-                    lora=None, lora_scale: float = 2.0):
+                    lora=None, lora_scale: float = 2.0, q_norm=None,
+                    k_norm=None):
     """Full attention sublayer.
 
     x: [B, S, D]. wq: [D, H*hd]; wk/wv: [D, KVH*hd]; wo: [H*hd, D].
@@ -257,7 +265,7 @@ def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
     """
     B, S, D = x.shape
     q, k, v = _project(x, wq, wk, wv, bq, bk, bv, cfg, positions, lora,
-                       lora_scale)
+                       lora_scale, q_norm=q_norm, k_norm=k_norm)
 
     new_cache = None
     if kv_cache is not None:

@@ -69,18 +69,23 @@ def act_fn(name: str):
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
-                 tpc: TPContext = SERIAL) -> torch.Tensor:
+                 tpc: TPContext = SERIAL, scale: float = 1.0
+                 ) -> torch.Tensor:
     """table: [V_local, D], this rank's rows of the vocabulary (all of it
     at tp 1); ids: [B, S] global ids. Ids outside this rank's rows give
     zero rows, and the sum over 'model' puts every row together
-    (``psum_tp``, in the table's type)."""
+    (``psum_tp``, in the table's type). A ``scale`` other than 1
+    multiplies the rows in fp32, then casts back to the table's type."""
     v_local = table.shape[0]
     local = ids - tpc.rank * v_local
     valid = (local >= 0) & (local < v_local)
     x = table[local.clamp(0, v_local - 1)]
     x = torch.where(valid[..., None], x,
                     torch.zeros((), dtype=x.dtype, device=x.device))
-    return psum_tp(x, tpc)
+    x = psum_tp(x, tpc)
+    if scale != 1.0:
+        x = (x.float() * scale).to(table.dtype)
+    return x
 
 
 def _xent_terms(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,11 +1,17 @@
-"""Decoder-only language model of the dense, moe, ssm and hybrid
+"""Decoder-only language model of the dense, moe, ssm, hybrid and vlm
 families: parameter defs, the training loss over this rank's shards, the
 paged serve steps (chunked prefill and decode over the paged KV cache;
-dense) and the contiguous serve steps (prefill and decode over the
-contiguous KV cache and the recurrent state), as the JAX package's
-``models/lm.py`` computes them."""
+dense and vlm) and the contiguous serve steps (prefill and decode over
+the contiguous KV cache and the recurrent state), as the JAX package's
+``models/lm.py`` computes them. The vlm family (chameleon) is a decoder
+over a unified token space: its VQ image frontend is a stub, so its
+inputs are token ids, and its attention has qk-norm. Under
+``tie_embeddings`` (gemma) there is no ``head`` leaf: the head is the
+embedding table's transpose; gemma's embedding is scaled by
+sqrt(d_model)."""
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -21,7 +27,7 @@ from repro_torch.models.layers import (chunked_tp_softmax_xent, embed_lookup,
 
 def layer_plan(cfg: ModelConfig) -> Tuple[List[Tuple[str, ...]], int]:
     """Returns (plan, n_groups). plan[i] = sublayer kinds at position i."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [("attn", "mlp")], cfg.num_layers
     if cfg.family == "moe":
         return [("attn", "moe")], cfg.num_layers
@@ -54,27 +60,44 @@ class LM:
         self.defs = label_tree(self._build_defs())
         # the attention adapters' scale, where the params hold adapters
         self.lora_scale = lora_scale(sys)
+        # the embedding's scale, keyed on the name as in the JAX package
+        self.embed_scale = (math.sqrt(cfg.d_model)
+                            if cfg.name.startswith("gemma") else 1.0)
 
     def _build_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        return {
+        defs = {
             "embed": ParamDef((self.vpad, cfg.d_model), ("tp", "fsdp"),
                               init="embed"),
             "final_norm": ParamDef((cfg.d_model,), ("fsdp",), init="ones"),
             "blocks": stk.stack_defs(stk.group_defs(cfg, self.plan,
                                                     self.tp, self.sys),
                                      self.n_groups),
-            "head": ParamDef((cfg.d_model, self.vpad), ("fsdp", "tp")),
         }
+        if not cfg.tie_embeddings:
+            defs["head"] = ParamDef((cfg.d_model, self.vpad), ("fsdp", "tp"))
+        return defs
 
     # -- shared forward pieces ----------------------------------------------
+    def head_weights(self, params, gather=None) -> torch.Tensor:
+        """The head [D, V_local]: the ``head`` leaf, or under
+        ``tie_embeddings`` the embedding table's transpose. ``gather``
+        (a ``core.fcdp.ParamGather``; None: ``params`` are whole) gathers
+        the leaf from this rank's shards, the tied table a second time,
+        as the JAX package's ``_head_weights`` does."""
+        name = "embed" if self.cfg.tie_embeddings else "head"
+        w = params[name] if gather is None else gather(params[name],
+                                                       gather.plans[name])
+        return w.T if self.cfg.tie_embeddings else w
+
     def _embed(self, params, ids: torch.Tensor) -> torch.Tensor:
-        return embed_lookup(params["embed"], ids).to(self.sys.torch_dtype)
+        return embed_lookup(params["embed"], ids,
+                            scale=self.embed_scale).to(self.sys.torch_dtype)
 
     def _final(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm and logits of x [B, D] -> [B, V]."""
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return x @ params["head"]
+        return x @ self.head_weights(params)
 
     # -- training loss -------------------------------------------------------
     def _segments(self, strategy):
@@ -107,7 +130,8 @@ class LM:
                              f"mesh's 'model' axis is {tpc.tp}")
         ids, labels = batch["ids"], batch["labels"]
         S = ids.shape[1]
-        x = embed_lookup(gather(params["embed"], plans["embed"]), ids, tpc)
+        x = embed_lookup(gather(params["embed"], plans["embed"]), ids, tpc,
+                         self.embed_scale)
         x = x.to(self.sys.torch_dtype)
         positions = torch.arange(S, device=ids.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -120,10 +144,9 @@ class LM:
             aux = aux + a
         x = rms_norm(x, gather(params["final_norm"], plans["final_norm"],
                                torch.float32), cfg.norm_eps)
-        head = gather(params["head"], plans["head"])
         loss_sum, cnt = chunked_tp_softmax_xent(
-            x, head, labels, cfg.vocab_size, self.sys.loss_chunk,
-            batch.get("mask"), tpc)
+            x, self.head_weights(params, gather), labels, cfg.vocab_size,
+            self.sys.loss_chunk, batch.get("mask"), tpc)
         return loss_sum, cnt, aux
 
     # -- serving over the contiguous decode state ----------------------------

@@ -55,6 +55,9 @@ def attn_defs(cfg: ModelConfig, tp: int = 1) -> Dict[str, ParamDef]:
         out["bq"] = ParamDef((qd,), ("tp",), init="zeros")
         out["bk"] = ParamDef((kvd,), (None,), init="zeros")
         out["bv"] = ParamDef((kvd,), (None,), init="zeros")
+    if cfg.frontend == "vq_image":      # chameleon's qk-norm
+        out["q_norm"] = ParamDef((hd,), (None,), init="ones")
+        out["k_norm"] = ParamDef((hd,), (None,), init="ones")
     return out
 
 
@@ -89,8 +92,8 @@ def attn_paged(cfg, p, x, state, positions, table, lora_scale=2.0):
     y, (pk, pv) = attn_mod.attention_block(
         h, p["wq"], p["wk"], p["wv"], p["wo"],
         p.get("bq"), p.get("bk"), p.get("bv"), cfg, positions,
-        paged_kv=(state["k"], state["v"], table),
-        **_lora_kwargs(p, lora_scale))
+        paged_kv=(state["k"], state["v"], table), q_norm=p.get("q_norm"),
+        k_norm=p.get("k_norm"), **_lora_kwargs(p, lora_scale))
     return x + y, {"k": pk, "v": pv}
 
 
@@ -116,6 +119,7 @@ def attn_apply(cfg, p, x, positions, state, lora_scale=2.0):
         h, p["wq"], p["wk"], p["wv"], p["wo"],
         p.get("bq"), p.get("bk"), p.get("bv"), cfg, positions,
         kv_cache=(state["k"], state["v"], state["idx"]),
+        q_norm=p.get("q_norm"), k_norm=p.get("k_norm"),
         **_lora_kwargs(p, lora_scale))
     return x + y, state
 
@@ -133,7 +137,8 @@ def attn_train(cfg, p, x, positions, lora_scale=2.0,
     h = tp_region_in(rms_norm(x, p["norm"], cfg.norm_eps), tpc)
     y = attn_mod.attention_train(
         h, p["wq"], p["wk"], p["wv"], p["wo"], p.get("bq"), p.get("bk"),
-        p.get("bv"), cfg, positions, tpc=tpc, **_lora_kwargs(p, lora_scale))
+        p.get("bv"), cfg, positions, tpc=tpc, q_norm=p.get("q_norm"),
+        k_norm=p.get("k_norm"), **_lora_kwargs(p, lora_scale))
     return x + psum_tp_act(y, tpc)
 
 
@@ -146,17 +151,19 @@ def model_summed(defs: Dict[str, ParamDef], name: str,
     values: the MoE's router (it routes this rank's share of the
     tokens); in attention and the MLP, inside an int8 region every leaf
     but the norm scale, which is read before the region begins, and
-    otherwise only an adapter's ``lora_b`` whose ``lora_a`` is
-    'model'-sharded (the row-parallel projection's adapter, whose
-    product varies). The recurrent mixers' replicated leaves meet only
-    invariant values (their casts are on activations)."""
+    otherwise the qk-norm's ``q_norm`` (it scales this rank's q heads;
+    ``k_norm`` scales k, the same on every rank) and an adapter's
+    ``lora_b`` whose ``lora_a`` is 'model'-sharded (the row-parallel
+    projection's adapter, whose product varies). The recurrent mixers'
+    replicated leaves meet only invariant values (their casts are on
+    activations)."""
     if tpc.tp == 1 or defs[name].tp_dim is not None or name == "norm":
         return False
     if kind == "moe":
         return True
     if kind not in ("attn", "mlp"):
         return False
-    if tpc.int8_act:
+    if tpc.int8_act or name == "q_norm":
         return True
     if name.endswith("_lora_b"):
         a = defs.get(name[:-1] + "a")

@@ -15,7 +15,8 @@ from the port's 8 gloo ranks (each rank's shards cut by
 ``StepBundle.shard`` and ``opt_shards``, independently of the
 checkpointer's blocks), saved by both packages, for fcdp at (2, 2, 2)
 with a padded vocabulary (tp 2), hier at (2, 2, 2) (widened optimizer
-state) and fcdp at (2, 4, 1) (tp 1): equal manifests and byte-equal
+state), fcdp at (2, 4, 1) (tp 1) and gemma-smoke's tied tree (no
+``head`` leaf) under fcdp at (2, 2, 2): equal manifests and byte-equal
 leaf files. Each package restores the other's checkpoint bit for bit:
 the port's restored shards equal its own, and re-saved they equal the
 JAX files byte for byte; the JAX ``Checkpointer.restore`` under
@@ -62,11 +63,16 @@ DENSE = dict(name="t-dense", family="dense", num_layers=2, d_model=64,
 PADDED = dict(DENSE, vocab_size=255)
 SEQ, BATCH = 64, 8
 OPT = dict(total_steps=8, warmup_steps=2, lr=1e-3)
+# gemma-smoke: tied embeddings, no head leaf
+TIED = dict(name="gemma-smoke", family="dense", num_layers=2, d_model=64,
+            num_heads=4, num_kv_heads=1, d_ff=192, vocab_size=512,
+            head_dim=16, act="geglu", tie_embeddings=True)
 # name -> (model, mesh sizes, system knobs): the format-parity configs
 CONFIGS = {
     "fcdp_tp2": (PADDED, (2, 2, 2), dict(mode="fcdp")),
     "hier": (DENSE, (2, 2, 2), dict(mode="hier")),
     "fcdp_tp1": (DENSE, (2, 4, 1), dict(mode="fcdp")),
+    "tied_gemma": (TIED, (2, 2, 2), dict(mode="fcdp")),
 }
 # the carry check: fcdp, streams 2 and 3, microbatch 2, fp32
 CARRY = (DENSE, (2, 2, 2), dict(mode="fcdp", async_grad_reduce=True,

@@ -53,7 +53,7 @@ def test_registry_resolves_only_port_modules():
     assert get_config("qwen2.5-3b").num_layers == 36
     assert get_smoke_config("qwen2.5-3b").head_dim == 16
     with pytest.raises(KeyError):
-        get_config("gemma-2b")
+        get_config("seamless-m4t-medium")
 
 
 def test_serve_entry_point_raises_without_cuda(monkeypatch):
