@@ -118,9 +118,10 @@ non-zero:
                 the card and none on the CPU.
  15. sched_train -- the stage-1 prefetch ring and hier: qwen2.5-3b at
                 full width and depth 2, seq 512, global batch 8, on phase
-                5's 4 ranks: one step each of zero3 at prefetch depth 0
-                (two: the first is the job's warm-up) and 1, fcdp at 0,
-                1 and 2, fcdp at 1 with int8 qwZ/qgZ and
+                5's 4 ranks (riding on its spawn, before its last arm):
+                one step each of zero3 at prefetch depth 0 and 1, fcdp
+                at 1 and 2 (at 0: phase 5's fcdp arm, read there), fcdp
+                at 1 with int8 qwZ/qgZ and
                 with the fused matmul (ag_matmul), mics at 1 (live depth
                 0) and hier. Checks zero3's pod all-gather at depth 1
                 equal to fcdp's and below depth 0's, fcdp's bytes at
@@ -268,6 +269,36 @@ non-zero:
                 through the contiguous steps (a 64-token prompt, batch
                 2, 8 decode steps; the CPU's tokens fed to both, MoE
                 routing as in jamba_parity): logits within 0.1, tokens
+                equal up to near-ties.
+ 27. encdec_kernels -- the flash kernel's non-causal paths at
+                seamless-m4t-medium's serve shapes (hd 64, 16 heads):
+                the encoder's self-attention [8, 136 over 136 keys], the
+                cross-attention's prefill [8, 512 over 136] (mma.sync)
+                and decode [8, 1 over 136] (split-KV, 3 splits), timed
+                (a CUDA graph, host us, the bound, SDPA); untimed, the
+                same with nonzero q_offset (ignored without the mask)
+                and at a GQA group of 2; no spill.
+ 28. encdec_serve -- seamless-m4t-medium at full width and depth (12
+                encoder + 12 decoder layers), bf16, random weights:
+                batch 8, 136 encoder frames, 512-token prompts, 32
+                greedy decode steps through ``make_prefill_step`` (the
+                frames, the prompt) / ``make_decode_step``. Checks the
+                flash launches (36 a prefill, 24 a decode step), finite
+                logits, token ids, the caches; reports prefill time,
+                TPOT, the variants and the peak memory.
+ 29. encdec_train -- seamless-m4t-medium whole (12 + 12 layers), full
+                width, on phase 5's 4 ranks (riding on phase 17's
+                spawn), seq 512, 128 frames, global batch 8, bf16: one
+                step of zero3 and one of fcdp with int8 qwZ/qgZ and
+                ag_matmul. Checks the losses agree (INT8_DRIFT), the
+                int8 and chunk-matmul launches equal the plans, fcdp's
+                pod all-gather below zero3's; reports bytes per (op,
+                axis), peaks and step times.
+ 30. encdec_parity -- card against CPU: the smoke config's fcdp step at
+                (2, 2, 1) in fp32 on phase 6's jobs (loss, grad norm,
+                bytes); then full width, 1 + 1 layers, bf16, through
+                the contiguous steps (the frames, a 64-token prompt,
+                batch 2, 8 decode steps): logits within 0.1, tokens
                 equal up to near-ties.
 
 Each parity phase runs its card and its CPU job side by side.
@@ -1617,19 +1648,32 @@ def contiguous_parity(phase, cfg, cp, draw=None):
     the card's; the card's greedy tokens equal its, up to near-ties
     (top-2 logit margin within the tolerance). The card launches the
     flash and scan kernels once an attention and a Mamba layer a step,
-    the CPU none. Emits the ``phase`` line; returns it."""
+    the CPU none. An encoder-decoder's prefill also takes encoder frames
+    (bf16, drawn on the CPU from seed 3; ``encdec.enc_len`` of them):
+    its encoder and its cross-attentions launch the flash kernel once a
+    layer at prefill, the cross-attentions again once a layer a decode
+    step. Emits the ``phase`` line; returns it."""
     import torch
     from repro_torch.configs.base import RunConfig, ShapeCell
     from repro_torch.core.engine import StepBundle
     from repro_torch.core.partition import tree_map
     from repro_torch.kernels import ops
     from repro_torch.models import sublayers
+    from repro_torch.models.encdec import enc_len
     from repro_torch.models.lm import layer_plan
 
-    run = RunConfig(model=cfg, shape=ShapeCell(
-        phase, "decode", cp["prompt"] + cp["decode"], cp["batch"]))
+    seq = cp["prompt"] + cp["decode"]
+    run = RunConfig(model=cfg, shape=ShapeCell(phase, "decode", seq,
+                                               cp["batch"]))
     cpu, gpu = StepBundle(run, device="cpu"), StepBundle(run)
-    plan, groups = layer_plan(cfg)
+    frames = ()
+    if cfg.num_encoder_layers:
+        plan, groups = [("attn", "mlp")], cfg.num_layers
+        frames = (torch.randn(cp["batch"], enc_len(seq), cfg.d_model,
+                              generator=torch.Generator().manual_seed(3)
+                              ).bfloat16(),)
+    else:
+        plan, groups = layer_plan(cfg)
     n_moe = groups * sum(k[1] == "moe" for k in plan)
     check(n_moe <= 1, f"{phase}: {n_moe} MoE layers (at most 1)")
     t0 = time.perf_counter()
@@ -1651,8 +1695,9 @@ def contiguous_parity(phase, cfg, cp, draw=None):
         launches = (ops.mamba_scan.launches, ops.flash_attention.launches)
         t0 = time.perf_counter()
         try:
-            logits, state = b.make_prefill_step()(p, ids.to(b.device),
-                                                  b.init_state())
+            logits, state = b.make_prefill_step()(
+                p, *(f.to(b.device) for f in frames), ids.to(b.device),
+                b.init_state())
             steps = [logits.float().cpu()]
             dec = b.make_decode_step()
             toks = [torch.argmax(logits, dim=-1).cpu()]
@@ -1724,6 +1769,8 @@ def contiguous_parity(phase, cfg, cp, draw=None):
     steps = 1 + cp["decode"]
     want = tuple(groups * sum(k[0] == kind for k in plan) * steps
                  for kind in ("mamba", "attn"))
+    if frames:      # the encoder's, then a cross-attention a layer a step
+        want = (0, want[1] + cfg.num_encoder_layers + groups * steps)
     check(ng == want and nc == (0, 0),
           f"{phase}: launches (scan, attention): card {ng}, expected {want}; "
           f"CPU {nc}")
@@ -1987,8 +2034,12 @@ def spawn_card_and_cpu(make_job, timeout_s=300):
     return out
 
 
-def phase_train():
-    """The train path at full width, depth 2, 4 ranks on the card."""
+def phase_train(extra=()):
+    """The train path at full width, depth 2, 4 ranks on the card. The
+    ``extra`` runs (phase sched_train's) ride on the same ranks before
+    the last arm, whose state the checkpoint task takes; returns (the
+    launches, fcdp's bytes, the task's results, every rank's record of
+    each extra run, every rank's fcdp record)."""
     import math
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import ModeRun, spawn
@@ -1999,13 +2050,19 @@ def phase_train():
             ModeRun("fcdp", "int8_pod", "int8_pod"),
             ModeRun("fcdp", fused_matmul="ag_matmul"),
             ModeRun("fcdp", fused_matmul="both")]
-    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, runs,
+    n = len(runs) - 1
+    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                     runs[:n] + list(extra) + runs[n:],
                      task=_dense_ckpt_task, keep_last=True)
     t0 = time.perf_counter()
     ranks = spawn(job, timeout_s=900)
     wall = time.perf_counter() - t0
-    by = {_run_key(r["run"]): [rk["runs"][i] for rk in ranks]
-          for i, r in enumerate(ranks[0]["runs"])}
+    idx = list(range(n)) + [n + len(extra)]
+    by = {_run_key(ranks[0]["runs"][i]["run"]): [rk["runs"][i]
+                                                 for rk in ranks]
+          for i in idx}
+    extra_results = [[rk["runs"][n + j] for rk in ranks]
+                     for j in range(len(extra))]
     check(all(rk["backend"] == "gloo" for rk in ranks),
           "4 ranks on one card must talk through gloo")
     summary = {}
@@ -2070,8 +2127,10 @@ def phase_train():
          layers_full=get_config("qwen2.5-3b").num_layers,
          seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
          backend=ranks[0]["backend"], wall_s=wall,
+         spawn_shared_with="sched_train",
          kernel_launches_total=launches, fused=fused, modes=summary)
-    return launches, fc["bytes_per_step"], [rk["task"] for rk in ranks]
+    return (launches, fc["bytes_per_step"], [rk["task"] for rk in ranks],
+            extra_results, by["fcdp"])
 
 
 # the checkpoints of the restart phase: under the checkout (gitignored),
@@ -2324,8 +2383,9 @@ def phase_train_parity():
 
     runs = [ModeRun("fcdp", "int8_pod", "int8_pod", dtype="float32"),
             ModeRun("fcdp", fused_matmul="ag_matmul", dtype="float32")]
-    # phase family_parity's and phase arch_parity's, checked there
-    runs += family_parity_runs() + arch_parity_runs()
+    # phase family_parity's, arch_parity's and encdec_parity's, checked
+    # there
+    runs += family_parity_runs() + arch_parity_runs() + encdec_parity_runs()
     out = spawn_card_and_cpu(
         lambda dev: _train_job(get_smoke_config("qwen2.5-3b"), 64, 8, runs,
                                dtype="float32", device=dev, draw_device="cpu"))
@@ -2740,9 +2800,10 @@ def phase_tp_parity(out):
 # -- phases 15 and 16: the stage-1 prefetch ring and hier --------------------------
 
 # zero3_d0 runs first and takes 2 steps: its step 0 pays the job's
-# warm-up (cuBLAS, the allocator), step 1 is the time to compare
-SCHED_RUNS = (("zero3_d0", dict(mode="zero3", steps=2)),
-              ("fcdp_d0", dict(mode="fcdp")),
+# they ride on phase train's spawn (warm: its zero3 arm took the
+# cuBLAS and allocator warm-up); fcdp at depth 0 is phase train's fcdp
+# arm, the same run on the same ranks, read there
+SCHED_RUNS = (("zero3_d0", dict(mode="zero3")),
               ("zero3_d1", dict(mode="zero3", prefetch_depth=1)),
               ("fcdp_d1", dict(mode="fcdp", prefetch_depth=1)),
               ("fcdp_d2", dict(mode="fcdp", prefetch_depth=2)),
@@ -2769,26 +2830,29 @@ def _sched_checks(name, rs, depth):
               f"prefetch_buffer_bytes {r['prefetch_buffer_bytes']}")
 
 
-def phase_sched_train(train_fcdp_bytes):
+def sched_runs():
+    """Phase sched_train's runs, in ``SCHED_RUNS`` order, riding on phase
+    train's spawn."""
+    from repro_torch.launch.train import ModeRun
+    return [ModeRun(**kw) for _, kw in SCHED_RUNS]
+
+
+def phase_sched_train(train_fcdp_bytes, results, fcdp):
     """The stage-1 prefetch ring and hier on the train path: qwen2.5-3b
     at full width, depth 2, seq 512, global batch 8, on phase train's 4
     ranks (pod 2, data 2) sharing the card, a step of each of
-    ``SCHED_RUNS`` (two of the first)."""
+    ``SCHED_RUNS`` (``results``: every rank's record of each, from phase
+    train's spawn) and of fcdp at depth 0 (``fcdp``: phase train's
+    arm)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.train import ModeRun, spawn
 
     cfg = dataclasses.replace(get_config("qwen2.5-3b"),
                               num_layers=TRAIN_DEPTH)
-    job = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH,
-                     [ModeRun(**kw) for _, kw in SCHED_RUNS])
-    t0 = time.perf_counter()
-    ranks = spawn(job, timeout_s=900)
-    wall = time.perf_counter() - t0
-    by = {name: [rk["runs"][i] for rk in ranks]
-          for i, (name, _) in enumerate(SCHED_RUNS)}
+    by = {name: rs for (name, _), rs in zip(SCHED_RUNS, results)}
+    kws = dict(SCHED_RUNS, fcdp_d0=dict(mode="fcdp"))
     summary = {}
-    for name, kw in SCHED_RUNS:
-        rs = by[name]
+    for name, kw in kws.items():
+        rs = by[name] if name != "fcdp_d0" else fcdp
         streams = kw["mode"] not in ("mics", "hier")
         _sched_checks(name, rs, min(kw.get("prefetch_depth", 0),
                                     TRAIN_DEPTH) if streams else 0)
@@ -2849,8 +2913,9 @@ def phase_sched_train(train_fcdp_bytes):
     launches["matmul_chunk"] = sum(sum(r["mm_launches"])
                                    for rs in by.values() for r in rs)
     emit("sched_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
-         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, mesh=job.mesh.shape,
-         backend=ranks[0]["backend"], wall_s=wall,
+         seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+         mesh={"pod": 2, "data": 2, "model": 1},
+         spawn_shared_with="train", fcdp_d0_from="train",
          kernel_launches_total=launches, runs=summary)
     return launches
 
@@ -2979,8 +3044,9 @@ def phase_stream_train(extra=(), task=None):
     """The scheduler's streams 2 and 3 on the train path: qwen2.5-3b at
     full width, depth 2, seq 512, global batch 8, on phase train's 4
     ranks (pod 2, data 2) sharing the card, microbatch 2:
-    ``STREAM_RUNS``. The ``extra`` runs (phase family_train's arms,
-    each with its own model, and phase cache_train's) and the job's
+    ``STREAM_RUNS``. The ``extra`` runs (the arms of phases
+    family_train, arch_train and encdec_train, each with its own model,
+    and phase cache_train's) and the job's
     ``task`` (cache_train's) ride on the same ranks after them, which
     spares spawns; returns (the launches, every rank's record of each
     extra run, every rank's result, the spawn's wall seconds)."""
@@ -3075,7 +3141,8 @@ def phase_stream_train(extra=(), task=None):
     emit("stream_train", model=cfg.name, layers_cut_to=TRAIN_DEPTH,
          seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, microbatch=STREAM_MB,
          mesh=job.mesh.shape, backend=ranks[0]["backend"], wall_s=wall,
-         spawn_shared_with=["family_train", "arch_train", "cache_train"],
+         spawn_shared_with=["family_train", "arch_train", "encdec_train",
+                            "cache_train"],
          kernel_launches_total=launches, runs=summary)
     n = len(STREAM_RUNS)
     return (launches, [[rk["runs"][n + j] for rk in ranks]
@@ -4011,6 +4078,294 @@ def phase_arch_parity(got):
                       ARCH_PARITY)
 
 
+# -- seamless-m4t-medium, the encoder-decoder -------------------------------
+
+ENCDEC = "seamless-m4t-medium"
+# the serve cell: batch 8, 512-token prompts and 32 greedy decode steps
+# in a cache of 544 positions, 136 encoder frames (encdec.enc_len)
+ENCDEC_SERVE_BATCH, ENCDEC_PROMPT, ENCDEC_DECODE = 8, 512, 32
+# the train arms, whole (12 + 12 layers), on stream_train's 4 ranks
+ENCDEC_TRAIN_RUNS = (
+    ("zero3", dict(mode="zero3")),
+    ("fcdp_q8_ag", dict(mode="fcdp", param_compress="int8_pod",
+                        grad_compress="int8_pod", fused_matmul="ag_matmul")))
+# card against CPU through the contiguous steps at full width, 1 + 1
+# layers
+ENCDEC_PARITY = dict(batch=2, prompt=64, decode=8, logit_tol=0.1)
+
+
+def encdec_config(layers=None):
+    """seamless-m4t-medium at full width; with ``layers``, that many
+    encoder and decoder layers each."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(ENCDEC)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               num_encoder_layers=layers)
+
+
+def phase_encdec_kernels():
+    """The flash kernel's non-causal paths at seamless-m4t-medium's serve
+    shapes (hd 64, 16 heads on 16 kv heads), against its plain version,
+    timed (a CUDA graph, host us, the bound, SDPA): the encoder's
+    self-attention [8, 136 over 136] and the cross-attention's prefill
+    [8, 512 over 136] (the mma.sync kernel: q tiles past the 136 keys,
+    whose last tile of 64 is ragged, bounded by the key count alone) and
+    decode [8, 1 over 136] (the split-KV kernel, three splits, the last
+    one ragged). Then, untimed, the same non-causal calls with nonzero
+    ``q_offset`` (ignored without the mask) and at a GQA group of 2.
+    nvcc's report of each case's kernel must show no spill."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.encdec import enc_len
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    B, S = ENCDEC_SERVE_BATCH, ENCDEC_PROMPT
+    F = enc_len(ENCDEC_PROMPT + ENCDEC_DECODE)
+    zeros = [0] * B
+    offs = torch.randint(1, 500, (B,), generator=gen, device="cuda").tolist()
+    cases = {
+        "encoder": kernel_case("encdec_encoder", B, F, F, 16, 16, 64, zeros,
+                               False, gen, timed=True),
+        "cross_prefill": kernel_case("encdec_cross_prefill", B, S, F, 16,
+                                     16, 64, zeros, False, gen, timed=True),
+        "cross_decode": kernel_case("encdec_cross_decode", B, 1, F, 16, 16,
+                                    64, zeros, False, gen, timed=True)}
+    others = [
+        kernel_case("encdec_cross_prefill_offsets", B, S, F, 16, 16, 64,
+                    offs, False, gen),
+        kernel_case("encdec_cross_decode_offsets", B, 1, F, 16, 16, 64,
+                    offs, False, gen),
+        kernel_case("encdec_cross_prefill_gqa2", B, S, F, 16, 8, 64, zeros,
+                    False, gen),
+        kernel_case("encdec_cross_decode_gqa2", B, 1, F, 16, 8, 64, offs,
+                    False, gen)]
+    want = {"encoder": "mma", "cross_prefill": "mma", "cross_decode": "split"}
+    for name, c in cases.items():
+        check(c["variant"] == want[name],
+              f"{c['case']}: variant {c['variant']}")
+    check(cases["cross_decode"]["splits"] == -(-F // fa.KEYS_PER_SPLIT) == 3,
+          f"encdec cross decode: {cases['cross_decode']['splits']} splits")
+    for c in list(cases.values()) + others:
+        check(c["ptxas"].get("spill_bytes") == 0,
+              f"{c['case']}: {c['ptxas']['kernel']} spills "
+              f"({c['ptxas'].get('spill_bytes')} bytes)")
+        emit("encdec_kernels", **c)
+    return cases
+
+
+def phase_encdec_serve():
+    """seamless-m4t-medium served at full width and depth (12 encoder and
+    12 decoder layers), bf16, random weights from seed 0, through
+    ``StepBundle.make_prefill_step`` (the encoder frames, bf16, drawn
+    from seed 2) and ``make_decode_step``: batch 8, 512-token prompts,
+    32 greedy decode steps. Checks the flash launches (a prefill: 12 in
+    the encoder, non-causal; 12 causal self-attentions; 12
+    cross-attentions; a decode step: 24), the variant of each, finite
+    logits, token ids in the vocabulary, every self-attention cache's
+    idx; reports the prefill time, TPOT, tokens/s and the peak memory.
+    Returns the flash launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.core.engine import StepBundle
+    from repro_torch.core.partition import tree_items
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.models.encdec import enc_len
+
+    cfg = encdec_config()
+    B, S, D = ENCDEC_SERVE_BATCH, ENCDEC_PROMPT, ENCDEC_DECODE
+    max_len = S + D
+    F = enc_len(max_len)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = StepBundle(RunConfig(model=cfg, shape=ShapeCell(
+        "encdec_serve", "decode", max_len, B)))
+    t0 = time.perf_counter()
+    params = bundle.init_all_params(seed=0)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    frames = torch.randn(B, F, cfg.d_model, generator=g,
+                         device="cuda").bfloat16()
+    ids = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                        device="cuda")
+    prefill, decode = bundle.make_prefill_step(), bundle.make_decode_step()
+    pick = bundle.make_greedy_pick()
+    state = bundle.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, state = prefill(params, frames, ids, state)
+    tok = pick(logits)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.flash_attention.launches
+    finite, tokens, tpot = [torch.isfinite(logits).all()], [tok], []
+    for _ in range(D):
+        t1 = time.perf_counter()
+        logits, state = decode(params, tok[:, None], state)
+        tok = pick(logits)
+        torch.cuda.synchronize()
+        tpot.append(time.perf_counter() - t1)
+        finite.append(torch.isfinite(logits).all())
+        tokens.append(tok)
+    wall = time.perf_counter() - t0
+    launches = ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_enc, n_dec = cfg.num_encoder_layers, cfg.num_layers
+    check(prefill_launches == n_enc + 2 * n_dec,
+          f"encdec_serve: the prefill launched flash {prefill_launches} "
+          f"times, expected {n_enc} + 2 x {n_dec}")
+    check(launches == prefill_launches + 2 * n_dec * D,
+          f"encdec_serve: flash launched {launches} times, expected "
+          f"{prefill_launches} + 2 x {n_dec} x {D}")
+    check(all(bool(f.item()) for f in finite),
+          "encdec_serve: a logit is not finite")
+    toks = torch.stack(tokens, dim=1).cpu()
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all().item()),
+          "encdec_serve: a token id lies outside the vocabulary")
+    idx = state["pos0"]["attn"]["idx"].tolist()
+    check(idx == [max_len] * n_dec, f"encdec_serve: KV cache idx {idx}")
+    xk = state["pos0"]["xattn"]["k"]
+    check(tuple(xk.shape) == (n_dec, B, F, cfg.num_kv_heads, 64)
+          and xk.dtype == torch.bfloat16,
+          f"encdec_serve: cross-attention state {tuple(xk.shape)} "
+          f"{xk.dtype}")
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    variants = {"prefill": {"encoder": fa.variant(F, H, Hk, hd),
+                            "self": fa.variant(S, H, Hk, hd),
+                            "cross": fa.variant(S, H, Hk, hd)},
+                "decode": {"self": fa.variant(1, H, Hk, hd),
+                           "cross": fa.variant(1, H, Hk, hd)}}
+    n_params = sum(d.size() for _, d in tree_items(bundle.defs))
+    tp = np.asarray(tpot)
+    emit("encdec_serve", arch=ENCDEC, encoder_layers=n_enc,
+         decoder_layers=n_dec, params=n_params,
+         weights_gib=n_params * 2 / 2**30, batch=B, prompt=S,
+         decode_steps=D, enc_frames=F, init_s=init_s, prefill_s=prefill_s,
+         tpot_p50_s=float(np.percentile(tp, 50)),
+         tpot_p90_s=float(np.percentile(tp, 90)),
+         decode_tok_s=B * D / float(tp.sum()), wall_s=wall,
+         launches=launches, prefill_launches=prefill_launches,
+         variants=variants, peak_mem_gib=peak,
+         row0_tokens=toks[0].tolist(), gpu=gpu_line())
+    check_split_counters("encdec_serve")
+    del params, state, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encdec_train_runs():
+    """Phase encdec_train's arms, in ``ENCDEC_TRAIN_RUNS`` order: (arm,
+    ModeRun), seamless-m4t-medium whole, riding on phase stream_train's
+    spawn."""
+    from repro_torch.launch.train import ModeRun
+    cfg = encdec_config()
+    return [(name, ModeRun(model=cfg, **kw))
+            for name, kw in ENCDEC_TRAIN_RUNS]
+
+
+def phase_encdec_train(arms, results):
+    """seamless-m4t-medium's train step at full width and depth (12 + 12
+    layers) on phase 5's 4 ranks (pod 2, data 2, model 1), seq 512
+    (128 encoder frames), global batch 8, bf16: zero3, and fcdp with
+    int8 qwZ/qgZ and ag_matmul (``results``: every rank's record of
+    each, from the stream_train spawn they rode on). Checks finite
+    metrics the ranks agree on, no aux loss, the fcdp arm's loss within
+    INT8_DRIFT of zero3's, every rank's int8 and chunk-matmul launches
+    equal to the plans (no plain call), and fcdp's pod all-gather below
+    zero3's; reports the bytes by (op, axis), the peaks and the step
+    times. Returns the kernels' launches."""
+    import math
+
+    from repro_torch.models.encdec import enc_len
+    gpu = gpu_line()
+    launches = {k: 0 for k in QUANT_NAMES}
+    launches["matmul_chunk"] = 0
+    by = {}
+    for (name, mr), rs in zip(arms, results):
+        by[name] = rs
+        r0 = rs[0]
+        m = r0["metrics"][0]
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"encdec_train {name}: a metric is not finite: {m}")
+        check(all(r["metrics"] == r0["metrics"] for r in rs),
+              f"encdec_train {name}: the ranks disagree on the metrics")
+        check(m["aux_loss"] == 0, f"encdec_train {name}: aux loss "
+              f"{m['aux_loss']}")
+        for r in rs:
+            _launch_checks(f"encdec_train {name}", r)
+        for k in QUANT_NAMES:
+            launches[k] += sum(s[k] for r in rs for s in r["launches"])
+        launches["matmul_chunk"] += sum(sum(r["mm_launches"]) for r in rs)
+        emit("encdec_train", arch=ENCDEC, arm=name,
+             encoder_layers=mr.model.num_encoder_layers,
+             decoder_layers=mr.model.num_layers, params=r0["params_total"],
+             seq=TRAIN_SEQ, enc_frames=enc_len(TRAIN_SEQ),
+             global_batch=TRAIN_BATCH,
+             mesh={"pod": 2, "data": 2, "model": 1}, loss=m["loss"],
+             grad_norm=m["grad_norm"],
+             pod_bytes={k: v for k, v in r0["bytes"][0].items()
+                        if k.endswith("/pod")},
+             bytes_per_step=r0["bytes"][0],
+             peak_mem_gib=[r["peak_mem_bytes"] / 2**30 for r in rs],
+             step_s=[r["step_s"][0] for r in rs],
+             int8_launches=r0["launches"][0], int8_plan=r0["int8_plan"],
+             matmul_chunk_launches=r0["mm_launches"][0],
+             matmul_chunk_plan=r0["mm_plan"], gpu=gpu)
+    z3, q8 = by["zero3"][0], by["fcdp_q8_ag"][0]
+    check(_rel(q8["metrics"][0]["loss"], z3["metrics"][0]["loss"])
+          <= INT8_DRIFT, f"encdec_train: fcdp_q8_ag loss "
+          f"{q8['metrics'][0]['loss']} drifts from zero3's "
+          f"{z3['metrics'][0]['loss']}")
+    check(all(v > 0 for v in q8["launches"][0].values())
+          and q8["mm_launches"][0] > 0,
+          "encdec_train: the int8 or chunk-matmul kernel launched no time")
+    ag = {n: by[n][0]["bytes"][0].get("all_gather/pod", 0) for n in by}
+    check(ag["fcdp_q8_ag"] < ag["zero3"],
+          f"encdec_train: fcdp's pod all-gather {ag['fcdp_q8_ag']} not "
+          f"below zero3's {ag['zero3']}")
+    return launches
+
+
+def encdec_parity_runs():
+    """Phase encdec_parity's train run: one fcdp step in fp32 of the
+    smoke config, riding on train_parity's jobs."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.train import ModeRun
+    return [ModeRun("fcdp", dtype="float32", model=get_smoke_config(ENCDEC))]
+
+
+def phase_encdec_parity(got):
+    """Card against CPU: the smoke config's fcdp step at (2, 2, 1) in fp32
+    (``got``: {device: rank 0's record}, from train_parity's jobs; loss
+    and grad norm within the step tolerances, the same bytes), then
+    seamless-m4t-medium at full width, 1 + 1 layers, bf16, through the
+    contiguous steps (``contiguous_parity``: the frames, a 64-token
+    prompt, batch 2, 8 decode steps; logits within 0.1, tokens equal up
+    to near-ties; the card's non-causal kernels against the CPU's plain
+    versions)."""
+    from repro_torch.configs.registry import get_smoke_config
+    g, c = got["cuda"], got["cpu"]
+    mg, mc = g["metrics"][0], c["metrics"][0]
+    name = get_smoke_config(ENCDEC).name
+    check(_rel(mg["loss"], mc["loss"]) <= LOSS_RTOL,
+          f"{name}: card loss {mg['loss']} != CPU {mc['loss']}")
+    check(_rel(mg["grad_norm"], mc["grad_norm"]) <= GNORM_RTOL,
+          f"{name}: card grad norm {mg['grad_norm']} != CPU "
+          f"{mc['grad_norm']}")
+    check(g["bytes"] == c["bytes"],
+          f"{name}: card and CPU moved different bytes")
+    emit("encdec_parity", part="train", dtype="float32", model=name,
+         mesh={"pod": 2, "data": 2, "model": 1},
+         loss={"cuda": mg["loss"], "cpu": mc["loss"]},
+         grad_norm={"cuda": mg["grad_norm"], "cpu": mc["grad_norm"]},
+         bytes=g["bytes"][0], step_s={"cuda": g["step_s"][0],
+                                      "cpu": c["step_s"][0]})
+    contiguous_parity("encdec_parity", encdec_config(1), ENCDEC_PARITY)
+
+
 def main() -> int:
     try:
         import torch
@@ -4046,6 +4401,7 @@ def main() -> int:
     wkv_prefill, wkv_decode = phase_wkv_kernels()
     scan_prefill, scan_decode = phase_mamba_kernels()
     flash_arch = phase_arch_kernels()
+    flash_encdec = phase_encdec_kernels()
     launches = phase_serve()
     phase_profile()
     phase_parity()
@@ -4054,7 +4410,9 @@ def main() -> int:
     jamba_launches = phase_jamba_serve()
     phase_jamba_parity()
     arch_launches = phase_arch_serve()
-    train_launches, train_fcdp_bytes, dense_ckpt = phase_train()
+    encdec_launches = phase_encdec_serve()
+    (train_launches, train_fcdp_bytes, dense_ckpt, sched_results,
+     train_fcdp) = phase_train(sched_runs())
     family_parity = phase_train_parity()
     peft_launches, peft_restart = phase_peft_train(train_fcdp_bytes)
     phase_restart(dense_ckpt, peft_restart)
@@ -4062,17 +4420,21 @@ def main() -> int:
     tp_launches = phase_tp_train()
     tp2_parity = tp2_parity_jobs()
     phase_tp_parity(tp2_parity["tp"])
-    sched_launches = phase_sched_train(train_fcdp_bytes)
+    sched_launches = phase_sched_train(train_fcdp_bytes, sched_results,
+                                       train_fcdp)
     phase_sched_parity(tp2_parity["sched"])
     family_arms = family_runs()
     arch_arms = arch_train_runs()
+    encdec_arms = encdec_train_runs()
     cache = cache_runs()
     stream_launches, extra, stream_ranks, stream_wall = phase_stream_train(
         [mr for _, _, mr in family_arms] + [mr for _, mr in arch_arms]
-        + cache, task=_cache_task)
-    n_fam, n_arch = len(family_arms), len(arch_arms)
-    family_results, arch_results, cache_results = (
-        extra[:n_fam], extra[n_fam:n_fam + n_arch], extra[n_fam + n_arch:])
+        + [mr for _, mr in encdec_arms] + cache, task=_cache_task)
+    n_fam, n_arch, n_enc = len(family_arms), len(arch_arms), len(encdec_arms)
+    family_results, arch_results, encdec_results, cache_results = (
+        extra[:n_fam], extra[n_fam:n_fam + n_arch],
+        extra[n_fam + n_arch:n_fam + n_arch + n_enc],
+        extra[n_fam + n_arch + n_enc:])
     phase_stream_parity(tp2_parity["stream"])
     cache_launches = phase_cache_train(cache_results, stream_ranks,
                                        stream_wall)
@@ -4080,8 +4442,12 @@ def main() -> int:
                                                        family_results)
     phase_family_parity(family_parity)
     phase_arch_train(arch_arms, arch_results)
-    phase_arch_parity({dev: rs[len(FAMILY_PARITY_MODELS):]
+    n_fp, n_ap = len(FAMILY_PARITY_MODELS), len(ARCH_SERVE_DEPTH)
+    phase_arch_parity({dev: rs[n_fp:n_fp + n_ap]
                        for dev, rs in family_parity.items()})
+    encdec_train = phase_encdec_train(encdec_arms, encdec_results)
+    phase_encdec_parity({dev: rs[n_fp + n_ap]
+                         for dev, rs in family_parity.items()})
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
@@ -4094,18 +4460,21 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
         "launches": launches + cache_launches["flash_attention"]
-        + arch_launches,
+        + arch_launches + encdec_launches,
         **entry(prefill), "shape": "prefill_chunk",
         "decode": entry(decode),
         "jamba_launches": jamba_launches["flash_attention"],
         "jamba_shapes": {n: entry(c) for n, c in flash_jamba.items()},
         "arch_launches": arch_launches,
-        "arch_shapes": {n: entry(c) for n, c in flash_arch.items()}}] + [{
+        "arch_shapes": {n: entry(c) for n, c in flash_arch.items()},
+        "encdec_launches": encdec_launches,
+        "encdec_shapes": {n: entry(c) for n, c in flash_encdec.items()}}
+    ] + [{
             "name": QUANT_NAMES[k], "route": "cuda", "source": QUANT_SOURCE,
             "replaces": QUANT_TPU_KERNELS[k],
             "launches": train_launches[k] + peft_launches[k]
             + tp_launches[k] + sched_launches[k] + stream_launches[k]
-            + cache_launches[k] + family_launches[k],
+            + cache_launches[k] + family_launches[k] + encdec_train[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
                              if e["kernel"] == QUANT_NAMES[k]}}
@@ -4115,7 +4484,7 @@ def main() -> int:
         "launches": train_launches["matmul_chunk"]
         + tp_launches["matmul_chunk"] + sched_launches["matmul_chunk"]
         + stream_launches["matmul_chunk"] + cache_launches["matmul_chunk"]
-        + family_launches["matmul_chunk"],
+        + family_launches["matmul_chunk"] + encdec_train["matmul_chunk"],
         **entry(mm_main),
         "shape": mm_main["case"],
         "other_shapes": {n: entry(e) for n, e in mm_extra.items()}}, {

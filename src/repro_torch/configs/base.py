@@ -48,7 +48,7 @@ class RWKVConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid | vlm
+    family: str                 # dense | moe | ssm | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -62,15 +62,22 @@ class ModelConfig:
     norm_eps: float = 1e-5
     # the head is the embedding table's transpose (no ``head`` leaf)
     tie_embeddings: bool = False
+    max_seq_len: int = 1 << 19
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
     # hybrid (jamba): within each period, which positions are attention
     hybrid_period: int = 0           # 0 -> not hybrid
     hybrid_attn_positions: Tuple[int, ...] = ()
+    # encdec: > 0 -> an encoder of this many layers before the decoder
+    num_encoder_layers: int = 0
     # vlm: the VQ image tokenizer is a stub, inputs are token ids over
-    # the unified vocabulary; "vq_image" gives attention its qk-norm
-    frontend: str = "none"           # none | vq_image
+    # the unified vocabulary; "vq_image" gives attention its qk-norm.
+    # encdec: the audio frontend is a stub, the encoder takes frame
+    # embeddings [B, S / 4, D] ("audio_frames")
+    frontend: str = "none"           # none | vq_image | audio_frames
+    # whether the mixer is sub-quadratic (long_500k applies)
+    sub_quadratic: bool = False
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

@@ -7,7 +7,7 @@ attention layers hold a contiguous KV cache."""
 from repro_torch.configs.base import MambaConfig, ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
-    name="jamba-v0.1-52b", family="hybrid",
+    name="jamba-v0.1-52b", family="hybrid", sub_quadratic=True,
     num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8,
     d_ff=14336, vocab_size=65536, head_dim=128,
     act="swiglu", qkv_bias=False, rope_theta=10000.0,
@@ -18,7 +18,7 @@ CONFIG = ModelConfig(
     hybrid_period=8, hybrid_attn_positions=(4,))
 
 SMOKE = ModelConfig(
-    name="jamba-smoke", family="hybrid",
+    name="jamba-smoke", family="hybrid", sub_quadratic=True,
     num_layers=4, d_model=64, num_heads=4, num_kv_heads=2,
     d_ff=128, vocab_size=512, head_dim=16,
     mamba=MambaConfig(d_state=8, d_conv=4, expand=2, dt_rank=8),

@@ -1,9 +1,8 @@
-"""Architecture registry: --arch <id> resolution. The port has the nine
-decoder-only archs of the JAX package, in its order: qwen2.5-3b,
-gemma-2b, granite-3-8b and yi-34b (dense), kimi-k2-1t-a32b and
-llama4-maverick-400b-a17b (moe), chameleon-34b (vlm), rwkv6-3b (ssm)
-and jamba-v0.1-52b (hybrid); seamless-m4t-medium (encdec) is not
-ported yet."""
+"""Architecture registry: --arch <id> resolution. The port has the ten
+archs of the JAX package, in its order: qwen2.5-3b, gemma-2b,
+granite-3-8b and yi-34b (dense), kimi-k2-1t-a32b and
+llama4-maverick-400b-a17b (moe), chameleon-34b (vlm), rwkv6-3b (ssm),
+seamless-m4t-medium (encdec) and jamba-v0.1-52b (hybrid)."""
 from __future__ import annotations
 
 import importlib
@@ -20,6 +19,7 @@ _ARCH_MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "chameleon-34b": "chameleon_34b",
     "rwkv6-3b": "rwkv6_3b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 

@@ -4,8 +4,9 @@ parameter dict (serving, one rank) or this rank's shards of it
 
 The JAX side hands them over as a nested dict of numpy arrays (its
 ``StepBundle`` leaves unflattened with ``StepBundle.treedef``: stacked
-``blocks`` leaves, the same key names; the serve and train bundles'
-trees have the same leaves). bf16 arrays cross through a ``uint16``
+``blocks`` leaves, or an encoder-decoder's ``enc_blocks`` and
+``dec_blocks``, the same key names; the serve and train bundles' trees
+have the same leaves). bf16 arrays cross through a ``uint16``
 view, so values arrive bit for bit. Only numpy is needed here; the
 caller does the JAX side.
 """
@@ -21,7 +22,7 @@ from repro_torch.configs.base import ModelConfig, SystemConfig
 from repro_torch.core.partition import (tree_items, tree_map,
                                         tree_map_with_path)
 from repro_torch.core.peft import apply_lora
-from repro_torch.models.lm import LM
+from repro_torch.models.registry import build_model
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -43,7 +44,7 @@ def params_from_jax(tree, cfg: ModelConfig,
     type)."""
     device = resolve_device(device)
     sys = sys or SystemConfig()
-    defs = LM(cfg, sys).defs
+    defs = build_model(cfg, sys).defs
     if sys.peft:
         defs = apply_lora(defs, sys)
     full = _checked(tree, defs)

@@ -149,8 +149,10 @@ def cache_bytes_per_chip(bundle, kv=None) -> Dict[str, float]:
     if kv is not None:
         from repro_torch.core.kv_cache import kv_page_bytes_per_chip
         model = bundle.model
-        kv_bytes = kv_page_bytes_per_chip(bundle.run.model, ms, model.plan,
-                                          model.n_groups, kv)
+        # an encoder-decoder has no paged stack, as in the JAX package
+        kv_bytes = kv_page_bytes_per_chip(
+            bundle.run.model, ms, getattr(model, "plan", ()),
+            getattr(model, "n_groups", 0), kv)
 
     def total(key):
         return sum(gb[key] for gb in by_group.values())
@@ -253,7 +255,8 @@ class MemoryPlanner:
         largest peak over the ranks, so all walk the same attempts; the
         byte counters of ``coll`` are left as they were."""
         from repro_torch.data.pipeline import (DataConfig, ShardedLoader,
-                                               SyntheticPackedLM)
+                                               SyntheticPackedLM,
+                                               enc_embed_dim)
         from repro_torch.optim.adamw import init_opt_state
         dev = bundle.device
         base = self._fresh(dev)
@@ -265,7 +268,8 @@ class MemoryPlanner:
         step = bundle.make_train_step(coll)
         run = bundle.run
         batch = ShardedLoader(SyntheticPackedLM(
-            run.model, run.shape, DataConfig(self.seed)), bundle).get(0)
+            run.model, run.shape, DataConfig(self.seed)), bundle,
+            enc_embed_dim(run.model)).get(0)
         # the state counts, its drawing's transients do not
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)

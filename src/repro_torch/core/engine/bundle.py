@@ -44,7 +44,7 @@ from repro_torch.core.partition import (_entry_axes, block_index, init_leaf,
 from repro_torch.core.residency import split_train_indices
 from repro_torch.core.strategy import resolve_strategies, spec_axes
 from repro_torch.launch.mesh import MeshShape, fsdp_axes, tp_degree
-from repro_torch.models.lm import LM
+from repro_torch.models.registry import build_model
 
 
 class StepBundle:
@@ -60,7 +60,7 @@ class StepBundle:
         self.device = resolve_device(device)
         tp = 1 if mesh is None else tp_degree(getattr(mesh, "mesh_shape",
                                                       mesh))
-        self.model = LM(run.model, sys, tp)
+        self.model = build_model(run.model, sys, tp)
         base, self.strategy = resolve_strategies(sys, self.model.defs,
                                                  strict=not sys.peft)
         defs = base
@@ -304,10 +304,16 @@ class StepBundle:
     def init_state(self, cell=None):
         """The decode state for ``cell``'s batch, with KV caches of
         ``cell.seq_len`` positions (default: the run's cell), on the
-        bundle's device."""
+        bundle's device; an encoder-decoder's cross-attention state
+        holds ``encdec.enc_len(cell.seq_len)`` frames, as the JAX
+        bundle sizes it."""
         cell = cell or self.run.shape
+        kw = {}
+        if self.run.model.num_encoder_layers > 0:
+            from repro_torch.models.encdec import enc_len
+            kw["enc_len"] = enc_len(cell.seq_len)
         return self.model.init_decode_state(cell.global_batch, cell.seq_len,
-                                            self.device)
+                                            self.device, **kw)
 
     def make_prefill_step(self):
         from repro_torch.core.engine.serve import build_prefill_step

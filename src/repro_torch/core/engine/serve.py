@@ -15,7 +15,16 @@ from repro_torch.core.kv_cache import PagedKVConfig
 
 
 def check_paged_plan(model) -> None:
-    """The paged path is gated to attention-only mixer stacks."""
+    """The paged path is gated to attention-only mixer stacks of a
+    decoder-only model. An encoder-decoder has no ``plan``; the JAX
+    package fails on it with an ``AttributeError``, the port says
+    why."""
+    if not hasattr(model, "plan"):
+        raise ValueError(
+            f"paged serving supports decoder-only (attn, mlp) stacks; "
+            f"{model.cfg.name} is an encoder-decoder: use the contiguous "
+            f"prefill/decode steps (make_prefill_step / make_decode_step) "
+            f"instead")
     bad = sorted({k for kinds in model.plan for k in kinds
                   if k not in ("attn", "mlp")})
     if bad:
@@ -25,12 +34,19 @@ def check_paged_plan(model) -> None:
 
 
 def build_prefill_step(bundle):
-    """(params, ids [B,S], state) -> (last-token logits [B,V], state).
+    """(params, ids [B,S], state) -> (last-token logits [B,V], state);
+    an encoder-decoder's takes (params, enc_embeds [B,S_enc,D], ids,
+    state), as the JAX package's does.
     For rwkv the prompt length must be a multiple of min(64, S) (the
     WKV's chunk); mamba and attention take prompts of any length, up to
     the KV cache's ``max_len`` (``cell.seq_len``) with room left for the
     decode steps."""
     model = bundle.model
+    if bundle.run.model.num_encoder_layers > 0:
+        @torch.no_grad()
+        def encdec_step(params, enc_embeds, ids, state):
+            return model.prefill_fn(params, enc_embeds, ids, state)
+        return encdec_step
 
     @torch.no_grad()
     def step(params, ids, state):

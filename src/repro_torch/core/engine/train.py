@@ -161,9 +161,7 @@ class TrainStep:
         ce = 0.0
         for mb in self._microbatches(batch):
             ce = ce + self._loss_backward(params, mb, False)[0]
-        grads = [p.grad for p in train]
-        for p in train:
-            p.grad = None
+        grads = _grads(train)
         return grads, ce
 
     def _reduce(self, pending):
@@ -253,9 +251,7 @@ class TrainStep:
             ce, aux, tokens = ce / self.nm, 0.0, 1.0
         else:
             ce, aux, tokens = self._loss_backward(params, batch)
-            grads = [p.grad for p in train]
-            for p in train:
-                p.grad = None
+            grads = _grads(train)
             self._mark("accumulate")
         gnorm = self.apply_grads(train, grads, opt_state)
         self._mark("apply")
@@ -380,6 +376,17 @@ def carry_bytes(carry: Carry) -> int:
                for ts in carry.values() for t in ts)
 
 
+def _grads(train) -> List[torch.Tensor]:
+    """The trainable shards' gradients, taken off them: zeros for a leaf
+    the loss does not read (an adapter beside a projection that consumes
+    none, ``models/stack._unread``), as ``jax.grad`` gives."""
+    out = [p.grad if p.grad is not None else torch.zeros_like(p)
+           for p in train]
+    for p in train:
+        p.grad = None
+    return out
+
+
 def build_train_step(bundle, coll) -> TrainStep:
     return TrainStep(bundle, coll)
 
@@ -394,17 +401,21 @@ def _act_allreduces(bundle) -> int:
     block_io and offload_acts activation policies run the forward's
     again in the recompute, all but the layer's last sublayer's
     (``models/common.CollectiveTape``; save_collectives keeps their
-    outputs)."""
+    outputs). Cross-attention's sum is never int8. Every stack of the
+    model counts (an encoder-decoder's two)."""
     model = bundle.model
     sys = bundle.run.system
     if sys.act_psum != "int8" or model.tp == 1:
         return 0
-    kinds = [k for ks in model.plan for k in ks]
-    fwd = [k in ("attn", "mlp", "mamba") for k in kinds]
-    bwd = sum(k in ("attn", "mlp") for k in kinds)
-    again = sum(fwd[:-1]) if sys.activation_policy in (
-        "block_io", "offload_acts") else 0
-    return model.n_groups * (sum(fwd) + bwd + again)
+    total = 0
+    for _, plan, n_groups in model.stacks:
+        kinds = [k for ks in plan for k in ks]
+        fwd = [k in ("attn", "mlp", "mamba") for k in kinds]
+        bwd = sum(k in ("attn", "mlp") for k in kinds)
+        again = sum(fwd[:-1]) if sys.activation_policy in (
+            "block_io", "offload_acts") else 0
+        total += n_groups * (sum(fwd) + bwd + again)
+    return total
 
 
 def act_int8_launch_plan(bundle) -> Dict[str, int]:
@@ -460,11 +471,13 @@ def matmul_chunk_launch_plan(bundle) -> int:
     output projection but the layer's last; under every recomputing
     policy for the channel-mix's ``w_v``, whose product the gate's
     gradient reads), and under 'both' n more in the dx ring and n in
-    the dw ring. Microbatches multiply."""
+    the dw ring; the layer's last sublayer is taken in each stack of the
+    model. Microbatches multiply."""
     model, pol = bundle.model, bundle.run.system.activation_policy
     again = pol in ("block_io", "offload_acts") or (
         pol == "save_collectives" and model.tp == 1)
-    last = f"blocks.pos{len(model.plan) - 1}.{model.plan[-1][-1]}."
+    last = tuple(f"{name}.pos{len(plan) - 1}.{plan[-1][-1]}."
+                 for name, plan, _ in model.stacks)
     out = 0
     for i in bundle.train_idx:
         d, plan = bundle.def_leaves[i], bundle.plan_leaves[i]
@@ -487,7 +500,7 @@ def mamba_scan_launch_plan(bundle) -> int:
     the forward and once, the adjoint, in the backward, and once more
     where the activation policy recomputes the layer (its forward ran
     without autograd). Microbatches multiply."""
-    model = bundle.model
-    n = model.n_groups * sum(k == "mamba" for ks in model.plan for k in ks)
+    n = sum(n_groups * sum(k == "mamba" for ks in plan for k in ks)
+            for _, plan, n_groups in bundle.model.stacks)
     per = 2 + (bundle.run.system.activation_policy != "save_all")
     return n * per * max(bundle.run.microbatch, 1)

@@ -1,15 +1,18 @@
 """Deterministic synthetic LM data, as the JAX package's
 ``data/pipeline.py`` makes it: zipf-token documents packed into
 fixed-length rows, seeded per (seed, step) so any rank can regenerate
-any step's batch on its own, and the per-rank slice of it."""
+any step's batch on its own, an encoder-decoder's frame embeddings
+beside them, and the per-rank slice of it."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
+from repro_torch.models.encdec import enc_len
 
 
 @dataclass
@@ -44,13 +47,35 @@ class SyntheticPackedLM:
         return {"ids": ids, "labels": labels, "mask": mask}
 
 
+def enc_embed_dim(cfg: ModelConfig) -> int:
+    """The width of the encoder frames a batch carries: d_model for an
+    encoder-decoder, 0 (none) otherwise, as the JAX launcher passes
+    it."""
+    return cfg.d_model if cfg.num_encoder_layers else 0
+
+
 class ShardedLoader:
     """This rank's rows of each step's batch, on the bundle's device (the
     per-rank slice of the JAX package's ``ShardedLoader``; batches are
-    made on demand, without a prefetch thread)."""
+    made on demand, without a prefetch thread). With ``enc_embed_dim``
+    each batch also holds ``enc_embeds`` [B, ``encdec.enc_len(S)``,
+    enc_embed_dim], standard normal from ``SeedSequence([17, seed,
+    step])``, drawn in fp32 and rounded to bf16, bit for bit the JAX
+    loader's."""
 
-    def __init__(self, dataset: SyntheticPackedLM, bundle):
+    def __init__(self, dataset: SyntheticPackedLM, bundle,
+                 enc_embed_dim: int = 0):
         self.ds, self.bundle = dataset, bundle
+        self.enc_embed_dim = enc_embed_dim
 
     def get(self, step: int):
-        return self.bundle.shard_batch(self.ds.batch_np(step))
+        b = self.ds.batch_np(step)
+        if self.enc_embed_dim:
+            rng = np.random.default_rng(
+                np.random.SeedSequence([17, self.ds.data.seed, step]))
+            cell = self.ds.cell
+            frames = rng.standard_normal(
+                (cell.global_batch, enc_len(cell.seq_len),
+                 self.enc_embed_dim)).astype(np.float32)
+            b["enc_embeds"] = torch.from_numpy(frames).to(torch.bfloat16)
+        return self.bundle.shard_batch(b)

@@ -7,6 +7,9 @@ slot and their full KV page reservation free up, long prompts prefill in
 chunks between decode steps, and finished sequences retire immediately.
 ``--policy static`` runs the same steps with wait-for-full-batch
 admission for comparison. Weights are random, drawn from ``--seed``.
+A model the paged path does not take (a moe, ssm or hybrid stack, an
+encoder-decoder) is refused with a ``ValueError`` before any weight is
+drawn: those serve through the contiguous steps.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --requests 16 --seq-len 512 --gen-len 16 --batch 8 --chunk 128
@@ -22,7 +25,8 @@ import numpy as np
 from repro_torch.configs.base import RunConfig, ShapeCell, SystemConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.engine import StepBundle
-from repro_torch.core.engine.serve import default_paged_kv, paged_replicas
+from repro_torch.core.engine.serve import (check_paged_plan,
+                                           default_paged_kv, paged_replicas)
 from repro_torch.core.kv_cache import PagedKVConfig
 from repro_torch.core.serve_schedule import (PagedServeEngine, Request,
                                              summarize)
@@ -71,6 +75,7 @@ def main(argv=None):
     cell = ShapeCell("serve", "decode", args.seq_len, args.batch)
     run = RunConfig(model=cfg, shape=cell, system=SystemConfig())
     bundle = StepBundle(run, device=args.device)
+    check_paged_plan(bundle.model)
     t0 = time.perf_counter()
     params = bundle.init_all_params(seed=args.seed)
 

@@ -54,7 +54,8 @@ from repro_torch.core.schedule import (async_buffer_bytes,
                                       cross_step_buffer_bytes,
                                       prefetch_buffer_bytes)
 from repro_torch.core.strategy import strategy_names
-from repro_torch.data.pipeline import DataConfig, ShardedLoader, SyntheticPackedLM
+from repro_torch.data.pipeline import (DataConfig, ShardedLoader,
+                                       SyntheticPackedLM, enc_embed_dim)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (MeshShape, RankMesh, device_for_rank,
                                      train_mesh_shape)
@@ -210,7 +211,7 @@ class RunState:
         self.batches = job.batches
         self.loader = ShardedLoader(SyntheticPackedLM(run.model, run.shape,
                                                       DataConfig(job.seed)),
-                                    bundle)
+                                    bundle, enc_embed_dim(run.model))
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """This rank's rows of batch ``step`` (the job's, else the
@@ -392,7 +393,7 @@ def _run_mode(job: "TrainJob", mr: ModeRun, mesh: RankMesh,
            "live_depth": [], "ring_bytes": [],
            "prefetch_buffer_bytes": prefetch_buffer_bytes(
                strategy, bundle.def_leaves, bundle.plan_leaves, ms,
-               min(sched.depth, bundle.model.n_groups)),
+               min([sched.depth] + [n for _, _, n in bundle.model.stacks])),
            "async_live": step.use_async, "cross_step_live": step.use_xstep,
            "async_buffer_bytes": async_buffer_bytes(
                strategy, bundle.def_leaves, bundle.plan_leaves, ms),

@@ -1,6 +1,7 @@
 """Attention sublayer: GQA with qkv bias, qk-norm and RoPE, over the
 paged KV cache (continuous batching), over the contiguous KV cache (the
-prefill/decode steps), without a cache, or in training.
+prefill/decode steps), without a cache (the encoder's, non-causal), or
+in training; and the core of cross-attention over the encoder's K/V.
 
 The serving branches hand their core to ``kernels.ops.flash_attention``
 (the hand-written kernel on CUDA tensors, its plain version on CPU
@@ -206,8 +207,9 @@ def attention_train(x, wq, wk, wv, wo, bq, bk, bv, cfg,
                     positions: torch.Tensor, lora=None,
                     lora_scale: float = 2.0,
                     tpc: TPContext = SERIAL, q_norm=None,
-                    k_norm=None) -> torch.Tensor:
-    """Causal self-attention sublayer of the train step, under autograd,
+                    k_norm=None, causal: bool = True) -> torch.Tensor:
+    """Self-attention sublayer of the train step (causal, or not: the
+    encoder's), under autograd,
     on this rank's q heads: x: [B, S, D] (the normed input, after
     ``tp_region_in``); wq [D, H_local*hd], wo [H_local*hd, D], wk/wv
     whole. Returns this rank's partial output [B, S, D], before the sum
@@ -227,7 +229,7 @@ def attention_train(x, wq, wk, wv, wo, bq, bk, bv, cfg,
                          f"{cfg.num_kv_heads}")
     k, v = slice_expand_kv(region_vary(k, tpc), region_vary(v, tpc),
                            h_local, padded // cfg.num_kv_heads, tpc.rank)
-    out = chunked_causal_attention(q, k, v)
+    out = chunked_causal_attention(q, k, v, causal=causal)
     if padded != cfg.num_heads:
         mask = local_head_mask(tpc, padded, cfg.num_heads, out.device)
         out = out * mask[None, None, :, None].to(out.dtype)
@@ -298,3 +300,14 @@ def attention_block(x, wq, wk, wv, wo, bq, bk, bv, cfg,
     out = out.reshape(B, S, -1)
     return _add_lora(matmul(out, wo), out, lora, "wo", lora_scale), \
         new_cache
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """The serving core of cross-attention: q [B, Sq, H, hd] (the
+    decoder's prompt or one token) over the encoder's k / v [B, Senc,
+    KVH, hd], every key visible (``causal`` False; Sq and Senc differ),
+    the kv heads read by index, nothing written. Returns [B, Sq, H,
+    hd]."""
+    return ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), None, False)

@@ -45,17 +45,23 @@ def layer_plan(cfg: ModelConfig) -> Tuple[List[Tuple[str, ...]], int]:
             ffn = "moe" if (m and i % m.moe_period == m.moe_offset) else "mlp"
             plan.append((mixer, ffn))
         return plan, cfg.num_layers // period
-    raise ValueError(f"layer_plan: family {cfg.family!r} is not ported yet")
+    if cfg.family == "encdec":
+        raise ValueError("layer_plan: the encdec family is two stacks "
+                         "(models/encdec.py: EncDec)")
+    raise ValueError(f"layer_plan: unknown family {cfg.family!r}")
 
 
 class LM:
     """Defs + step bodies for one decoder-only architecture, at
     tensor-parallel degree ``tp`` (the train mesh's 'model' size; the
-    vocabulary and the q heads are padded to multiples of it)."""
+    vocabulary and the q heads are padded to multiples of it).
+    ``stacks`` names its layer stack, (defs key, plan, layers), as
+    ``EncDec.stacks`` names its two."""
 
     def __init__(self, cfg: ModelConfig, sys: SystemConfig, tp: int = 1):
         self.cfg, self.sys, self.tp = cfg, sys, tp
         self.plan, self.n_groups = layer_plan(cfg)
+        self.stacks = (("blocks", self.plan, self.n_groups),)
         self.vpad = pad_vocab(cfg.vocab_size, tp)
         self.defs = label_tree(self._build_defs())
         # the attention adapters' scale, where the params hold adapters

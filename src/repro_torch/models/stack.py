@@ -25,6 +25,7 @@ from repro_torch.models.common import SERIAL, CollectiveTape, TPContext
 
 KIND_DEFS = {
     "attn": sl.attn_defs,
+    "xattn": sl.xattn_defs,
     "mlp": sl.mlp_defs,
     "moe": sl.moe_defs,
     "mamba": sl.mamba_defs,
@@ -41,16 +42,16 @@ def group_defs(cfg: ModelConfig, plan: List[Tuple[str, ...]], tp: int = 1,
                sys: Optional[SystemConfig] = None
                ) -> Dict[str, Dict[str, Dict[str, ParamDef]]]:
     """Unstacked defs for one group: {pos{i}: {kind: {param: def}}}, at
-    tensor-parallel degree ``tp`` (which pads attention's q heads and
-    the time-mix's heads); the MoE's experts are 'inter_only' under
-    ``sys.moe_weight_resident``."""
+    tensor-parallel degree ``tp`` (which pads the q heads of attention
+    and cross-attention and the time-mix's heads); the MoE's experts are
+    'inter_only' under ``sys.moe_weight_resident``."""
     out: Dict[str, Any] = {}
     for i, kinds in enumerate(plan):
         pos = {}
         for kind in kinds:
             if kind not in KIND_DEFS:
                 raise ValueError(f"sublayer kind {kind!r} is not ported yet")
-            if kind in ("attn", "rwkv_tm"):
+            if kind in ("attn", "xattn", "rwkv_tm"):
                 pos[kind] = KIND_DEFS[kind](cfg, tp)
             elif kind == "moe":
                 pos[kind] = sl.moe_defs(
@@ -89,17 +90,19 @@ def init_paged_group_state(cfg, plan, n_pages: int, page_size: int,
 
 
 def init_group_state(cfg, plan, batch: int, max_len: int, n_groups: int,
-                     device):
+                     device, enc_len: int = 0):
     """The contiguous decode state of the stack, [n_groups, ...] per
     leaf, with the JAX package's leaves, names and dtypes: attention's
-    KV cache of ``max_len`` positions and the recurrent sublayers'
-    state."""
+    KV cache of ``max_len`` positions, cross-attention's encoder K/V of
+    ``enc_len`` positions and the recurrent sublayers' state."""
     out: Dict[str, Any] = {}
     for i, kinds in enumerate(plan):
         pos = {}
         for kind in kinds:
             if kind == "attn":
                 st = sl.attn_init_state(cfg, batch, max_len, device)
+            elif kind == "xattn":
+                st = sl.xattn_init_state(cfg, batch, enc_len, device)
             elif kind == "mamba":
                 st = sl.mamba_init_state(cfg, batch, device)
             elif kind == "rwkv_tm":
@@ -122,9 +125,13 @@ def apply_sublayer(kind: str, cfg, p, x, ctx: Dict[str, Any], state=None):
     and the recurrent sublayers over their state (prefill starts from
     zero state and does not read the one passed, as in the JAX
     package); with neither, rwkv runs over the whole sequence and keeps
-    no state. The MoE's aux loss is not computed (serving). ctx
-    "lora_scale" scales the attention adapters (PEFT), where there are
-    any."""
+    no state, and attention with ctx "causal" False (the encoder's)
+    runs without a cache. Cross-attention projects ctx "enc_out" into
+    its K/V at prefill (stored into its state in place, in the state's
+    type) and without a state, and reads the state at decode, as the
+    JAX package's ``stack.py`` dispatches it. The MoE's aux loss is not
+    computed (serving). ctx "lora_scale" scales the attention adapters
+    (PEFT), where there are any."""
     if kind == "attn":
         scale = ctx.get("lora_scale", 2.0)
         if ctx.get("paged"):
@@ -134,8 +141,18 @@ def apply_sublayer(kind: str, cfg, p, x, ctx: Dict[str, Any], state=None):
             return sl.attn_decode(cfg, p, x, state, scale)
         if ctx.get("prefill") and state is not None:
             return sl.attn_apply(cfg, p, x, ctx["positions"], state, scale)
-        raise ValueError("attention without a cache is the train branch "
-                         "(apply_stack_train)")
+        if not ctx.get("causal", True):
+            return sl.attn_encode(cfg, p, x, ctx["positions"], scale), state
+        raise ValueError("causal attention without a cache is the train "
+                         "branch (apply_stack_train)")
+    if kind == "xattn":
+        if ctx.get("decode"):
+            return sl.xattn_apply(cfg, p, x, (state["k"], state["v"])), state
+        k, v = sl.xattn_make_kv(cfg, p, ctx["enc_out"])
+        if state is not None:
+            state["k"].copy_(k)
+            state["v"].copy_(v)
+        return sl.xattn_apply(cfg, p, x, (k, v)), state
     if kind == "mlp":
         return sl.mlp_apply(cfg, p, x), state
     if kind == "moe":
@@ -196,11 +213,17 @@ def apply_stack(cfg: ModelConfig, plan: List[Tuple[str, ...]],
 
 def apply_sublayer_train(kind: str, cfg, p, x, positions,
                          lora_scale: float, tpc: TPContext,
-                         moe_token_chunk: int = sl.MOE_TOKEN_CHUNK):
-    """One sublayer of the train forward, tensor-parallel over 'model'.
-    Returns (x, aux loss or None: only the MoE has one)."""
+                         moe_token_chunk: int = sl.MOE_TOKEN_CHUNK,
+                         causal: bool = True, enc_out=None):
+    """One sublayer of the train forward, tensor-parallel over 'model'
+    (self-attention ``causal`` or not, cross-attention over
+    ``enc_out``). Returns (x, aux loss or None: only the MoE has
+    one)."""
     if kind == "attn":
-        return sl.attn_train(cfg, p, x, positions, lora_scale, tpc), None
+        return sl.attn_train(cfg, p, x, positions, lora_scale, tpc,
+                             causal), None
+    if kind == "xattn":
+        return sl.xattn_train(cfg, p, x, enc_out, tpc), None
     if kind == "mlp":
         return sl.mlp_apply(cfg, p, x, tpc), None
     if kind == "moe":
@@ -212,6 +235,15 @@ def apply_sublayer_train(kind: str, cfg, p, x, positions,
     if kind == "rwkv_cm":
         return sl.rwkv_cm_train(cfg, p, x, tpc), None
     raise ValueError(f"unknown sublayer kind {kind!r}")
+
+
+def _unread(kind: str, name: str) -> bool:
+    """Whether a ``kind`` sublayer leaves its leaf ``name`` unread: an
+    adapter of any sublayer but attention (``sublayers._lora_kwargs``).
+    The JAX step's dead-code elimination drops such a leaf's gather and
+    its gradient's reduce; the train forward gathers it not at all, and
+    its gradient is zero."""
+    return kind != "attn" and "_lora_" in name
 
 
 class _Recompute(torch.autograd.Function):
@@ -261,10 +293,15 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
                       lora_scale: float = 2.0, tpc: TPContext = SERIAL,
                       start: int = 0, placement: Optional[str] = None,
                       policy: str = "save_all",
-                      moe_token_chunk: int = sl.MOE_TOKEN_CHUNK):
+                      moe_token_chunk: int = sl.MOE_TOKEN_CHUNK,
+                      causal: bool = True, enc_out=None):
     """The train forward of layers ``start .. n_groups - 1`` of the
-    stack (one segment of ``LM._segments``): layer l gathers the shards
-    ``leaf[l]`` through their plans (norm scales straight to fp32,
+    stack (one segment of ``LM._segments``, or an encoder-decoder's
+    whole encoder or decoder, whose self-attention is ``causal`` or not
+    and whose cross-attention reads ``enc_out``, a differentiable input
+    of every layer: under the recomputing policies an input of
+    ``_Recompute``, which returns its gradient): layer l gathers the
+    shards ``leaf[l]`` through their plans (norm scales straight to fp32,
     where ``rms_norm`` reads them; the gradient summed over 'model' too
     where ``sublayers.model_summed`` says so from the defs) and applies
     the group, tensor-parallel over 'model' (``tpc``), under the
@@ -286,7 +323,7 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
     leaves = [(f"pos{i}", kind) for i, kinds in enumerate(plan)
               for kind in kinds]
     names = [(key, kind, n) for key, kind in leaves
-             for n in stacked_params[key][kind]]
+             for n in stacked_params[key][kind] if not _unread(kind, n)]
     def issue(i):
         layer = start + i
         slot = {}
@@ -299,7 +336,8 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
 
     def body(h, weights, tape=None):
         """The group on input h with the gathered weights, in ``names``
-        order (a fused plan's as its stage-1 tensor), its sublayers'
+        order (a fused plan's as its stage-1 tensor), after ``enc_out``
+        where there is one, its sublayers'
         closing collectives through ``tape``; returns (h, aux). A fused
         weight is a sublayer's output projection, feeding the
         sublayer's closing collective: in the recompute its ring runs
@@ -308,6 +346,9 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
         whose reduce-scattered product the gate's gradient reads)."""
         t = tpc if tape is None else dataclasses.replace(tpc, tape=tape)
         replay = tape is not None and tape.next is not None
+        enc = None
+        if enc_out is not None:
+            enc, weights = weights[0], weights[1:]
         p = {}
         for (key, kind, n), w in zip(names, weights):
             if fused[key, kind, n]:
@@ -319,7 +360,7 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
         for key, kind in leaves:
             h, a = apply_sublayer_train(kind, cfg, p[key, kind], h,
                                         positions, lora_scale, t,
-                                        moe_token_chunk)
+                                        moe_token_chunk, causal, enc)
             if a is not None:
                 aux = aux + a
         return h, aux
@@ -330,7 +371,7 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
         nonlocal x, aux_sum
         layer = start + i
         with gather.layer():
-            weights = []
+            weights = [] if enc_out is None else [enc_out]
             for key, kind, n in names:
                 w = gather(stacked_params[key][kind][n][layer],
                            stacked_plans[key][kind][n],

@@ -1,14 +1,16 @@
 """Sublayer library: ParamDefs and apply functions of the attention
 sublayer (serving over the paged or the contiguous KV cache, and
-training) with both caches' state, the GLU-MLP, the GShard MoE, the
+training; non-causal without a cache for the encoder) with both
+caches' state, the encoder-decoder's cross-attention over the encoder's
+K/V, the GLU-MLP, the GShard MoE, the
 Mamba mixer (full-sequence, prefill and decode over the recurrent
 state) and the ssm family's RWKV-6 time-mix and channel-mix. The defs
 carry the JAX package's tensor-parallel tags (q/o head-parallel, k/v
 replicated; mlp in/gate column-, out row-parallel; experts over 'tp';
 mamba's d_inner and the rwkv heads over 'tp').
 
-The train sublayers (``attn_train``, ``mlp_apply``, ``moe_train``,
-``mamba_train``, ``rwkv_tm_train``, ``rwkv_cm_train``) run
+The train sublayers (``attn_train``, ``xattn_train``, ``mlp_apply``,
+``moe_train``, ``mamba_train``, ``rwkv_tm_train``, ``rwkv_cm_train``) run
 tensor-parallel over 'model' (``models/common.py``), as the JAX
 package's apply functions do: the q and rwkv heads padded to a multiple
 of tp (``pad_heads``), the MoE's tokens split over 'model' and its
@@ -130,16 +132,105 @@ def attn_decode(cfg, p, x, state, lora_scale=2.0):
                       lora_scale)
 
 
+def attn_encode(cfg, p, x, positions, lora_scale=2.0):
+    """Non-causal self-attention without a cache (the encoder's, at
+    serving): every position sees every other, nothing is written."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    y, _ = attn_mod.attention_block(
+        h, p["wq"], p["wk"], p["wv"], p["wo"],
+        p.get("bq"), p.get("bk"), p.get("bv"), cfg, positions,
+        causal=False, q_norm=p.get("q_norm"), k_norm=p.get("k_norm"),
+        **_lora_kwargs(p, lora_scale))
+    return x + y
+
+
 def attn_train(cfg, p, x, positions, lora_scale=2.0,
-               tpc: TPContext = SERIAL):
-    """Causal self-attention sublayer of the train step (under
-    autograd), tensor-parallel over 'model'."""
+               tpc: TPContext = SERIAL, causal: bool = True):
+    """Self-attention sublayer of the train step (under autograd),
+    tensor-parallel over 'model': causal, or not (the encoder's)."""
     h = tp_region_in(rms_norm(x, p["norm"], cfg.norm_eps), tpc)
     y = attn_mod.attention_train(
         h, p["wq"], p["wk"], p["wv"], p["wo"], p.get("bq"), p.get("bk"),
         p.get("bv"), cfg, positions, tpc=tpc, q_norm=p.get("q_norm"),
-        k_norm=p.get("k_norm"), **_lora_kwargs(p, lora_scale))
+        k_norm=p.get("k_norm"), causal=causal,
+        **_lora_kwargs(p, lora_scale))
     return x + psum_tp_act(y, tpc)
+
+
+# ===========================================================================
+# Cross-attention (encoder-decoder)
+# ===========================================================================
+
+def xattn_defs(cfg: ModelConfig, tp: int = 1) -> Dict[str, ParamDef]:
+    """``attn_defs`` without the biases and the qk-norm: wq / wo
+    head-parallel over 'model', wk / wv replicated there, wo
+    ``fusable``."""
+    d = attn_defs(cfg, tp)
+    for name in ("bq", "bk", "bv", "q_norm", "k_norm"):
+        d.pop(name, None)
+    return d
+
+
+def xattn_init_state(cfg, batch: int, enc_len: int,
+                     device) -> Dict[str, torch.Tensor]:
+    """The encoder's K/V of one cross-attention layer: k, v [B, enc_len,
+    KVH, hd] in bf16 whatever the compute dtype, as the JAX package
+    stores them; the prefill fills them, the decode steps read them."""
+    shape = (batch, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim())
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def xattn_make_kv(cfg, p, enc_out: torch.Tensor):
+    """The encoder output [B, Senc, D] projected once into this layer's
+    k, v [B, Senc, KVH, hd] (no RoPE, no bias)."""
+    B, S, _ = enc_out.shape
+    hd = cfg.resolved_head_dim()
+    k = (enc_out @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (enc_out @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    return k, v
+
+
+def xattn_apply(cfg, p, x, enc_kv):
+    """Cross-attention at serving: x [B, S, D] (the prompt, or one
+    token) attends over the encoder's ``enc_kv`` = (k, v) [B, Senc, KVH,
+    hd] through the flash kernel, non-causal. It consumes no adapter,
+    as in the JAX package."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(B, S, -1, hd)
+    out = attn_mod.cross_attention(q, *enc_kv)
+    return x + matmul(out.reshape(B, S, -1), p["wo"])
+
+
+def xattn_train(cfg, p, x, enc_out, tpc: TPContext = SERIAL):
+    """Cross-attention sublayer of the train step (under autograd),
+    tensor-parallel over 'model' as the JAX package's ``xattn_apply``
+    runs it: the normed input and the encoder's k / v are the same on
+    every rank, so each is cast where it meets this rank's heads
+    (``pvary_tp``: wq's input, and the k / v slice, whose gradients, and
+    with them ``enc_out``'s, are summed over 'model'); no int8 region;
+    the sublayer closes with an exact sum over 'model'
+    (``psum_tp_out``), never the int8 all-reduce. No adapter is
+    consumed."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = pvary_tp(h, tpc) @ p["wq"]
+    h_local = q.shape[-1] // hd
+    q = q.reshape(B, S, h_local, hd)
+    k, v = xattn_make_kv(cfg, p, enc_out)
+    padded = h_local * tpc.tp
+    k, v = attn_mod.slice_expand_kv(pvary_tp(k, tpc), pvary_tp(v, tpc),
+                                    h_local, padded // cfg.num_kv_heads,
+                                    tpc.rank)
+    out = attn_mod.chunked_causal_attention(q, k, v, causal=False)
+    if padded != cfg.num_heads:
+        mask = local_head_mask(tpc, padded, cfg.num_heads, out.device)
+        out = out * mask[None, None, :, None].to(out.dtype)
+    y = matmul(out.reshape(B, S, h_local * hd), p["wo"])
+    return x + psum_tp_out(y, tpc)
 
 
 def model_summed(defs: Dict[str, ParamDef], name: str,

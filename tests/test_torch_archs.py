@@ -156,8 +156,7 @@ def test_configs_equal_jax(arch):
     _assert_fields_equal(get_config(arch), jreg.get_config(arch), arch)
     _assert_fields_equal(get_smoke_config(arch), jreg.get_smoke_config(arch),
                          f"{arch} smoke")
-    assert ARCH_IDS == tuple(a for a in jreg.ARCH_IDS
-                             if a != "seamless-m4t-medium")
+    assert ARCH_IDS == jreg.ARCH_IDS
 
 
 def _jax_system(**kw):

@@ -50,10 +50,18 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_registry_resolves_only_port_modules():
+    """All ten archs of the JAX package resolve to the port's own config
+    modules; an unknown one raises."""
+    from repro_torch.configs import registry
     assert get_config("qwen2.5-3b").num_layers == 36
     assert get_smoke_config("qwen2.5-3b").head_dim == 16
+    assert len(registry.ARCH_IDS) == 10
+    for arch in registry.ARCH_IDS:
+        assert type(get_config(arch)).__module__ == "repro_torch.configs.base"
+        assert registry._load(arch).__name__.startswith("repro_torch.configs.")
+    assert get_config("seamless-m4t-medium").num_encoder_layers == 12
     with pytest.raises(KeyError):
-        get_config("seamless-m4t-medium")
+        get_config("no-such-arch")
 
 
 def test_serve_entry_point_raises_without_cuda(monkeypatch):
