@@ -305,7 +305,11 @@ Each parity phase runs its card and its CPU job side by side.
 
 Phase 2 also holds the three int8 kernels (qwZ/qgZ) bit-exact to their
 plain versions at the train and PEFT phases' shapes, at the int8 TP
-activation all-reduce's and at stream_train's leaf level, the chunk-matmul kernel
+activation all-reduce's, at stream_train's leaf level and at
+seamless-m4t-medium's shards, quantize and dequantize also in the
+callers' chunked layouts (n chunks of ragged, unaligned sizes; bf16 and
+fp32 in and out) and times the callers' local passes on either side of
+the wire beside the kernels alone (``int8_local_pass`` lines), the chunk-matmul kernel
 of the fused ring within tolerance of its plain version (and bit for bit
 column-independent, its wgmma + TMA variant bit-equal to its mma.sync
 one) at the train phase's shapes, mode 'both''s transposed operands read
@@ -773,65 +777,162 @@ def phase_kernels():
     return prefill, decode, jamba
 
 
-def int8_bound(kind, nb, n=1, in_elt=4):
+def int8_bound(kind, nb, n=1, elt=4, elems=None):
     """Least time: the bytes the function must move (each input read
     once, each output written once) over the HBM rate; a few flops per
-    byte, so bytes bind. Returns (ms, bound_by)."""
+    byte, so bytes bind. ``elems``: the dense elements a quantize reads
+    or a dequantize writes, ``elt`` bytes each (default: nb whole
+    blocks). Returns (ms, bound_by)."""
+    elems = nb * 256 if elems is None else elems
     if kind == "quantize":
-        nbytes = nb * 256 * in_elt + nb * 256 + nb * 4
+        nbytes = elems * elt + nb * 256 + nb * 4
     elif kind == "dequantize":
-        nbytes = nb * 256 + nb * 4 + nb * 256 * 4
+        nbytes = nb * 256 + nb * 4 + elems * elt
     else:
         nbytes = n * (nb * 256 + nb * 4) + nb * 256 * 4
     return nbytes / PEAK_HBM_BYTES * 1e3, "bytes"
 
 
-def int8_case(kind, name, nb, gen, n=2, dtype="float32", timed=False):
+def int8_case(kind, name, nb, gen, n=2, dtype="float32", timed=False,
+              n_chunks=1, chunk_elems=None, blocks_per_chunk=None, offset=0):
     """One int8 kernel against its plain version on the card, bit for
-    bit (``torch.equal``)."""
+    bit (``torch.equal``). Quantize and dequantize take the chunked
+    layout: ``n_chunks`` chunks of ``chunk_elems`` elements (default: nb
+    whole blocks), quantized from ``dtype`` (read from ``offset``
+    elements into its buffer, so a chunk may start unaligned) into
+    ``blocks_per_chunk`` blocks each, or dequantized into ``dtype``."""
     import torch
     from repro_torch.kernels import ops, ref
 
     dt = getattr(torch, dtype)
+    layout = {}
     if kind == "quantize":
-        x = (torch.randn(nb, 256, generator=gen, device="cuda")
-             * 0.02).to(dt)
-        args, plain = (x,), ref.int8_quantize_blocks_plain
-        fn = ops.int8_quantize_blocks
+        if chunk_elems is None:
+            chunk_elems = nb * 256 // n_chunks
+        elems = n_chunks * chunk_elems
+        buf = torch.randn(offset + elems, generator=gen, device="cuda")
+        x = (buf * 0.02).to(dt)[offset:]
+        layout = dict(n_chunks=n_chunks, chunk_elems=chunk_elems,
+                      blocks_per_chunk=blocks_per_chunk)
+        nb = n_chunks * (blocks_per_chunk or -(-chunk_elems // 256))
+        args = (x,)
+        fn, plain = ops.int8_quantize_blocks, ref.int8_quantize_blocks_plain
     else:
         lead = (nb,) if kind == "dequantize" else (n, nb)
         q = torch.randint(-127, 128, lead + (256,), generator=gen,
                           device="cuda", dtype=torch.int8)
         s = torch.rand(lead + (1,), generator=gen, device="cuda") * 1e-3
         args = (q, s)
-        fn, plain = ((ops.int8_dequantize_blocks,
-                      ref.int8_dequantize_blocks_plain)
-                     if kind == "dequantize" else
-                     (ops.int8_dequant_accumulate, ref.int8_dequant_acc_plain))
-    got = fn(*args)
+        if kind == "dequantize":
+            layout = dict(n_chunks=n_chunks, chunk_elems=chunk_elems,
+                          out_dtype=dt)
+            elems = nb * 256 if chunk_elems is None else n_chunks * chunk_elems
+            fn, plain = (ops.int8_dequantize_blocks,
+                         ref.int8_dequantize_blocks_plain)
+        else:
+            fn, plain = ops.int8_dequant_accumulate, ref.int8_dequant_acc_plain
+    got = fn(*args, **layout)
     torch.cuda.synchronize()
-    want = plain(*args)
+    want = plain(*args, **layout)
     got_t = got if isinstance(got, tuple) else (got,)
     want_t = want if isinstance(want, tuple) else (want,)
-    equal = all(torch.equal(a, b) for a, b in zip(got_t, want_t))
+    equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got_t, want_t))
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got_t, want_t))
     out = {"kernel": QUANT_NAMES[kind], "case": name, "nb": nb,
            "n": n if kind == "dequant_accumulate" else None,
-           "dtype": dtype if kind == "quantize" else None,
+           "dtype": dtype if kind != "dequant_accumulate" else None,
            "bit_exact": equal, "max_abs_err": err}
+    if kind != "dequant_accumulate":
+        out.update(n_chunks=n_chunks, chunk_elems=elems // n_chunks,
+                   offset=offset)
     check(equal, f"{QUANT_NAMES[kind]} {name}: kernel differs from its "
           f"plain version (max |diff| {err})")
     if timed:
-        out["ms"] = cuda_ms(lambda: fn(*args), 50)
-        out["device_ms"] = graph_ms(lambda: fn(*args))
-        out["host_us"] = host_us(lambda: fn(*args))
-        out["plain_ms"] = cuda_ms(lambda: plain(*args), 10)
+        out["ms"] = cuda_ms(lambda: fn(*args, **layout), 50)
+        out["device_ms"] = graph_ms(lambda: fn(*args, **layout))
+        out["host_us"] = host_us(lambda: fn(*args, **layout))
+        out["plain_ms"] = cuda_ms(lambda: plain(*args, **layout), 10)
         # no single PyTorch call computes any of the three functions
         out["library_ms"] = None
-        out["bound_ms"], out["bound_by"] = int8_bound(
-            kind, nb, n, torch.finfo(dt).bits // 8 if kind == "quantize"
-            else 4)
+        out["bound_ms"], out["bound_by"] = (
+            int8_bound(kind, nb, n) if kind == "dequant_accumulate" else
+            int8_bound(kind, nb, elt=torch.finfo(dt).bits // 8, elems=elems))
+    return out
+
+
+def int8_local_passes(gen, cases):
+    """The callers' local passes on either side of the wire, as the train
+    step runs them (``core/grad_compress._quantize`` / ``_dequantize``,
+    each one launch), timed as the kernel cases are, beside the kernel
+    alone at the same layout (``cases``: kernel case name -> its record):
+    qwZ's issue (quantize the shard) and arrival (dequantize the
+    gathered blocks into the shard's dtype), qgZ's issue (quantize the
+    stage-1 gradient in n chunks) and the int8 TP all-reduce's issue and
+    final dequantize, at qwen2.5-3b's MLP leaf, tp_train's activation
+    and seamless-m4t-medium's attention and MLP shards. The results are
+    the kernel cases' bits (``torch.equal``)."""
+    import torch
+    from repro_torch.core.grad_compress import _dequantize, _quantize
+    from repro_torch.kernels import ops
+
+    def bf16(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * 0.02).bfloat16()
+
+    def wire(nb):
+        return (torch.randint(-127, 128, (nb, 256), generator=gen,
+                              device="cuda", dtype=torch.int8),
+                torch.rand(nb, 1, generator=gen, device="cuda") * 1e-3)
+    w_elems = 2048 * 11008 // 4
+    t_total = TRAIN_BATCH // 4 * TRAIN_SEQ * 2048
+    passes = []
+    for tag, elems, kcase in (("mlp", w_elems, "mlp"),
+                              ("seamless_attn", 1024 * 1024 // 4,
+                               "seamless_attn"),
+                              ("seamless_mlp", 1024 * 4096 // 4,
+                               "seamless_mlp")):
+        nb = -(-elems // 256)
+        w, g, (q, s) = bf16(elems), bf16(2 * elems), wire(2 * nb)
+        passes += [
+            (f"qwz_issue_{tag}", f"{kcase}_shard_bf16",
+             lambda w=w: _quantize(w),
+             lambda w=w: ops.int8_quantize_blocks(w)),
+            (f"qwz_arrival_{tag}", f"{kcase}_stage1_bf16",
+             lambda q=q, s=s, e=elems: _dequantize(q, s, 2, e,
+                                                   torch.bfloat16),
+             lambda q=q, s=s, e=elems: ops.int8_dequantize_blocks(
+                 q, s, n_chunks=2, chunk_elems=e, out_dtype=torch.bfloat16)),
+            (f"qgz_issue_{tag}", f"{kcase}_stage1_grad_bf16",
+             lambda g=g: _quantize(g, 2),
+             lambda g=g: ops.int8_quantize_blocks(g, n_chunks=2))]
+    x, (q, s) = bf16(TRAIN_BATCH // 4, TRAIN_SEQ, 2048), wire(t_total // 256)
+    passes += [
+        ("act_issue_tp", "tp_act_bf16",
+         lambda: _quantize(x, blocks_per_chunk=t_total // 256),
+         lambda: ops.int8_quantize_blocks(
+             x.reshape(-1), blocks_per_chunk=t_total // 256)),
+        ("act_arrival_tp", "tp_act_gather_bf16",
+         lambda: _dequantize(q, s, 1, t_total, torch.bfloat16),
+         lambda: ops.int8_dequantize_blocks(q, s, chunk_elems=t_total,
+                                            out_dtype=torch.bfloat16))]
+    out = []
+    for name, kcase, local, kernel in passes:
+        a, b = local(), kernel()
+        a, b = (a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,))
+        check(all(torch.equal(u, v) for u, v in zip(a, b)),
+              f"int8 local pass {name} differs from its kernel")
+        rec = {"pass": name, "kernel": cases[kcase]["kernel"],
+               "kernel_case": kcase,
+               "ms": cuda_ms(local, 50), "device_ms": graph_ms(local),
+               "host_us": host_us(local),
+               "kernel_device_ms": cases[kcase]["device_ms"],
+               "kernel_host_us": cases[kcase]["host_us"],
+               "bound_ms": cases[kcase]["bound_ms"]}
+        emit("int8_local_pass", **rec)
+        out.append(rec)
     return out
 
 
@@ -839,45 +940,65 @@ def phase_int8_kernels():
     """The int8 kernels at the train phase's shapes (qwen2.5-3b, mesh
     pod 2 x data 2): one rank's shard of an MLP weight (2048 x 11008 / 4
     = 22,016 blocks; bf16, as qwZ quantizes it), its pod-gathered
-    stage-1 view (2 x 22,016 blocks: qwZ's dequantize on arrival, qgZ's
-    quantize and n = 2 dequant-accumulate), the embedding shard
-    (151,936 x 2048 / 4 = 303,872 blocks), the PEFT phase's LoRA adapter
-    (one rank's shard of a rank-8 ``wq_lora_a``: 2048 x 8 / 4 = 16
-    blocks, and its stage-1 view of 32), the int8 TP activation
-    all-reduce of phase tp_train (one rank's [2, 512, 2048] activation:
-    quantize 8,192 bf16 blocks, dequant-accumulate n = 2 sources of
-    4,096, requantize the 4,096 fp32 ones, dequantize the gathered
-    8,192), the whole stacked MLP leaf that stream_train's async reduce
-    quantizes at once (2 layers: the bf16 storage shard of 44,032
-    blocks, its stage-1 view of 88,064, qgZ's fp32 quantize of the
-    view's gradient and the n = 2 dequant-accumulate of 44,032), and a
-    ragged block count. Returns {kind: timed main-shape case}."""
+    stage-1 view (2 x 22,016 blocks: qwZ's dequantize on arrival, into
+    bf16 as the train step runs it and into fp32; qgZ's quantize of the
+    bf16 gradient in 2 chunks, and of its fp32 widening; the n = 2
+    dequant-accumulate), the embedding shard (151,936 x 2048 / 4 =
+    303,872 blocks), the PEFT phase's LoRA adapter (one rank's shard of
+    a rank-8 ``wq_lora_a``: 2048 x 8 / 4 = 16 blocks, and its stage-1
+    view of 32), the int8 TP activation all-reduce of phase tp_train
+    (one rank's [2, 512, 2048] activation: quantize 8,192 bf16 blocks,
+    dequant-accumulate n = 2 sources of 4,096, requantize the 4,096 fp32
+    ones, dequantize the gathered 8,192 into bf16 and fp32), the whole
+    stacked MLP leaf that stream_train's async reduce quantizes at once
+    (2 layers: the bf16 storage shard of 44,032 blocks, its stage-1 view
+    of 88,064, qgZ's quantize of the view's gradient and the n = 2
+    dequant-accumulate of 44,032), seamless-m4t-medium's shards at (2,
+    2, 1) (encdec_train: attention 262,144 elements = 1,024 blocks, MLP
+    4,096 blocks, a norm 1 block, the embedding 256,206 blocks; each
+    shard's quantize, the stage-1 arrival of 2 chunks into bf16 and the
+    stage-1 gradient's quantize in 2 chunks), ragged chunks whose starts
+    are not 16-byte aligned (2 x 2,100 bf16, 4 x 4,099, a buffer offset)
+    and a ragged block count; then the callers' local passes
+    (``int8_local_passes``). Returns ({kind: timed main-shape case},
+    {kernel/case: every other timed case}, [local passes])."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     w_nb, e_nb = 2048 * 11008 // 4 // 256, 151936 * 2048 // 4 // 256
     a_nb = 2048 * PEFT_RANK // 4 // 256
     t_nb = TRAIN_BATCH // 4 * TRAIN_SEQ * 2048 // 256
+    w_el = w_nb * 256
     main = {
         "quantize": int8_case("quantize", "mlp_shard_bf16", w_nb, gen,
                               dtype="bfloat16", timed=True),
-        "dequantize": int8_case("dequantize", "mlp_stage1", 2 * w_nb, gen,
-                                timed=True),
+        "dequantize": int8_case("dequantize", "mlp_stage1_bf16", 2 * w_nb,
+                                gen, dtype="bfloat16", timed=True,
+                                n_chunks=2, chunk_elems=w_el),
         "dequant_accumulate": int8_case("dequant_accumulate",
                                         "mlp_stage1_grad", w_nb, gen,
                                         timed=True)}
     extra = [
-        int8_case("quantize", "mlp_stage1_grad_f32", 2 * w_nb, gen),
+        int8_case("dequantize", "mlp_stage1", 2 * w_nb, gen, timed=True),
+        int8_case("quantize", "mlp_stage1_grad_bf16", 2 * w_nb, gen,
+                  dtype="bfloat16", timed=True, n_chunks=2, chunk_elems=w_el),
+        int8_case("quantize", "mlp_stage1_grad_f32", 2 * w_nb, gen,
+                  timed=True),
         int8_case("quantize", "embed_shard_bf16", e_nb, gen, dtype="bfloat16",
                   timed=True),
         int8_case("dequantize", "embed_stage1", 2 * e_nb, gen, timed=True),
+        int8_case("dequantize", "embed_stage1_bf16", 2 * e_nb, gen,
+                  dtype="bfloat16", timed=True, n_chunks=2,
+                  chunk_elems=e_nb * 256),
         int8_case("dequant_accumulate", "embed_stage1_grad", e_nb, gen,
                   timed=True),
         int8_case("quantize", "peft_adapter_shard_bf16", a_nb, gen,
                   dtype="bfloat16", timed=True),
         int8_case("quantize", "peft_adapter_stage1_grad_bf16", 2 * a_nb, gen,
-                  dtype="bfloat16"),
+                  dtype="bfloat16", n_chunks=2),
         int8_case("dequantize", "peft_adapter_stage1", 2 * a_nb, gen,
                   timed=True),
+        int8_case("dequantize", "peft_adapter_stage1_bf16", 2 * a_nb, gen,
+                  dtype="bfloat16", n_chunks=2, chunk_elems=a_nb * 256),
         int8_case("dequant_accumulate", "peft_adapter_stage1_grad", a_nb,
                   gen, timed=True),
         # the int8 TP activation all-reduce at tp_train's activation:
@@ -889,22 +1010,72 @@ def phase_int8_kernels():
         int8_case("quantize", "tp_act_requant_f32", t_nb // 2, gen,
                   timed=True),
         int8_case("dequantize", "tp_act_gather", t_nb, gen, timed=True),
+        int8_case("dequantize", "tp_act_gather_bf16", t_nb, gen,
+                  dtype="bfloat16", timed=True, chunk_elems=t_nb * 256),
         # stream_train's leaf-level trio: the stacked [2, 2048, 11008] leaf
         int8_case("quantize", "mlp_leaf_shard_bf16", TRAIN_DEPTH * w_nb, gen,
                   dtype="bfloat16", timed=True),
         int8_case("dequantize", "mlp_leaf_stage1", 2 * TRAIN_DEPTH * w_nb,
                   gen, timed=True),
+        int8_case("dequantize", "mlp_leaf_stage1_bf16",
+                  2 * TRAIN_DEPTH * w_nb, gen, dtype="bfloat16", timed=True,
+                  n_chunks=2, chunk_elems=TRAIN_DEPTH * w_el),
         int8_case("quantize", "mlp_leaf_stage1_grad_f32",
                   2 * TRAIN_DEPTH * w_nb, gen, timed=True),
+        int8_case("quantize", "mlp_leaf_stage1_grad_bf16",
+                  2 * TRAIN_DEPTH * w_nb, gen, dtype="bfloat16", timed=True,
+                  n_chunks=2, chunk_elems=TRAIN_DEPTH * w_el),
         int8_case("dequant_accumulate", "mlp_leaf_stage1_grad",
-                  TRAIN_DEPTH * w_nb, gen, timed=True),
+                  TRAIN_DEPTH * w_nb, gen, timed=True)]
+    # seamless-m4t-medium's shards at (2, 2, 1): qwZ's quantize of the
+    # shard, its arrival of 2 chunks into bf16, qgZ's quantize of the
+    # stage-1 gradient in 2 chunks
+    for tag, elems, timed in (("seamless_attn", 1024 * 1024 // 4, True),
+                              ("seamless_mlp", 1024 * 4096 // 4, True),
+                              ("seamless_norm", 1024 // 4, False),
+                              ("seamless_embed", 256206 * 1024 // 4, True)):
+        nb = -(-elems // 256)
+        extra += [
+            int8_case("quantize", f"{tag}_shard_bf16", nb, gen,
+                      dtype="bfloat16", timed=timed, chunk_elems=elems),
+            int8_case("dequantize", f"{tag}_stage1_bf16", 2 * nb, gen,
+                      dtype="bfloat16", timed=timed, n_chunks=2,
+                      chunk_elems=elems),
+            int8_case("quantize", f"{tag}_stage1_grad_bf16", 2 * nb, gen,
+                      dtype="bfloat16", timed=timed, n_chunks=2,
+                      chunk_elems=elems)]
+    # ragged chunks: starts that are not 16-byte aligned (2,100 bf16
+    # elements are 4,200 bytes; 4,099 of either dtype), lanes straddling
+    # a chunk's end, a buffer offset, all-zero tail blocks (the TP
+    # all-reduce's n * nb blocks of a ragged activation)
+    for dtype in ("bfloat16", "float32"):
+        extra += [
+            int8_case("quantize", f"ragged_2x2100_{dtype}", 0, gen,
+                      dtype=dtype, n_chunks=2, chunk_elems=2100),
+            int8_case("quantize", f"ragged_4x4099_{dtype}", 0, gen,
+                      dtype=dtype, n_chunks=4, chunk_elems=4099),
+            int8_case("quantize", f"ragged_offset3_{dtype}", 0, gen,
+                      dtype=dtype, n_chunks=2, chunk_elems=2048, offset=3),
+            int8_case("quantize", f"ragged_tail_blocks_{dtype}", 0, gen,
+                      dtype=dtype, chunk_elems=1_000_003,
+                      blocks_per_chunk=2 * 1954),
+            int8_case("dequantize", f"ragged_2x2100_{dtype}", 18, gen,
+                      dtype=dtype, n_chunks=2, chunk_elems=2100),
+            int8_case("dequantize", f"ragged_4x4099_{dtype}", 68, gen,
+                      dtype=dtype, n_chunks=4, chunk_elems=4099),
+            int8_case("dequantize", f"ragged_tail_blocks_{dtype}", 2 * 1954,
+                      gen, dtype=dtype, chunk_elems=1_000_003)]
+    extra += [
         int8_case("quantize", "ragged_f32", 4099, gen),
         int8_case("dequantize", "ragged", 4099, gen),
         int8_case("dequant_accumulate", "ragged_n3", 4099, gen, n=3)]
     for c in list(main.values()) + extra:
         emit("kernels", **c)
-    return main, {c["kernel"] + "/" + c["case"]: c for c in extra
-                  if "ms" in c}
+    timed = {c["kernel"] + "/" + c["case"]: c for c in extra if "ms" in c}
+    by_case = {c["case"]: c for c in list(main.values()) + extra
+               if "ms" in c and c["kernel"] != QUANT_NAMES[
+                   "dequant_accumulate"]}
+    return main, timed, int8_local_passes(gen, by_case)
 
 
 def mm_bound(m, k, n, elt):
@@ -4396,7 +4567,7 @@ def main() -> int:
                 for n in _build.SOURCES})
 
     prefill, decode, flash_jamba = phase_kernels()
-    int8_main, int8_extra = phase_int8_kernels()
+    int8_main, int8_extra, int8_passes = phase_int8_kernels()
     mm_main, mm_extra = phase_mm_kernels()
     wkv_prefill, wkv_decode = phase_wkv_kernels()
     scan_prefill, scan_decode = phase_mamba_kernels()
@@ -4477,7 +4648,11 @@ def main() -> int:
             + cache_launches[k] + family_launches[k] + encdec_train[k],
             **entry(c), "shape": c["case"],
             "other_shapes": {n: entry(e) for n, e in int8_extra.items()
-                             if e["kernel"] == QUANT_NAMES[k]}}
+                             if e["kernel"] == QUANT_NAMES[k]},
+            "local_passes": {
+                p["pass"]: {f: p[f] for f in ("ms", "device_ms", "host_us",
+                                              "kernel_device_ms")}
+                for p in int8_passes if p["kernel"] == QUANT_NAMES[k]}}
             for k, c in int8_main.items()] + [{
         "name": "matmul_chunk", "route": "cuda", "source": MM_SOURCE,
         "replaces": MM_TPU_KERNEL,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the chunk matmul, the flash-attention kernel and the RWKV-6 WKV
-kernel of this tree against those of another tree of the repo (e.g. the
-parent commit), on one card, in turns: other, this, this, other, each in
-its own process.
+"""Time the chunk matmul, the flash-attention kernel, the RWKV-6 WKV
+kernel and the int8 quantize / dequantize kernels with their callers of
+this tree against those of another tree of the repo (e.g. the parent
+commit), on one card, in turns: other, this, this, other, each in its
+own process.
 
   git archive <parent> | tar -x -C .smoke_archive/parent
   python3 kernel_ab.py --other .smoke_archive/parent [--out FILE]
@@ -18,11 +19,16 @@ kernel at the paged and jamba serve shapes (prefill and decode), and the
 WKV kernel at the rwkv serve shapes (prefill and decode); beside the
 first two the one PyTorch call that computes the same function
 (``torch.matmul``, ``scaled_dot_product_attention``; none computes the
-WKV). Inputs come from fixed seeds, so every process sees the same ones,
-and the WKV's outputs and final state are compared bit for bit across
-the trees by digest. Prints one JSON line per process and one per WKV
-shape saying whether the bits agree (and writes the runs to ``--out``
-when given). Needs a CUDA card.
+WKV), and the int8 kernels at ``chip_smoke.py``'s timed shapes in the
+whole-block layout both trees take, beside the callers' local passes
+(qwZ's issue and arrival, qgZ's issue, the int8 TP all-reduce) run
+through a ``Loopback`` wire, so a tree's own pad, widening, slice and
+cast are timed with its kernels. Inputs come from fixed seeds, so every
+process sees the same ones, and the WKV's outputs and final state, the
+int8 kernels' results and the callers' results and wire bytes are
+compared bit for bit across the trees by digest. Prints one JSON line
+per process and one per WKV shape and int8 case saying whether the bits
+agree (and writes the runs to ``--out`` when given). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -102,6 +109,147 @@ def wkv_cases(gen):
     return [("prefill", *inputs(512, False)), ("decode", *inputs(1, True))]
 
 
+class Loopback:
+    """A collective over ``n`` ranks with no wire: an all-gather returns
+    n copies of what it was first handed, an all-to-all a copy of it,
+    each kept by shape and dtype, so a caller's local passes on either
+    side of the wire run (and time) alone, the same in any tree.
+    ``sent`` keeps the first tensor of each kind, the wire's bytes."""
+
+    def __init__(self, n):
+        self.n, self.kept, self.sent = n, {}, []
+        self.mesh = SimpleNamespace(mesh_shape=self)
+
+    def size(self, axis):
+        return self.n
+
+    def _keep(self, op, x, make):
+        key = (op, tuple(x.shape), x.dtype)
+        if key not in self.kept:
+            self.sent.append(x.clone())
+            self.kept[key] = make(x)
+        return self.kept[key]
+
+    def all_gather(self, x, axis, dim):
+        import torch
+        return self._keep("all_gather", x, lambda t: torch.cat([t] * self.n))
+
+    def all_to_all(self, x, axis):
+        return self._keep("all_to_all", x, lambda t: t.clone())
+
+    def all_gather_async(self, x, axis, dim):
+        out = self.all_gather(x, axis, dim)
+        return SimpleNamespace(wait=lambda: out)
+
+    def all_to_all_async(self, x, axis):
+        out = self.all_to_all(x, axis)
+        return SimpleNamespace(wait=lambda: out)
+
+
+def int8_kernel_cases(gen):
+    """(name, kernel, args) of the int8 kernels at chip_smoke.py's timed
+    shapes, in the whole-block layout both trees take: qwen2.5-3b's MLP
+    shard (qwZ's quantize) and stage-1 view (qwZ's fp32 dequantize,
+    qgZ's fp32 quantize), the embedding's stage-1 view, tp_train's
+    activation all-reduce (quantize, requantize, dequantize) and
+    seamless-m4t-medium's attention shard and its stage-1 view."""
+    import torch
+
+    def x(nb, dtype):
+        return (torch.randn(nb, 256, generator=gen, device="cuda")
+                * 0.02).to(dtype)
+
+    def qs(nb):
+        return (torch.randint(-127, 128, (nb, 256), generator=gen,
+                              device="cuda", dtype=torch.int8),
+                torch.rand(nb, 1, generator=gen, device="cuda") * 1e-3)
+    w_nb, e_nb, t_nb = 22016, 303872, 8192
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [("quantize/mlp_shard_bf16", "quantize", (x(w_nb, bf16),)),
+            ("quantize/mlp_stage1_grad_f32", "quantize", (x(2 * w_nb, f32),)),
+            ("quantize/tp_act_bf16", "quantize", (x(t_nb, bf16),)),
+            ("quantize/tp_act_requant_f32", "quantize",
+             (x(t_nb // 2, f32),)),
+            ("quantize/seamless_attn_shard_bf16", "quantize",
+             (x(1024, bf16),)),
+            ("dequantize/mlp_stage1", "dequantize", qs(2 * w_nb)),
+            ("dequantize/embed_stage1", "dequantize", qs(2 * e_nb)),
+            ("dequantize/tp_act_gather", "dequantize", qs(t_nb)),
+            ("dequantize/seamless_attn_stage1", "dequantize", qs(2048))]
+
+
+def int8_caller_cases(gen):
+    """(name, make) of the callers' local passes over a ``Loopback`` wire
+    of 2 ranks, bf16 as the train step runs them: ``make(tree modules)``
+    returns the call to time and a function of its result giving the
+    tensors to digest. qwZ's issue (``QuantizedPending``: quantize the
+    shard) and arrival (its ``wait``: dequantize, drop the padding,
+    cast), qgZ's issue (``QuantizedReducePending``: quantize the stage-1
+    gradient in 2 chunks), and the int8 TP all-reduce whole
+    (``_int8_allreduce``: quantize, dequant-accumulate, requantize,
+    dequantize), at qwen2.5-3b's MLP shard (2048 x 11008 / 4),
+    seamless-m4t-medium's attention and MLP shards (1024 x 1024 / 4,
+    1024 x 4096 / 4), a ragged shard (300 x 7) and tp_train's [2, 512,
+    2048] activation."""
+    import torch
+
+    def bf16(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * 0.02).bfloat16()
+    cases = []
+    for tag, shape in (("mlp", (512, 11008)), ("seamless_attn", (256, 1024)),
+                       ("seamless_mlp", (256, 4096)), ("ragged", (300, 7))):
+        w, g = bf16(*shape), bf16(2 * shape[0], *shape[1:])
+
+        def issue(m, w=w):
+            coll = Loopback(2)
+            return (lambda: m.gc.QuantizedPending(w, coll, "pod", 0),
+                    lambda p: coll.sent)
+
+        def arrival(m, w=w):
+            p = m.gc.QuantizedPending(w, Loopback(2), "pod", 0)
+            return p.wait, lambda out: [out]
+
+        def reduce_issue(m, g=g):
+            coll = Loopback(2)
+            return (lambda: m.gc.QuantizedReducePending(g, coll, "pod", 0),
+                    lambda p: coll.sent)
+        cases += [(f"qwz_issue_{tag}", issue), (f"qwz_arrival_{tag}", arrival),
+                  (f"qgz_issue_{tag}", reduce_issue)]
+    x = bf16(2, 512, 2048)
+
+    def allreduce(m):
+        coll = Loopback(2)
+        return (lambda: m.ac._int8_allreduce(x, coll, "model"),
+                lambda out: [out] + coll.sent)
+    return cases + [("act_allreduce_tp", allreduce)]
+
+
+def time_int8(gen) -> dict:
+    """The int8 kernels alone and the callers' local passes: eager,
+    device and host time per call, and the digests of their results."""
+    from repro_torch.core import act_compress, grad_compress
+    from repro_torch.kernels import ops
+    out = {}
+    for name, kind, args in int8_kernel_cases(gen):
+        fn = getattr(ops, f"int8_{kind}_blocks")
+        res = fn(*args)
+        out[name] = {"ms": cuda_ms(lambda: fn(*args), ITERS),
+                     "device_ms": graph_ms(lambda: fn(*args), ITERS),
+                     "host_us": host_us(lambda: fn(*args)),
+                     "sha256": [digest(t) for t in (
+                         res if isinstance(res, tuple) else (res,))]}
+    mods = SimpleNamespace(gc=grad_compress, ac=act_compress)
+    for name, make in int8_caller_cases(gen):
+        call, result = make(mods)
+        res = call()
+        out[name] = {"ms": cuda_ms(call, ITERS),
+                     "device_ms": graph_ms(call, ITERS),
+                     "host_us": host_us(call),
+                     "sha256": [digest(t) for t in result(res)]}
+    return out
+
+
 def digest(t) -> str:
     """sha256 of a tensor's bytes: equal digests, equal bits."""
     import hashlib
@@ -122,7 +270,7 @@ def time_tree(tree: Path) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), "matmul_chunk": {}, "flash_attention": {},
-        "wkv6": {}}
+        "wkv6": {}, "int8": {}}
     for name, a, b in matmul_cases(gen):
         out["matmul_chunk"][name] = {
             **timed(lambda: cm._chunk_mm(a, b), lambda: torch.matmul(a, b)),
@@ -147,6 +295,7 @@ def time_tree(tree: Path) -> dict:
                              "host_us": host_us(call),
                              "out_sha256": digest(o),
                              "state_sha256": digest(st)}
+    out["int8"] = time_int8(gen)
     return out
 
 
@@ -186,6 +335,13 @@ def main() -> int:
             f"{what}_equal_other": len({r["wkv6"][name][f"{what}_sha256"]
                                         for r in runs}) == 1
             for what in ("state", "out")}}), flush=True)
+    # the int8 kernels' and the callers' results, bit for bit across the
+    # trees (the redesign moves the pad, widening, slice and cast into
+    # the kernels; the values and the wire's bytes stay)
+    for name in runs[0]["int8"]:
+        print(json.dumps({"int8": name, "equal_other": len(
+            {json.dumps(r["int8"][name]["sha256"]) for r in runs}) == 1}),
+            flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(runs, indent=1))

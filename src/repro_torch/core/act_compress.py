@@ -8,9 +8,10 @@ reduce-scatter and an all-gather; ``_int8_allreduce`` runs both hops in
 int8 blocks with an fp32 scale each (``kernels/quant.py``'s 256-element
 blocks), about half the bf16 bytes:
 
-  quantize the (padded) tensor -> all-to-all of the blocks and scales ->
-  dequant-accumulate (this rank's chunk of the sum) -> quantize again ->
-  all-gather of the blocks and scales -> dequantize
+  quantize the tensor (the kernel pads its tail) -> all-to-all of the
+  blocks and scales -> dequant-accumulate (this rank's chunk of the
+  sum) -> quantize again -> all-gather of the blocks and scales ->
+  dequantize
 
 Every quantize, dequantize and dequant-accumulate goes through
 ``kernels/ops.py``: the CUDA kernel on a card tensor, its plain version
@@ -26,28 +27,23 @@ on a CPU tensor.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.core.grad_compress import _dequantize, _quantize
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.quant import BLOCK
 
 
 def _int8_allreduce(x: torch.Tensor, coll, axis: str) -> torch.Tensor:
     """The (approximate) sum of ``x`` over ``axis``, carried in int8.
-    The flattened tensor is padded with zeros so each of the n chunks is
-    a whole number of blocks; a bf16 tensor goes to the quantize kernel
-    as it is (it widens exactly), any other widens to fp32."""
+    The flattened tensor is quantized as one chunk over n * nb blocks,
+    its tail zeros, so each of the n chunks of the wire is a whole
+    number of blocks; the gathered blocks dequantize straight into the
+    first ``total`` elements in x's dtype (``grad_compress._quantize``
+    and ``_dequantize``: no pad, widening, slice or cast around them)."""
     n = coll.size(axis)
-    shape, dtype = x.shape, x.dtype
-    flat = x.reshape(-1)
-    if flat.dtype not in (torch.float32, torch.bfloat16):
-        flat = flat.float()
-    total = flat.shape[0]
-    per = -(-total // (n * BLOCK)) * BLOCK
-    if per * n > total:
-        flat = F.pad(flat, (0, per * n - total))
-    nb = per // BLOCK
-    q, scale = kops.int8_quantize_blocks(flat.reshape(n * nb, BLOCK))
+    total = x.numel()
+    nb = -(-total // (n * BLOCK))                   # blocks per rank chunk
+    q, scale = _quantize(x, blocks_per_chunk=n * nb)
     # reduce-scatter hop: rank j receives every rank's chunk j
     q_x = coll.all_to_all(q, axis).reshape(n, nb, BLOCK)
     s_x = coll.all_to_all(scale, axis).reshape(n, nb, 1)
@@ -56,8 +52,7 @@ def _int8_allreduce(x: torch.Tensor, coll, axis: str) -> torch.Tensor:
     q2, s2 = kops.int8_quantize_blocks(own)
     q_full = coll.all_gather(q2, axis, 0)
     s_full = coll.all_gather(s2, axis, 0)
-    out = kops.int8_dequantize_blocks(q_full, s_full).reshape(-1)[:total]
-    return out.reshape(shape).to(dtype)
+    return _dequantize(q_full, s_full, 1, total, x.dtype).reshape(x.shape)
 
 
 class _Int8Psum(torch.autograd.Function):

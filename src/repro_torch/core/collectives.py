@@ -40,9 +40,14 @@ a card of its own, that is when no host runs more ranks than it has
 cards; gloo otherwise. NCCL refuses two ranks on one card,
 so ranks that share a card (or run on the CPU) talk through gloo, and
 this wrapper stages a CUDA tensor through host memory explicitly: copy
-to the host, run the collective there, copy the result back. That is
-the wire of this topology, not a fallback: the compute and every kernel
-stay on the card.
+to pinned host memory, run the collective there, copy the result back.
+That is the wire of this topology, not a fallback: the compute and every
+kernel stay on the card. On gloo the all-gather and the reduce-scatter go
+through gloo's all-to-all (``all_to_all_single``), which moves the same
+(n-1)/n of the payload as a ring: gloo's own all-gather is a slower
+algorithm over host memory, and its reduce-scatter all-reduces the whole
+input. The reduce-scatter then sums the n blocks that arrived in group
+rank order, in their dtype, so every rank and device adds alike.
 """
 from __future__ import annotations
 
@@ -73,7 +78,7 @@ class Collectives:
 
     def __init__(self, mesh):
         self.mesh = mesh
-        self.stage = mesh.backend == "gloo"
+        self.gloo = mesh.backend == "gloo"
         self.counts = defaultdict(float)
 
     # -- accounting --------------------------------------------------------
@@ -104,7 +109,11 @@ class Collectives:
         return math.prod(self.mesh.mesh_shape.size(a) for a in axes) > 1
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
-        return t.cpu() if self.stage and t.device.type != "cpu" else t
+        if not self.gloo or t.device.type == "cpu":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        return host
 
     # -- operations ----------------------------------------------------------
     def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
@@ -123,10 +132,16 @@ class Collectives:
         n = math.prod(self.mesh.mesh_shape.size(a) for a in axes)
         src = self._wire(x.movedim(dim, 0).contiguous())
         out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        work = dist.all_gather_into_tensor(out, src,
-                                           group=self.mesh.group(axes),
-                                           async_op=True)
+                          dtype=src.dtype, device=src.device,
+                          pin_memory=src.is_pinned())
+        group = self.mesh.group(axes)
+        if self.gloo:           # every rank is sent a copy of this block
+            src = src.repeat((n,) + (1,) * (src.dim() - 1))
+            work = dist.all_to_all_single(out, src, group=group,
+                                          async_op=True)
+        else:
+            work = dist.all_gather_into_tensor(out, src, group=group,
+                                               async_op=True)
         self._count("all_gather", axes, out.numel() * out.element_size())
         return Pending(work, (src, out), x.device, dim)
 
@@ -147,12 +162,17 @@ class Collectives:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                              f"over {n} ranks")
         src = self._wire(x.movedim(dim, 0).contiguous())
+        group = self.mesh.group(axes)
+        self._count("psum_scatter", axes, src.numel() * src.element_size())
+        if self.gloo:           # block j to rank j; wait() sums what came
+            out = torch.empty_like(src, pin_memory=src.is_pinned())
+            work = dist.all_to_all_single(out, src, group=group,
+                                          async_op=True)
+            return Pending(work, (src, out), x.device, dim, blocks=n)
         out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
-        work = dist.reduce_scatter_tensor(out, src,
-                                          group=self.mesh.group(axes),
+        work = dist.reduce_scatter_tensor(out, src, group=group,
                                           async_op=True)
-        self._count("psum_scatter", axes, src.numel() * src.element_size())
         return Pending(work, (src, out), x.device, dim)
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -164,7 +184,7 @@ class Collectives:
         if not self._live(axes):
             return Pending(None, (x, x), x.device, None)
         src = self._wire(x.contiguous())
-        out = torch.empty_like(src)
+        out = torch.empty_like(src, pin_memory=src.is_pinned())
         work = dist.all_to_all_single(out, src, group=self.mesh.group(axes),
                                       async_op=True)
         self._count("all_to_all", axes, src.numel() * src.element_size())
@@ -202,7 +222,7 @@ class Collectives:
         me = self.index(axis)
         group = self.mesh.group((axis,))
         src = self._wire(x.contiguous())
-        buf = torch.empty_like(src)
+        buf = torch.empty_like(src, pin_memory=src.is_pinned())
         ops = []
         for a, b in perm:
             if a == me:
@@ -235,16 +255,27 @@ class Pending:
     """A collective in flight (an all-gather, reduce-scatter or
     all-to-all): ``wait()`` blocks until it is done and returns the
     result on the caller's device (``dim``: where the blocks go; None
-    for a collective over no live axis, which hands its input back)."""
+    for a collective over no live axis, which hands its input back;
+    ``blocks``: the number of blocks that arrived to be summed, for a
+    reduce-scatter sent as an all-to-all)."""
 
-    def __init__(self, work, bufs, device, dim):
+    def __init__(self, work, bufs, device, dim, blocks=None):
         self.work, self.bufs, self.device, self.dim = work, bufs, device, dim
+        self.blocks = blocks
 
     def wait(self) -> torch.Tensor:
         if self.work is not None:
             self.work.wait()
             self.work = None
         out = self.bufs[1]
+        if self.blocks is not None:
+            parts = out.unflatten(0, (self.blocks, -1))
+            acc = torch.empty_like(parts[0], pin_memory=out.is_pinned())
+            acc.copy_(parts[0])
+            for part in parts[1:]:
+                acc += part
+            self.bufs, self.blocks = (self.bufs[0], acc), None
+            out = acc
         if self.dim is None:
             return out
         return out.to(self.device).movedim(0, self.dim)

@@ -18,36 +18,51 @@ the forward and backward of the JAX package's ``custom_vjp``s.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.quant import BLOCK
+from repro_torch.kernels.quant import BLOCK, OUT_DTYPES
 
 
-def _quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 block quantization of the flattened tensor, padded
-    with zeros to whole blocks. Returns (q int8 [nb, BLOCK], scale
-    float32 [nb, 1]). A bf16 tensor goes to the kernel as it is (it
-    widens exactly); the plain version widens to fp32 first."""
-    flat = g.reshape(-1)
-    pad = (-flat.shape[0]) % BLOCK
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    if flat.dtype not in (torch.float32, torch.bfloat16):
+def _quantize(g: torch.Tensor, n_chunks: int = 1,
+              blocks_per_chunk: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The issue side of every int8 transport: symmetric int8 block
+    quantization of the flattened tensor in ``n_chunks`` equal chunks,
+    each padded with zeros to ``blocks_per_chunk`` blocks (default:
+    whole blocks). Returns (q int8 [n_chunks * blocks_per_chunk, BLOCK],
+    scale float32 [..., 1]). A float32 or bfloat16 tensor goes to the
+    kernel as it is (it reads the chunks in place; bf16 widens exactly),
+    any other widens to fp32 first."""
+    flat = g.contiguous().reshape(-1)
+    if flat.dtype not in OUT_DTYPES:
         flat = flat.float()
-    return kops.int8_quantize_blocks(flat.reshape(-1, BLOCK).contiguous())
+    return kops.int8_quantize_blocks(flat, n_chunks=n_chunks,
+                                     blocks_per_chunk=blocks_per_chunk)
+
+
+def _dequantize(q: torch.Tensor, s: torch.Tensor, n_chunks: int,
+                chunk_elems: int, dtype: torch.dtype) -> torch.Tensor:
+    """The arrival side: the values of ``n_chunks`` chunks of
+    ``chunk_elems`` elements (each chunk's block padding dropped) as a
+    flat tensor of ``dtype``. The kernel writes float32 and bfloat16
+    itself; any other dtype is cast from fp32."""
+    out_dtype = dtype if dtype in OUT_DTYPES else torch.float32
+    vals = kops.int8_dequantize_blocks(q, s, n_chunks=n_chunks,
+                                       chunk_elems=chunk_elems,
+                                       out_dtype=out_dtype)
+    return vals.to(dtype)
 
 
 def int8_psum_scatter(g: torch.Tensor, coll, axis: str,
                       dim: int) -> torch.Tensor:
     """Reduce-scatter of ``g`` over ``axis`` along ``dim``, carried in
-    int8: split into n chunks along dim, quantize each (padded to whole
-    blocks), all-to-all the chunks so rank j receives every rank's chunk
-    j, then fold them with the dequant-accumulate loop. Returns this
-    rank's block of the sum, in g's dtype."""
+    int8: split into n chunks along dim, quantize each (the kernel pads
+    each to whole blocks), all-to-all the chunks so rank j receives
+    every rank's chunk j, then fold them with the dequant-accumulate
+    loop. Returns this rank's block of the sum, in g's dtype."""
     return QuantizedReducePending(g, coll, axis, dim).wait()
 
 
@@ -71,13 +86,8 @@ class QuantizedReducePending:
                              f"over {n} ranks")
         self.shape = (lead // n,) + tuple(moved.shape[1:])
         self.chunk_elems = math.prod(self.shape)
-        flat = moved.reshape(n, self.chunk_elems).float()
-        pad = (-self.chunk_elems) % BLOCK
-        if pad:
-            flat = F.pad(flat, (0, pad))
-        self.nb = flat.shape[1] // BLOCK               # blocks per chunk
-        q, scale = kops.int8_quantize_blocks(flat.reshape(n * self.nb,
-                                                          BLOCK))
+        self.nb = -(-self.chunk_elems // BLOCK)        # blocks per chunk
+        q, scale = _quantize(moved, n)
         self.value = None
         self.parts = (coll.all_to_all_async(q, axis),
                       coll.all_to_all_async(scale, axis))
@@ -110,11 +120,11 @@ class QuantizedPending:
 
     def wait(self) -> torch.Tensor:
         q_all, s_all = (p.wait() for p in self.parts)
-        vals = kops.int8_dequantize_blocks(q_all, s_all)
-        vals = vals.reshape(self.n, -1)[:, :math.prod(self.shape)]
+        vals = _dequantize(q_all, s_all, self.n, math.prod(self.shape),
+                           self.dtype)
         out = vals.reshape((self.n * self.shape[0],)
                            + tuple(self.shape[1:]))
-        return out.movedim(0, self.dim).to(self.dtype)
+        return out.movedim(0, self.dim)
 
 
 def quantized_gather(w: torch.Tensor, coll, axis: str,

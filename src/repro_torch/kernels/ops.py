@@ -47,23 +47,38 @@ def _kernel_device(t: torch.Tensor, what: str) -> bool:
     return True
 
 
-def int8_quantize_blocks(x: torch.Tensor):
-    """x: [nb, BLOCK] float32/bfloat16 -> (q int8 [nb, BLOCK], scale
-    float32 [nb, 1])."""
+def int8_quantize_blocks(x: torch.Tensor, *, n_chunks: int = 1,
+                         chunk_elems: Optional[int] = None,
+                         blocks_per_chunk: Optional[int] = None):
+    """x: float32/bfloat16 (any float on the CPU) in the chunked layout
+    (``quant.chunk_layout``; by default x [nb, BLOCK], nb whole blocks)
+    -> (q int8 [n_chunks * blocks_per_chunk, BLOCK], scale float32 [...,
+    1])."""
     int8_quantize_blocks.calls += 1
+    layout = dict(n_chunks=n_chunks, chunk_elems=chunk_elems,
+                  blocks_per_chunk=blocks_per_chunk)
     if not _kernel_device(x, "int8 quantize"):
-        return ref.int8_quantize_blocks_plain(x)
-    out = quant.quantize_blocks(x)
+        return ref.int8_quantize_blocks_plain(x, **layout)
+    out = quant.quantize_blocks(x, **layout)
     int8_quantize_blocks.launches += 1
     return out
 
 
-def int8_dequantize_blocks(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """(q int8 [nb, BLOCK], s float32 [nb, 1]) -> float32 [nb, BLOCK]."""
+def int8_dequantize_blocks(q: torch.Tensor, s: torch.Tensor, *,
+                           n_chunks: int = 1,
+                           chunk_elems: Optional[int] = None,
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """(q int8 [nb, BLOCK], s float32 [nb, 1]) -> q * s in out_dtype
+    (float32 or bfloat16), each of the n_chunks chunks' padding dropped
+    past chunk_elems (``quant.dequant_layout``: [nb, BLOCK] by default,
+    else [n_chunks * chunk_elems])."""
     int8_dequantize_blocks.calls += 1
+    layout = dict(n_chunks=n_chunks, chunk_elems=chunk_elems,
+                  out_dtype=out_dtype)
     if not _kernel_device(q, "int8 dequantize"):
-        return ref.int8_dequantize_blocks_plain(q, s)
-    out = quant.dequantize_blocks(q, s)
+        return ref.int8_dequantize_blocks_plain(q, s, **layout)
+    out = quant.dequantize_blocks(q, s, **layout)
     int8_dequantize_blocks.launches += 1
     return out
 

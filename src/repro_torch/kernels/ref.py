@@ -8,7 +8,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.quant import INV_QMAX, SCALE_EPS
+from repro_torch.kernels.quant import (BLOCK, INV_QMAX, SCALE_EPS,
+                                      chunk_layout, dequant_layout)
 
 NEG_INF = -1e30
 
@@ -60,23 +61,43 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def int8_quantize_blocks_plain(x: torch.Tensor):
-    """Symmetric per-block int8 quantization. x: [nb, BLOCK] float.
-    Returns (q int8 [nb, BLOCK], scale float32 [nb, 1]) with scale =
-    max(max|x| * INV_QMAX, SCALE_EPS) and q = clip(round_half_even(x /
-    scale), -127, 127) -- ``torch.round`` rounds half to even, as
-    ``jnp.round`` does."""
-    blocks = x.float()
+def int8_quantize_blocks_plain(x: torch.Tensor, *, n_chunks: int = 1,
+                               chunk_elems: Optional[int] = None,
+                               blocks_per_chunk: Optional[int] = None):
+    """Symmetric per-block int8 quantization of x in the chunked layout
+    (``quant.chunk_layout``; the defaults take x [nb, BLOCK] as nb whole
+    blocks): each chunk padded with zeros to its blocks, then per block
+    scale = max(max|x| * INV_QMAX, SCALE_EPS) and q = clip(round_half_even(
+    x / scale), -127, 127) -- ``torch.round`` rounds half to even, as
+    ``jnp.round`` does. Returns (q int8 [n_chunks * blocks_per_chunk,
+    BLOCK], scale float32 [..., 1])."""
+    chunk_elems, bpc = chunk_layout(x.numel(), n_chunks, chunk_elems,
+                                    blocks_per_chunk)
+    flat = x.reshape(n_chunks, chunk_elems)
+    if bpc * BLOCK != chunk_elems:
+        padded = flat.new_zeros((n_chunks, bpc * BLOCK))
+        padded[:, :chunk_elems] = flat
+        flat = padded
+    blocks = flat.reshape(-1, BLOCK).float()
     scale = torch.clamp_min(blocks.abs().amax(dim=1, keepdim=True)
                             * INV_QMAX, SCALE_EPS)
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def int8_dequantize_blocks_plain(q: torch.Tensor,
-                                 s: torch.Tensor) -> torch.Tensor:
-    """(q int8 [nb, BLOCK], s float32 [nb, 1]) -> float32 [nb, BLOCK]."""
-    return q.float() * s
+def int8_dequantize_blocks_plain(q: torch.Tensor, s: torch.Tensor, *,
+                                 n_chunks: int = 1,
+                                 chunk_elems: Optional[int] = None,
+                                 out_dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
+    """(q int8 [nb, BLOCK], s float32 [nb, 1]) -> q * s in fp32, each of
+    the ``n_chunks`` chunks' padding dropped past ``chunk_elems``, cast
+    to ``out_dtype`` (``quant.dequant_layout``: [nb, BLOCK] by default,
+    else [n_chunks * chunk_elems])."""
+    chunk_elems, bpc, shape = dequant_layout(q.shape[0], n_chunks,
+                                             chunk_elems, out_dtype)
+    vals = (q.float() * s).reshape(n_chunks, bpc * BLOCK)[:, :chunk_elems]
+    return vals.reshape(shape).to(out_dtype)
 
 
 def int8_dequant_acc_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

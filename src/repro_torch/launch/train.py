@@ -520,11 +520,11 @@ def run_job(job: TrainJob, rank: int, world: int, local_world: int,
     device = device_for_rank(job.device, rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    else:
-        # the host's ranks share its cores: one share each, not all of
-        # them each (which oversubscribes the cores local_world times)
-        cores = len(os.sched_getaffinity(0))
-        torch.set_num_threads(max(1, cores // local_world))
+    # the host's ranks share its cores: one share each, not all of them
+    # each (which oversubscribes the cores local_world times; a card's
+    # ranks run their wire's copies and sums there too)
+    cores = len(os.sched_getaffinity(0))
+    torch.set_num_threads(max(1, cores // local_world))
     backend = _init_group(rank, world, local_world, init_method, device)
     try:
         mesh = RankMesh(job.mesh, backend)

@@ -183,10 +183,52 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(rng):
     ("dequant_accumulate", lambda: (torch.zeros(2, 2, BLOCK,
                                                 dtype=torch.int8),
                                     torch.ones(2, 2, 1))),
+    ("quantize_blocks", lambda: (torch.zeros(2, 2100).bfloat16(),
+                                 {"n_chunks": 2, "chunk_elems": 2100})),
+    ("quantize_blocks", lambda: (torch.zeros(300),
+                                 {"blocks_per_chunk": 4})),
+    ("dequantize_blocks", lambda: (torch.zeros(18, BLOCK, dtype=torch.int8),
+                                   torch.ones(18, 1),
+                                   {"n_chunks": 2, "chunk_elems": 2100,
+                                    "out_dtype": torch.bfloat16})),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(fn, args):
     """The CUDA wrappers never run a plain version: a CPU tensor
-    raises before anything is built or launched."""
+    raises before anything is built or launched, with the chunked
+    layout's arguments too."""
     from repro_torch.kernels import quant
+    a = args()
+    kw = a[-1] if isinstance(a[-1], dict) else {}
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(quant, fn)(*args())
+        getattr(quant, fn)(*a[:len(a) - bool(kw)], **kw)
+
+
+@pytest.mark.parametrize("fn,args,match", [
+    ("quantize", lambda: (torch.zeros(300), {"n_chunks": 7}), "n_chunks"),
+    ("quantize", lambda: (torch.zeros(300), {"n_chunks": 2,
+                                             "chunk_elems": 100}),
+     "chunk_elems"),
+    ("quantize", lambda: (torch.zeros(600), {"chunk_elems": 600,
+                                             "blocks_per_chunk": 2}),
+     "blocks_per_chunk"),
+    ("dequantize", lambda: (torch.zeros(2, BLOCK, dtype=torch.int8),
+                            torch.ones(2, 1), {"out_dtype": torch.float16}),
+     "out_dtype"),
+    ("dequantize", lambda: (torch.zeros(3, BLOCK, dtype=torch.int8),
+                            torch.ones(3, 1), {"n_chunks": 2}), "n_chunks"),
+    ("dequantize", lambda: (torch.zeros(2, BLOCK, dtype=torch.int8),
+                            torch.ones(2, 1), {"n_chunks": 2,
+                                               "chunk_elems": 257}),
+     "chunk_elems"),
+])
+def test_wrappers_and_plain_versions_refuse_bad_layouts(fn, args, match):
+    """A layout or output dtype the kernels do not take raises in the
+    CUDA wrapper (before the device check) and in the plain version: the
+    card and the CPU accept the same arguments."""
+    from repro_torch.kernels import quant
+    *tensors, kw = args()
+    for f in (getattr(quant, f"{fn}_blocks"),
+              getattr(ref, f"int8_{fn}_blocks_plain"),
+              getattr(ops, f"int8_{fn}_blocks")):
+        with pytest.raises(ValueError, match=match):
+            f(*tensors, **kw)
