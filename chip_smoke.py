@@ -308,8 +308,12 @@ plain versions at the train and PEFT phases' shapes, at the int8 TP
 activation all-reduce's, at stream_train's leaf level and at
 seamless-m4t-medium's shards, quantize and dequantize also in the
 callers' chunked layouts (n chunks of ragged, unaligned sizes; bf16 and
-fp32 in and out) and times the callers' local passes on either side of
-the wire beside the kernels alone (``int8_local_pass`` lines), the chunk-matmul kernel
+fp32 in and out), dequant-accumulate also into qgZ's chunk in bf16 and
+requantizing for the int8 TP all-reduce (n of 1-5, ragged chunks), with
+every quant kernel compiled without a spill, and times the callers'
+local passes on either side of the wire (qgZ's arrival and the whole
+TP all-reduce included) beside the kernels alone (``int8_local_pass``
+lines), the chunk-matmul kernel
 of the fused ring within tolerance of its plain version (and bit for bit
 column-independent, its wgmma + TMA variant bit-equal to its mma.sync
 one) at the train phase's shapes, mode 'both''s transposed operands read
@@ -340,6 +344,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:25"
@@ -399,6 +404,8 @@ LOSS_RTOL, GNORM_RTOL, INT8_DRIFT = 1e-4, 1e-3, 1e-2
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # CUDA cores, no tensor cores (no TF32)
 PEAK_HBM_BYTES = 3.35e12
+L2_BYTES = 50 * 2 ** 20      # its L2 cache; a timed call's inputs rotate
+MAX_ROTATIONS = 64           # past twice it (``rotations``)
 # matmul_chunk vs its plain version (x @ w, cuBLAS with fp32 reductions):
 # both sum the K products of an output in fp32, in their own orders, and
 # round once to the output dtype. Per element |diff| <= one unit in the
@@ -449,7 +456,7 @@ def kernel_name(mangled: str) -> str:
     """``base<args>`` from a mangled kernel name: the length-prefixed
     identifier ending in ``_kernel``, then its template arguments
     (integers and bools as numbers, float as f32, __nv_bfloat16 as
-    bf16)."""
+    bf16, int8_t as int8)."""
     # the shortest length-prefixed identifier ending in _kernel (a longer
     # one would take in the digits of a namespace hash before it)
     found = [(int(m.group()[i:]), m.end())
@@ -468,8 +475,8 @@ def kernel_name(mangled: str) -> str:
                     k = mangled.index("E", j)
                     args.append(mangled[j + 2:k])
                     j = k + 1
-                elif mangled[j] == "f":
-                    args.append("f32")
+                elif mangled[j] in "fa":
+                    args.append("f32" if mangled[j] == "f" else "int8")
                     j += 1
                 elif mangled[j].isdigit():
                     d = re.match(r"\d+", mangled[j:]).group()
@@ -539,15 +546,32 @@ def check_split_counters(phase: str) -> int:
     return len(fa._COUNTERS)
 
 
+def rotations(nbytes: float) -> int:
+    """How many copies of a timed call's inputs to take in turn: enough
+    that twice the card's L2 is read and written between two calls on
+    one copy (``nbytes`` a call), so each call reads its inputs from HBM
+    as a step does, not from the L2 the previous call filled. At most
+    ``MAX_ROTATIONS``: a call that small sits at the launch floor."""
+    return int(min(MAX_ROTATIONS, max(1, -(-2 * L2_BYTES // max(nbytes, 1)))))
+
+
+def _turns(fn, iters: int):
+    """``fn``: a call, or a list of calls (each on copies of the inputs,
+    ``rotations``) taken in turn; at least one round of them."""
+    calls = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    return calls, max(iters, len(calls))
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     import torch
-    for _ in range(warmup):
-        fn()
+    calls, iters = _turns(fn, iters)
+    for i in range(warmup):
+        calls[i % len(calls)]()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        calls[i % len(calls)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -558,16 +582,17 @@ def graph_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     one CUDA graph, timed over a replay (``cuda_ms`` times eager calls,
     which a wrapper's host cost can set when the kernel is short)."""
     import torch
+    calls, iters = _turns(fn, iters)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
+        for i in range(warmup):
+            calls[i % len(calls)]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            calls[i % len(calls)]()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -777,30 +802,38 @@ def phase_kernels():
     return prefill, decode, jamba
 
 
-def int8_bound(kind, nb, n=1, elt=4, elems=None):
+def int8_bound(kind, nb, n=1, elt=4, elems=None, requantize=False):
     """Least time: the bytes the function must move (each input read
     once, each output written once) over the HBM rate; a few flops per
     byte, so bytes bind. ``elems``: the dense elements a quantize reads
-    or a dequantize writes, ``elt`` bytes each (default: nb whole
-    blocks). Returns (ms, bound_by)."""
+    or a dequantize or dequant-accumulate writes, ``elt`` bytes each
+    (default: nb whole blocks); a requantizing dequant-accumulate writes
+    nb blocks and scales instead. Returns (ms, bound_by)."""
     elems = nb * 256 if elems is None else elems
     if kind == "quantize":
         nbytes = elems * elt + nb * 256 + nb * 4
     elif kind == "dequantize":
         nbytes = nb * 256 + nb * 4 + elems * elt
     else:
-        nbytes = n * (nb * 256 + nb * 4) + nb * 256 * 4
+        nbytes = n * (nb * 256 + nb * 4) + (
+            nb * 260 if requantize else elems * elt)
     return nbytes / PEAK_HBM_BYTES * 1e3, "bytes"
 
 
 def int8_case(kind, name, nb, gen, n=2, dtype="float32", timed=False,
-              n_chunks=1, chunk_elems=None, blocks_per_chunk=None, offset=0):
+              n_chunks=1, chunk_elems=None, blocks_per_chunk=None, offset=0,
+              requantize=False):
     """One int8 kernel against its plain version on the card, bit for
     bit (``torch.equal``). Quantize and dequantize take the chunked
     layout: ``n_chunks`` chunks of ``chunk_elems`` elements (default: nb
     whole blocks), quantized from ``dtype`` (read from ``offset``
     elements into its buffer, so a chunk may start unaligned) into
-    ``blocks_per_chunk`` blocks each, or dequantized into ``dtype``."""
+    ``blocks_per_chunk`` blocks each, or dequantized into ``dtype``.
+    Dequant-accumulate folds ``n`` sources of nb blocks into the first
+    ``chunk_elems`` elements in ``dtype``, or with ``requantize``
+    (``int8_dequant_requantize``, the same kernel) into int8 blocks and
+    scales. A timed case takes copies of its inputs in turn
+    (``rotations``)."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -829,7 +862,13 @@ def int8_case(kind, name, nb, gen, n=2, dtype="float32", timed=False,
             elems = nb * 256 if chunk_elems is None else n_chunks * chunk_elems
             fn, plain = (ops.int8_dequantize_blocks,
                          ref.int8_dequantize_blocks_plain)
+        elif requantize:
+            elems = nb * 256
+            fn = ops.int8_dequant_requantize
+            plain = ref.int8_dequant_requant_plain
         else:
+            layout = dict(chunk_elems=chunk_elems, out_dtype=dt)
+            elems = nb * 256 if chunk_elems is None else chunk_elems
             fn, plain = ops.int8_dequant_accumulate, ref.int8_dequant_acc_plain
     got = fn(*args, **layout)
     torch.cuda.synchronize()
@@ -842,95 +881,191 @@ def int8_case(kind, name, nb, gen, n=2, dtype="float32", timed=False,
               for a, b in zip(got_t, want_t))
     out = {"kernel": QUANT_NAMES[kind], "case": name, "nb": nb,
            "n": n if kind == "dequant_accumulate" else None,
-           "dtype": dtype if kind != "dequant_accumulate" else None,
+           "dtype": "int8" if requantize else dtype,
            "bit_exact": equal, "max_abs_err": err}
     if kind != "dequant_accumulate":
         out.update(n_chunks=n_chunks, chunk_elems=elems // n_chunks,
                    offset=offset)
+    else:
+        out.update(chunk_elems=None if requantize else elems,
+                   requantize=requantize)
     check(equal, f"{QUANT_NAMES[kind]} {name}: kernel differs from its "
           f"plain version (max |diff| {err})")
     if timed:
-        out["ms"] = cuda_ms(lambda: fn(*args, **layout), 50)
-        out["device_ms"] = graph_ms(lambda: fn(*args, **layout))
+        bound_ms, bound_by = int8_bound(
+            kind, nb, n, elt=torch.finfo(dt).bits // 8, elems=elems,
+            requantize=requantize)
+        runs = [args] + [tuple(a.clone() for a in args) for _ in range(
+            rotations(bound_ms * PEAK_HBM_BYTES / 1e3) - 1)]
+        out["ms"] = cuda_ms([lambda a=a: fn(*a, **layout) for a in runs], 50)
+        out["device_ms"] = graph_ms([lambda a=a: fn(*a, **layout)
+                                     for a in runs])
         out["host_us"] = host_us(lambda: fn(*args, **layout))
-        out["plain_ms"] = cuda_ms(lambda: plain(*args, **layout), 10)
+        out["plain_ms"] = cuda_ms([lambda a=a: plain(*a, **layout)
+                                   for a in runs], 10)
         # no single PyTorch call computes any of the three functions
-        out["library_ms"] = None
-        out["bound_ms"], out["bound_by"] = (
-            int8_bound(kind, nb, n) if kind == "dequant_accumulate" else
-            int8_bound(kind, nb, elt=torch.finfo(dt).bits // 8, elems=elems))
+        out.update(library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   copies=len(runs))
     return out
+
+
+class Loopback:
+    """A collective over ``n`` ranks with no wire: an all-gather returns
+    n copies of what it was first handed, an all-to-all a copy of it,
+    each kept by shape and dtype, so a caller's local passes on either
+    side of the wire run (and time) alone. ``sent`` keeps the first
+    tensor of each kind, the wire's bytes."""
+
+    def __init__(self, n):
+        self.n, self.kept, self.sent = n, {}, []
+        self.mesh = SimpleNamespace(mesh_shape=self)
+
+    def size(self, axis):
+        return self.n
+
+    def _keep(self, op, x, make):
+        key = (op, tuple(x.shape), x.dtype)
+        if key not in self.kept:
+            self.sent.append(x.clone())
+            self.kept[key] = make(x)
+        return self.kept[key]
+
+    def all_gather(self, x, axis, dim):
+        import torch
+        return self._keep("all_gather", x, lambda t: torch.cat([t] * self.n))
+
+    def all_to_all(self, x, axis):
+        return self._keep("all_to_all", x, lambda t: t.clone())
+
+    def all_gather_async(self, x, axis, dim):
+        out = self.all_gather(x, axis, dim)
+        return SimpleNamespace(wait=lambda: out)
+
+    def all_to_all_async(self, x, axis):
+        out = self.all_to_all(x, axis)
+        return SimpleNamespace(wait=lambda: out)
 
 
 def int8_local_passes(gen, cases):
     """The callers' local passes on either side of the wire, as the train
-    step runs them (``core/grad_compress._quantize`` / ``_dequantize``,
-    each one launch), timed as the kernel cases are, beside the kernel
-    alone at the same layout (``cases``: kernel case name -> its record):
-    qwZ's issue (quantize the shard) and arrival (dequantize the
-    gathered blocks into the shard's dtype), qgZ's issue (quantize the
-    stage-1 gradient in n chunks) and the int8 TP all-reduce's issue and
-    final dequantize, at qwen2.5-3b's MLP leaf, tp_train's activation
-    and seamless-m4t-medium's attention and MLP shards. The results are
-    the kernel cases' bits (``torch.equal``)."""
+    step runs them (``core/grad_compress._quantize`` / ``_dequantize`` /
+    ``_accumulate``, each one launch), timed as the kernel cases are,
+    beside the kernel alone at the same layout (``cases``: "kernel/case"
+    -> its record): qwZ's issue (quantize the shard) and arrival
+    (dequantize the gathered blocks into the shard's dtype), qgZ's issue
+    (quantize the stage-1 gradient in n chunks) and arrival (fold the n
+    sources into the gradient's chunk and dtype), the int8 TP
+    all-reduce's issue and final dequantize, at qwen2.5-3b's MLP leaf,
+    tp_train's activation and seamless-m4t-medium's attention and MLP
+    shards; and the int8 TP all-reduce whole (``_int8_allreduce`` over a
+    ``Loopback`` wire: quantize, the requantizing fold, dequantize)
+    beside its three kernels' cases. Each pass's result equals its
+    kernels' run on their own (``torch.equal``; for the all-reduce the
+    three kernels chained over a wire of copies, as ``Loopback``'s).
+    Each pass is drawn as many times as ``rotations`` asks for its
+    kernels' bytes, and the timings take the draws in turn."""
     import torch
-    from repro_torch.core.grad_compress import _dequantize, _quantize
+    from repro_torch.core.act_compress import _int8_allreduce
+    from repro_torch.core.grad_compress import (_accumulate, _dequantize,
+                                                _quantize)
     from repro_torch.kernels import ops
 
     def bf16(*shape):
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * 0.02).bfloat16()
 
-    def wire(nb):
-        return (torch.randint(-127, 128, (nb, 256), generator=gen,
+    def wire(*lead):
+        return (torch.randint(-127, 128, lead + (256,), generator=gen,
                               device="cuda", dtype=torch.int8),
-                torch.rand(nb, 1, generator=gen, device="cuda") * 1e-3)
+                torch.rand(lead + (1,), generator=gen, device="cuda") * 1e-3)
+    q8, dq, acc = (QUANT_NAMES[k] + "/" for k in (
+        "quantize", "dequantize", "dequant_accumulate"))
+    bf = torch.bfloat16
     w_elems = 2048 * 11008 // 4
     t_total = TRAIN_BATCH // 4 * TRAIN_SEQ * 2048
-    passes = []
-    for tag, elems, kcase in (("mlp", w_elems, "mlp"),
-                              ("seamless_attn", 1024 * 1024 // 4,
-                               "seamless_attn"),
-                              ("seamless_mlp", 1024 * 4096 // 4,
-                               "seamless_mlp")):
+    t_nb = t_total // 256
+    # name -> (its kernels' cases, a draw: () -> (the pass, its kernels))
+    passes = {}
+    for tag, elems in (("mlp", w_elems), ("seamless_attn", 1024 * 1024 // 4),
+                       ("seamless_mlp", 1024 * 4096 // 4)):
         nb = -(-elems // 256)
-        w, g, (q, s) = bf16(elems), bf16(2 * elems), wire(2 * nb)
-        passes += [
-            (f"qwz_issue_{tag}", f"{kcase}_shard_bf16",
-             lambda w=w: _quantize(w),
-             lambda w=w: ops.int8_quantize_blocks(w)),
-            (f"qwz_arrival_{tag}", f"{kcase}_stage1_bf16",
-             lambda q=q, s=s, e=elems: _dequantize(q, s, 2, e,
-                                                   torch.bfloat16),
-             lambda q=q, s=s, e=elems: ops.int8_dequantize_blocks(
-                 q, s, n_chunks=2, chunk_elems=e, out_dtype=torch.bfloat16)),
-            (f"qgz_issue_{tag}", f"{kcase}_stage1_grad_bf16",
-             lambda g=g: _quantize(g, 2),
-             lambda g=g: ops.int8_quantize_blocks(g, n_chunks=2))]
-    x, (q, s) = bf16(TRAIN_BATCH // 4, TRAIN_SEQ, 2048), wire(t_total // 256)
-    passes += [
-        ("act_issue_tp", "tp_act_bf16",
-         lambda: _quantize(x, blocks_per_chunk=t_total // 256),
-         lambda: ops.int8_quantize_blocks(
-             x.reshape(-1), blocks_per_chunk=t_total // 256)),
-        ("act_arrival_tp", "tp_act_gather_bf16",
-         lambda: _dequantize(q, s, 1, t_total, torch.bfloat16),
-         lambda: ops.int8_dequantize_blocks(q, s, chunk_elems=t_total,
-                                            out_dtype=torch.bfloat16))]
+
+        def qwz_issue(e=elems):
+            w = bf16(e)
+            return (lambda: _quantize(w), lambda: ops.int8_quantize_blocks(w))
+
+        def qwz_arrival(e=elems, nb=nb):
+            q, s = wire(2 * nb)
+            return (lambda: _dequantize(q, s, 2, e, bf),
+                    lambda: ops.int8_dequantize_blocks(
+                        q, s, n_chunks=2, chunk_elems=e, out_dtype=bf))
+
+        def qgz_issue(e=elems):
+            g = bf16(2 * e)
+            return (lambda: _quantize(g, 2),
+                    lambda: ops.int8_quantize_blocks(g, n_chunks=2))
+
+        def qgz_arrival(e=elems, nb=nb):
+            q, s = wire(2, nb)
+            return (lambda: _accumulate(q, s, e, bf),
+                    lambda: ops.int8_dequant_accumulate(
+                        q, s, chunk_elems=e, out_dtype=bf))
+        passes.update({
+            f"qwz_issue_{tag}": ([q8 + f"{tag}_shard_bf16"], qwz_issue),
+            f"qwz_arrival_{tag}": ([dq + f"{tag}_stage1_bf16"], qwz_arrival),
+            f"qgz_issue_{tag}": ([q8 + f"{tag}_stage1_grad_bf16"], qgz_issue),
+            f"qgz_arrival_{tag}": ([acc + f"{tag}_stage1_grad_bf16"],
+                                   qgz_arrival)})
+
+    def act_issue():
+        x = bf16(TRAIN_BATCH // 4, TRAIN_SEQ, 2048)
+        return (lambda: _quantize(x, blocks_per_chunk=t_nb),
+                lambda: ops.int8_quantize_blocks(x.reshape(-1),
+                                                 blocks_per_chunk=t_nb))
+
+    def act_arrival():
+        q, s = wire(t_nb)
+        return (lambda: _dequantize(q, s, 1, t_total, bf),
+                lambda: ops.int8_dequantize_blocks(q, s, chunk_elems=t_total,
+                                                   out_dtype=bf))
+
+    def act_allreduce():
+        x, lo = bf16(TRAIN_BATCH // 4, TRAIN_SEQ, 2048), Loopback(2)
+
+        def kernels():
+            q, s = ops.int8_quantize_blocks(x.reshape(-1),
+                                            blocks_per_chunk=t_nb)
+            q2, s2 = ops.int8_dequant_requantize(q.reshape(2, -1, 256),
+                                                 s.reshape(2, -1, 1))
+            return ops.int8_dequantize_blocks(
+                torch.cat([q2] * 2), torch.cat([s2] * 2),
+                chunk_elems=t_total, out_dtype=bf)
+        return lambda: _int8_allreduce(x, lo, "model").reshape(-1), kernels
+    passes.update({
+        "act_issue_tp": ([q8 + "tp_act_bf16"], act_issue),
+        "act_arrival_tp": ([dq + "tp_act_gather_bf16"], act_arrival),
+        "act_allreduce_tp": ([acc + "tp_act_reduce_requant",
+                              q8 + "tp_act_bf16", dq + "tp_act_gather_bf16"],
+                             act_allreduce)})
     out = []
-    for name, kcase, local, kernel in passes:
-        a, b = local(), kernel()
-        a, b = (a if isinstance(a, tuple) else (a,),
-                b if isinstance(b, tuple) else (b,))
+    for name, (kcases, draw) in passes.items():
+        ks = [cases[k] for k in kcases]
+        bound_ms = sum(k["bound_ms"] for k in ks)
+        runs = [draw() for _ in range(
+            rotations(bound_ms * PEAK_HBM_BYTES / 1e3))]
+        local, kernel = runs[0]
+        a, b = local(), kernel()              # a tensor, or (q, s)
+        a, b = ((a,), (b,)) if isinstance(a, torch.Tensor) else (a, b)
         check(all(torch.equal(u, v) for u, v in zip(a, b)),
               f"int8 local pass {name} differs from its kernel")
-        rec = {"pass": name, "kernel": cases[kcase]["kernel"],
-               "kernel_case": kcase,
-               "ms": cuda_ms(local, 50), "device_ms": graph_ms(local),
-               "host_us": host_us(local),
-               "kernel_device_ms": cases[kcase]["device_ms"],
-               "kernel_host_us": cases[kcase]["host_us"],
-               "bound_ms": cases[kcase]["bound_ms"]}
+        timed = [r[0] for r in runs]
+        rec = {"pass": name, "kernel": ks[0]["kernel"],
+               "kernel_case": kcases[0] if len(ks) == 1 else kcases,
+               "ms": cuda_ms(timed, 50), "device_ms": graph_ms(timed),
+               "host_us": host_us(local), "copies": len(runs),
+               "kernel_device_ms": sum(k["device_ms"] for k in ks),
+               "kernel_host_us": sum(k["host_us"] for k in ks),
+               "bound_ms": bound_ms}
         emit("int8_local_pass", **rec)
         out.append(rec)
     return out
@@ -948,20 +1083,27 @@ def phase_int8_kernels():
     a rank-8 ``wq_lora_a``: 2048 x 8 / 4 = 16 blocks, and its stage-1
     view of 32), the int8 TP activation all-reduce of phase tp_train
     (one rank's [2, 512, 2048] activation: quantize 8,192 bf16 blocks,
-    dequant-accumulate n = 2 sources of 4,096, requantize the 4,096 fp32
-    ones, dequantize the gathered 8,192 into bf16 and fp32), the whole
+    dequant-accumulate n = 2 sources of 4,096 into fp32 and requantizing
+    them in the same kernel as the all-reduce runs it, quantize the
+    4,096 fp32 ones alone, dequantize the gathered 8,192
+    into bf16 and fp32), the whole
     stacked MLP leaf that stream_train's async reduce quantizes at once
     (2 layers: the bf16 storage shard of 44,032 blocks, its stage-1 view
     of 88,064, qgZ's quantize of the view's gradient and the n = 2
     dequant-accumulate of 44,032), seamless-m4t-medium's shards at (2,
     2, 1) (encdec_train: attention 262,144 elements = 1,024 blocks, MLP
     4,096 blocks, a norm 1 block, the embedding 256,206 blocks; each
-    shard's quantize, the stage-1 arrival of 2 chunks into bf16 and the
-    stage-1 gradient's quantize in 2 chunks), ragged chunks whose starts
-    are not 16-byte aligned (2 x 2,100 bf16, 4 x 4,099, a buffer offset)
-    and a ragged block count; then the callers' local passes
-    (``int8_local_passes``). Returns ({kind: timed main-shape case},
-    {kernel/case: every other timed case}, [local passes])."""
+    shard's quantize, the stage-1 arrival of 2 chunks into bf16, the
+    stage-1 gradient's quantize in 2 chunks and its fold of 2 sources
+    into bf16), ragged chunks whose starts are not 16-byte aligned (2 x
+    2,100 bf16, 4 x 4,099, a buffer offset), a ragged block count and
+    the fold at n = 1-5 into ragged chunks and requantizing; qgZ's fold
+    is written into the gradient's bf16 chunk at every train shape (the
+    main case: the MLP's 2 x 22,016 blocks) and into fp32 whole blocks,
+    the TPU kernel's own output; then nvcc's report (0 spill bytes in every
+    quant kernel) and the callers' local passes (``int8_local_passes``).
+    Returns ({kind: timed main-shape case}, {kernel/case: every other
+    timed case}, [local passes])."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     w_nb, e_nb = 2048 * 11008 // 4 // 256, 151936 * 2048 // 4 // 256
@@ -974,10 +1116,15 @@ def phase_int8_kernels():
         "dequantize": int8_case("dequantize", "mlp_stage1_bf16", 2 * w_nb,
                                 gen, dtype="bfloat16", timed=True,
                                 n_chunks=2, chunk_elems=w_el),
+        # qgZ's arrival as the train step runs it: the fold of the 2
+        # sources written into the bf16 gradient's chunk
         "dequant_accumulate": int8_case("dequant_accumulate",
-                                        "mlp_stage1_grad", w_nb, gen,
-                                        timed=True)}
+                                        "mlp_stage1_grad_bf16", w_nb, gen,
+                                        dtype="bfloat16", timed=True,
+                                        chunk_elems=w_el)}
     extra = [
+        int8_case("dequant_accumulate", "mlp_stage1_grad", w_nb, gen,
+                  timed=True),
         int8_case("dequantize", "mlp_stage1", 2 * w_nb, gen, timed=True),
         int8_case("quantize", "mlp_stage1_grad_bf16", 2 * w_nb, gen,
                   dtype="bfloat16", timed=True, n_chunks=2, chunk_elems=w_el),
@@ -991,6 +1138,8 @@ def phase_int8_kernels():
                   chunk_elems=e_nb * 256),
         int8_case("dequant_accumulate", "embed_stage1_grad", e_nb, gen,
                   timed=True),
+        int8_case("dequant_accumulate", "embed_stage1_grad_bf16", e_nb, gen,
+                  dtype="bfloat16", timed=True, chunk_elems=e_nb * 256),
         int8_case("quantize", "peft_adapter_shard_bf16", a_nb, gen,
                   dtype="bfloat16", timed=True),
         int8_case("quantize", "peft_adapter_stage1_grad_bf16", 2 * a_nb, gen,
@@ -1001,12 +1150,17 @@ def phase_int8_kernels():
                   dtype="bfloat16", n_chunks=2, chunk_elems=a_nb * 256),
         int8_case("dequant_accumulate", "peft_adapter_stage1_grad", a_nb,
                   gen, timed=True),
+        int8_case("dequant_accumulate", "peft_adapter_stage1_grad_bf16",
+                  a_nb, gen, dtype="bfloat16", chunk_elems=a_nb * 256),
         # the int8 TP activation all-reduce at tp_train's activation:
         # one rank's [2, 512, 2048] bf16 = 8,192 blocks in 2 chunks
         int8_case("quantize", "tp_act_bf16", t_nb, gen, dtype="bfloat16",
                   timed=True),
         int8_case("dequant_accumulate", "tp_act_reduce", t_nb // 2, gen,
                   timed=True),
+        # the fold requantized in the same kernel, as the all-reduce runs
+        int8_case("dequant_accumulate", "tp_act_reduce_requant", t_nb // 2,
+                  gen, timed=True, requantize=True),
         int8_case("quantize", "tp_act_requant_f32", t_nb // 2, gen,
                   timed=True),
         int8_case("dequantize", "tp_act_gather", t_nb, gen, timed=True),
@@ -1026,10 +1180,14 @@ def phase_int8_kernels():
                   2 * TRAIN_DEPTH * w_nb, gen, dtype="bfloat16", timed=True,
                   n_chunks=2, chunk_elems=TRAIN_DEPTH * w_el),
         int8_case("dequant_accumulate", "mlp_leaf_stage1_grad",
-                  TRAIN_DEPTH * w_nb, gen, timed=True)]
+                  TRAIN_DEPTH * w_nb, gen, timed=True),
+        int8_case("dequant_accumulate", "mlp_leaf_stage1_grad_bf16",
+                  TRAIN_DEPTH * w_nb, gen, dtype="bfloat16", timed=True,
+                  chunk_elems=TRAIN_DEPTH * w_el)]
     # seamless-m4t-medium's shards at (2, 2, 1): qwZ's quantize of the
     # shard, its arrival of 2 chunks into bf16, qgZ's quantize of the
-    # stage-1 gradient in 2 chunks
+    # stage-1 gradient in 2 chunks and its arrival (the fold of the 2
+    # sources into the bf16 chunk)
     for tag, elems, timed in (("seamless_attn", 1024 * 1024 // 4, True),
                               ("seamless_mlp", 1024 * 4096 // 4, True),
                               ("seamless_norm", 1024 // 4, False),
@@ -1043,7 +1201,9 @@ def phase_int8_kernels():
                       chunk_elems=elems),
             int8_case("quantize", f"{tag}_stage1_grad_bf16", 2 * nb, gen,
                       dtype="bfloat16", timed=timed, n_chunks=2,
-                      chunk_elems=elems)]
+                      chunk_elems=elems),
+            int8_case("dequant_accumulate", f"{tag}_stage1_grad_bf16", nb,
+                      gen, dtype="bfloat16", timed=True, chunk_elems=elems)]
     # ragged chunks: starts that are not 16-byte aligned (2,100 bf16
     # elements are 4,200 bytes; 4,099 of either dtype), lanes straddling
     # a chunk's end, a buffer offset, all-zero tail blocks (the TP
@@ -1065,16 +1225,39 @@ def phase_int8_kernels():
                       dtype=dtype, n_chunks=4, chunk_elems=4099),
             int8_case("dequantize", f"ragged_tail_blocks_{dtype}", 2 * 1954,
                       gen, dtype=dtype, chunk_elems=1_000_003)]
+    # the fold at both n instances (2 unrolled; 1, 3, 4 and 5 the loop),
+    # ragged chunks (the last block partly written, a chunk of 1) and
+    # the requantize at a ragged block count
     extra += [
         int8_case("quantize", "ragged_f32", 4099, gen),
         int8_case("dequantize", "ragged", 4099, gen),
-        int8_case("dequant_accumulate", "ragged_n3", 4099, gen, n=3)]
+        int8_case("dequant_accumulate", "ragged_n3", 4099, gen, n=3),
+        int8_case("dequant_accumulate", "ragged_n3_requant", 4099, gen, n=3,
+                  requantize=True),
+        int8_case("dequant_accumulate", "ragged_n4_2100_bf16", 9, gen, n=4,
+                  dtype="bfloat16", chunk_elems=2100),
+        int8_case("dequant_accumulate", "ragged_n2_1050_f32", 5, gen,
+                  chunk_elems=1050),
+        int8_case("dequant_accumulate", "ragged_n5_bf16", 4099, gen, n=5,
+                  dtype="bfloat16", chunk_elems=4099 * 256 - 77),
+        int8_case("dequant_accumulate", "ragged_n1_1_bf16", 1, gen, n=1,
+                  dtype="bfloat16", chunk_elems=1),
+        int8_case("dequant_accumulate", "ragged_n5_requant", 37, gen, n=5,
+                  requantize=True)]
     for c in list(main.values()) + extra:
         emit("kernels", **c)
+    # every quant kernel instance compiled without a spill
+    from repro_torch.kernels import _build
+    quant_ptxas = ptxas_summary(_build.library_path("quant")
+                                .with_suffix(".log"))
+    spills = {k: v.get("spill_bytes") for k, v in quant_ptxas.items()
+              if k != "warnings"}
+    emit("int8_ptxas", kernels=quant_ptxas)
+    check(spills and all(v == 0 for v in spills.values()),
+          f"a quant kernel spills: {spills}")
     timed = {c["kernel"] + "/" + c["case"]: c for c in extra if "ms" in c}
-    by_case = {c["case"]: c for c in list(main.values()) + extra
-               if "ms" in c and c["kernel"] != QUANT_NAMES[
-                   "dequant_accumulate"]}
+    by_case = {c["kernel"] + "/" + c["case"]: c
+               for c in list(main.values()) + extra if "ms" in c}
     return main, timed, int8_local_passes(gen, by_case)
 
 
@@ -1581,20 +1764,25 @@ def scan_case(name, shape, gen, dtype="float32", with_h0=False,
     check(out["err_over_bound"] <= 1.0,
           f"mamba_scan {name}: max |diff| {out['max_abs_err']} > "
           f"{SCAN_TOL} x max(1, max |h|) = {SCAN_TOL * scale}")
+    runs = [(a, b, h0)]
     if timed:
-        out["ms"] = cuda_ms(lambda: ops.mamba_scan(a, b, h0), 20)
-        # a prefill output is 2 GiB: few calls in the graph
-        out["device_ms"] = graph_ms(lambda: ops.mamba_scan(a, b, h0),
-                                    5 if S > 1 else 50)
-        out["host_us"] = host_us(lambda: ops.mamba_scan(a, b, h0),
-                                 20 if S > 1 else 200)
-        out["plain_ms"] = cuda_ms(lambda: ref.mamba_scan_plain(a, b, h0),
-                                  3 if S > 1 else 50)
-        # no single PyTorch call computes a linear recurrence
-        out["library_ms"] = None
         out["bound_ms"], out["bound_by"] = scan_bound(
             B, S, C, torch.finfo(dt_).bits // 8, with_h0)
-    del a, b, h0, got, want, d
+        # a decode step's inputs fit the L2: copies taken in turn
+        runs += [tuple(None if x is None else x.clone() for x in runs[0])
+                 for _ in range(rotations(out["bound_ms"] * PEAK_HBM_BYTES
+                                          / 1e3) - 1)]
+        calls = [lambda r=r: ops.mamba_scan(*r) for r in runs]
+        out["ms"] = cuda_ms(calls, 20)
+        # a prefill output is 2 GiB: few calls in the graph
+        out["device_ms"] = graph_ms(calls, 5 if S > 1 else 50)
+        out["host_us"] = host_us(calls[0], 20 if S > 1 else 200)
+        out["plain_ms"] = cuda_ms([lambda r=r: ref.mamba_scan_plain(*r)
+                                   for r in runs], 3 if S > 1 else 50)
+        # no single PyTorch call computes a linear recurrence
+        out.update(library_ms=None, copies=len(runs))
+        del calls
+    del a, b, h0, got, want, d, runs
     torch.cuda.empty_cache()
     return out
 
@@ -4622,10 +4810,12 @@ def main() -> int:
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,
-        # their device time (a CUDA graph) and their host time per call
+        # their device time (a CUDA graph), their host time per call and
+        # the copies of the inputs their timings took in turn
         return {k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",
-                                  "variant", "device_ms", "host_us")
+                                  "variant", "device_ms", "host_us",
+                                  "copies")
                 if k in c}
     kernels = {"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
@@ -4651,7 +4841,7 @@ def main() -> int:
                              if e["kernel"] == QUANT_NAMES[k]},
             "local_passes": {
                 p["pass"]: {f: p[f] for f in ("ms", "device_ms", "host_us",
-                                              "kernel_device_ms")}
+                                              "kernel_device_ms", "bound_ms")}
                 for p in int8_passes if p["kernel"] == QUANT_NAMES[k]}}
             for k, c in int8_main.items()] + [{
         "name": "matmul_chunk", "route": "cuda", "source": MM_SOURCE,

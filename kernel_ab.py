@@ -7,6 +7,12 @@ own process.
 
   git archive <parent> | tar -x -C .smoke_archive/parent
   python3 kernel_ab.py --other .smoke_archive/parent [--out FILE]
+  python3 kernel_ab.py --acc-variant .smoke_archive/acc [--out FILE]
+
+``--acc-variant DIR`` copies this tree's ``src/`` to DIR with the other
+of dequant-accumulate's two dispatches at n = 2 (the instance that
+issues both sources' loads before the first fold, or the generic loop a
+source at a time) and takes that copy as the other tree.
 
 Each process builds its tree's kernels and times (``chip_smoke.py``'s
 timers: CUDA events over 50 eager launches after 3 warm-up ones, the
@@ -19,16 +25,24 @@ kernel at the paged and jamba serve shapes (prefill and decode), and the
 WKV kernel at the rwkv serve shapes (prefill and decode); beside the
 first two the one PyTorch call that computes the same function
 (``torch.matmul``, ``scaled_dot_product_attention``; none computes the
-WKV), and the int8 kernels at ``chip_smoke.py``'s timed shapes in the
-whole-block layout both trees take, beside the callers' local passes
-(qwZ's issue and arrival, qgZ's issue, the int8 TP all-reduce) run
-through a ``Loopback`` wire, so a tree's own pad, widening, slice and
-cast are timed with its kernels. Inputs come from fixed seeds, so every
-process sees the same ones, and the WKV's outputs and final state, the
-int8 kernels' results and the callers' results and wire bytes are
-compared bit for bit across the trees by digest. Prints one JSON line
-per process and one per WKV shape and int8 case saying whether the bits
-agree (and writes the runs to ``--out`` when given). Needs a CUDA card.
+WKV), and the int8 kernels (quantize, dequantize, dequant-accumulate)
+at ``chip_smoke.py``'s timed shapes in the whole-block fp32 layout both
+trees take, beside the callers' local passes (qwZ's issue and arrival,
+qgZ's issue and arrival, the int8 TP all-reduce) run through a
+``Loopback`` wire, so a tree's own pad, widening, slice, cast and
+requantize are timed with its kernels. The int8 kernels' cases take
+copies of their inputs in turn (``chip_smoke.rotations``), so a timed
+call reads them from HBM, not from the L2 its predecessor filled; the
+callers' passes are timed on one set of inputs (L2-warm below ~25 MB).
+The cases of the entry points a tree lacks (the parent's
+``int8_dequant_accumulate`` takes no chunk or dtype, and it has no
+``int8_dequant_requantize``) are left out of that tree's run. Inputs
+come from fixed seeds, so every process sees the same ones, and the
+WKV's outputs and final state, the int8 kernels' results and the
+callers' results and wire bytes are compared bit for bit across the
+trees by digest. Prints one JSON line per process and one per WKV shape
+and int8 case saying whether the bits agree (and writes the runs to
+``--out`` when given). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -41,7 +55,8 @@ from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import cuda_ms, graph_ms, host_us  # noqa: E402
+from chip_smoke import (Loopback, cuda_ms, graph_ms, host_us,  # noqa: E402
+                        rotations)
 
 ITERS = 50
 
@@ -109,50 +124,16 @@ def wkv_cases(gen):
     return [("prefill", *inputs(512, False)), ("decode", *inputs(1, True))]
 
 
-class Loopback:
-    """A collective over ``n`` ranks with no wire: an all-gather returns
-    n copies of what it was first handed, an all-to-all a copy of it,
-    each kept by shape and dtype, so a caller's local passes on either
-    side of the wire run (and time) alone, the same in any tree.
-    ``sent`` keeps the first tensor of each kind, the wire's bytes."""
-
-    def __init__(self, n):
-        self.n, self.kept, self.sent = n, {}, []
-        self.mesh = SimpleNamespace(mesh_shape=self)
-
-    def size(self, axis):
-        return self.n
-
-    def _keep(self, op, x, make):
-        key = (op, tuple(x.shape), x.dtype)
-        if key not in self.kept:
-            self.sent.append(x.clone())
-            self.kept[key] = make(x)
-        return self.kept[key]
-
-    def all_gather(self, x, axis, dim):
-        import torch
-        return self._keep("all_gather", x, lambda t: torch.cat([t] * self.n))
-
-    def all_to_all(self, x, axis):
-        return self._keep("all_to_all", x, lambda t: t.clone())
-
-    def all_gather_async(self, x, axis, dim):
-        out = self.all_gather(x, axis, dim)
-        return SimpleNamespace(wait=lambda: out)
-
-    def all_to_all_async(self, x, axis):
-        out = self.all_to_all(x, axis)
-        return SimpleNamespace(wait=lambda: out)
-
-
 def int8_kernel_cases(gen):
-    """(name, kernel, args) of the int8 kernels at chip_smoke.py's timed
-    shapes, in the whole-block layout both trees take: qwen2.5-3b's MLP
-    shard (qwZ's quantize) and stage-1 view (qwZ's fp32 dequantize,
-    qgZ's fp32 quantize), the embedding's stage-1 view, tp_train's
-    activation all-reduce (quantize, requantize, dequantize) and
-    seamless-m4t-medium's attention shard and its stage-1 view."""
+    """(name, kernel, args, keywords) of the int8 kernels at
+    chip_smoke.py's timed shapes, in the whole-block fp32 layout both
+    trees take: qwen2.5-3b's MLP shard (qwZ's quantize) and stage-1 view
+    (qwZ's fp32 dequantize, qgZ's fp32 quantize and its fold of 2
+    sources), the embedding's stage-1 view and its fold, tp_train's
+    activation all-reduce (quantize, fold, requantize, dequantize) and
+    seamless-m4t-medium's attention shard, its stage-1 view and its
+    fold; then, where the tree has them, qgZ's fold into the MLP
+    gradient's bf16 chunk and the TP all-reduce's requantizing fold."""
     import torch
 
     def x(nb, dtype):
@@ -163,19 +144,35 @@ def int8_kernel_cases(gen):
         return (torch.randint(-127, 128, (nb, 256), generator=gen,
                               device="cuda", dtype=torch.int8),
                 torch.rand(nb, 1, generator=gen, device="cuda") * 1e-3)
+    def sources(nb):
+        q, s = qs(2 * nb)
+        return q.reshape(2, nb, 256), s.reshape(2, nb, 1)
     w_nb, e_nb, t_nb = 22016, 303872, 8192
     bf16, f32 = torch.bfloat16, torch.float32
-    return [("quantize/mlp_shard_bf16", "quantize", (x(w_nb, bf16),)),
-            ("quantize/mlp_stage1_grad_f32", "quantize", (x(2 * w_nb, f32),)),
-            ("quantize/tp_act_bf16", "quantize", (x(t_nb, bf16),)),
+    return [("quantize/mlp_shard_bf16", "quantize", (x(w_nb, bf16),), {}),
+            ("quantize/mlp_stage1_grad_f32", "quantize", (x(2 * w_nb, f32),),
+             {}),
+            ("quantize/tp_act_bf16", "quantize", (x(t_nb, bf16),), {}),
             ("quantize/tp_act_requant_f32", "quantize",
-             (x(t_nb // 2, f32),)),
+             (x(t_nb // 2, f32),), {}),
             ("quantize/seamless_attn_shard_bf16", "quantize",
-             (x(1024, bf16),)),
-            ("dequantize/mlp_stage1", "dequantize", qs(2 * w_nb)),
-            ("dequantize/embed_stage1", "dequantize", qs(2 * e_nb)),
-            ("dequantize/tp_act_gather", "dequantize", qs(t_nb)),
-            ("dequantize/seamless_attn_stage1", "dequantize", qs(2048))]
+             (x(1024, bf16),), {}),
+            ("dequantize/mlp_stage1", "dequantize", qs(2 * w_nb), {}),
+            ("dequantize/embed_stage1", "dequantize", qs(2 * e_nb), {}),
+            ("dequantize/tp_act_gather", "dequantize", qs(t_nb), {}),
+            ("dequantize/seamless_attn_stage1", "dequantize", qs(2048), {}),
+            ("dequant_accumulate/mlp_stage1_grad", "dequant_accumulate",
+             sources(w_nb), {}),
+            ("dequant_accumulate/embed_stage1_grad", "dequant_accumulate",
+             sources(e_nb), {}),
+            ("dequant_accumulate/tp_act_reduce", "dequant_accumulate",
+             sources(t_nb // 2), {}),
+            ("dequant_accumulate/seamless_attn_stage1_grad",
+             "dequant_accumulate", sources(1024), {}),
+            ("dequant_accumulate/mlp_stage1_grad_bf16", "dequant_accumulate",
+             sources(w_nb), {"chunk_elems": w_nb * 256, "out_dtype": bf16}),
+            ("dequant_requantize/tp_act_reduce", "dequant_requantize",
+             sources(t_nb // 2), {})]
 
 
 def int8_caller_cases(gen):
@@ -185,7 +182,8 @@ def int8_caller_cases(gen):
     tensors to digest. qwZ's issue (``QuantizedPending``: quantize the
     shard) and arrival (its ``wait``: dequantize, drop the padding,
     cast), qgZ's issue (``QuantizedReducePending``: quantize the stage-1
-    gradient in 2 chunks), and the int8 TP all-reduce whole
+    gradient in 2 chunks) and arrival (its ``wait``: fold the 2 sources,
+    drop the padding, cast), and the int8 TP all-reduce whole
     (``_int8_allreduce``: quantize, dequant-accumulate, requantize,
     dequantize), at qwen2.5-3b's MLP shard (2048 x 11008 / 4),
     seamless-m4t-medium's attention and MLP shards (1024 x 1024 / 4,
@@ -214,8 +212,18 @@ def int8_caller_cases(gen):
             coll = Loopback(2)
             return (lambda: m.gc.QuantizedReducePending(g, coll, "pod", 0),
                     lambda p: coll.sent)
+
+        def reduce_arrival(m, g=g):
+            p = m.gc.QuantizedReducePending(g, Loopback(2), "pod", 0)
+            parts = p.parts
+
+            def call():             # the wait again on the same arrival
+                p.parts = parts
+                return p.wait()
+            return call, lambda out: [out]
         cases += [(f"qwz_issue_{tag}", issue), (f"qwz_arrival_{tag}", arrival),
-                  (f"qgz_issue_{tag}", reduce_issue)]
+                  (f"qgz_issue_{tag}", reduce_issue),
+                  (f"qgz_arrival_{tag}", reduce_arrival)]
     x = bf16(2, 512, 2048)
 
     def allreduce(m):
@@ -230,15 +238,25 @@ def time_int8(gen) -> dict:
     device and host time per call, and the digests of their results."""
     from repro_torch.core import act_compress, grad_compress
     from repro_torch.kernels import ops
+    new_api = hasattr(ops, "int8_dequant_requantize")
     out = {}
-    for name, kind, args in int8_kernel_cases(gen):
-        fn = getattr(ops, f"int8_{kind}_blocks")
-        res = fn(*args)
-        out[name] = {"ms": cuda_ms(lambda: fn(*args), ITERS),
-                     "device_ms": graph_ms(lambda: fn(*args), ITERS),
-                     "host_us": host_us(lambda: fn(*args)),
-                     "sha256": [digest(t) for t in (
-                         res if isinstance(res, tuple) else (res,))]}
+    for name, kind, args, kw in int8_kernel_cases(gen):
+        if kind.startswith("dequant_"):
+            fn = getattr(ops, f"int8_{kind}", None)
+        else:
+            fn = getattr(ops, f"int8_{kind}_blocks")
+        if fn is None or (kw and not new_api):
+            continue
+        res = fn(*args, **kw)
+        res = res if isinstance(res, tuple) else (res,)
+        nbytes = sum(t.numel() * t.element_size() for t in args + res)
+        runs = [args] + [tuple(a.clone() for a in args)
+                         for _ in range(rotations(nbytes) - 1)]
+        calls = [lambda a=a: fn(*a, **kw) for a in runs]
+        out[name] = {"ms": cuda_ms(calls, ITERS),
+                     "device_ms": graph_ms(calls, ITERS),
+                     "host_us": host_us(calls[0]), "copies": len(runs),
+                     "sha256": [digest(t) for t in res]}
     mods = SimpleNamespace(gc=grad_compress, ac=act_compress)
     for name, make in int8_caller_cases(gen):
         call, result = make(mods)
@@ -299,10 +317,38 @@ def time_tree(tree: Path) -> dict:
     return out
 
 
+# dequant-accumulate's two dispatches at n = 2 in csrc/quant.cu
+ACC_DISPATCHES = ("auto kernel = n == 2 ? acc_kernel<2, Out>(part) : "
+                  "acc_kernel<0, Out>(part);",
+                  "auto kernel = acc_kernel<0, Out>(part);")
+
+
+def flipped_acc_tree(dest: Path) -> Path:
+    """A copy of this tree's ``src/`` under ``dest`` whose
+    dequant-accumulate launches the other of ``ACC_DISPATCHES`` at
+    n = 2: the unrolled instance, or the loop this tree takes."""
+    import shutil
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "src", dest / "src",
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    cu = dest / "src" / "repro_torch" / "kernels" / "csrc" / "quant.cu"
+    text = cu.read_text()
+    for have, other in (ACC_DISPATCHES, ACC_DISPATCHES[::-1]):
+        if text.count(have) == 1:
+            cu.write_text(text.replace(have, other))
+            return dest
+    raise SystemExit("kernel_ab: csrc/quant.cu has neither dispatch of "
+                     "ACC_DISPATCHES")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path,
                     help="root of the tree to compare with")
+    ap.add_argument("--acc-variant", type=Path,
+                    help="compare with a copy of this tree, made here, "
+                    "whose dequant-accumulate takes its other n = 2 "
+                    "dispatch")
     ap.add_argument("--out", type=Path,
                     help="also write the runs to this JSON file")
     ap.add_argument("--time-tree", type=Path, help=argparse.SUPPRESS)
@@ -314,6 +360,8 @@ def main() -> int:
     if args.time_tree:
         print(json.dumps(time_tree(args.time_tree)), flush=True)
         return 0
+    if args.acc_variant:
+        args.other = flipped_acc_tree(args.acc_variant)
     if args.other is None or not (args.other / "src" / "repro_torch").is_dir():
         print("kernel_ab: --other must name a tree of the repo",
               file=sys.stderr)
@@ -336,8 +384,8 @@ def main() -> int:
                                         for r in runs}) == 1
             for what in ("state", "out")}}), flush=True)
     # the int8 kernels' and the callers' results, bit for bit across the
-    # trees (the redesign moves the pad, widening, slice and cast into
-    # the kernels; the values and the wire's bytes stay)
+    # trees (the redesigns move the pad, widening, slice, cast and
+    # requantize into the kernels; the values and the wire's bytes stay)
     for name in runs[0]["int8"]:
         print(json.dumps({"int8": name, "equal_other": len(
             {json.dumps(r["int8"][name]["sha256"]) for r in runs}) == 1}),

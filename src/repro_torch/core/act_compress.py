@@ -9,11 +9,11 @@ int8 blocks with an fp32 scale each (``kernels/quant.py``'s 256-element
 blocks), about half the bf16 bytes:
 
   quantize the tensor (the kernel pads its tail) -> all-to-all of the
-  blocks and scales -> dequant-accumulate (this rank's chunk of the
-  sum) -> quantize again -> all-gather of the blocks and scales ->
-  dequantize
+  blocks and scales -> dequant-requantize (this rank's chunk of the sum,
+  folded and quantized again in one kernel) -> all-gather of the blocks
+  and scales -> dequantize
 
-Every quantize, dequantize and dequant-accumulate goes through
+Every quantize, dequantize and dequant-requantize goes through
 ``kernels/ops.py``: the CUDA kernel on a card tensor, its plain version
 on a CPU tensor.
 
@@ -37,9 +37,10 @@ def _int8_allreduce(x: torch.Tensor, coll, axis: str) -> torch.Tensor:
     """The (approximate) sum of ``x`` over ``axis``, carried in int8.
     The flattened tensor is quantized as one chunk over n * nb blocks,
     its tail zeros, so each of the n chunks of the wire is a whole
-    number of blocks; the gathered blocks dequantize straight into the
-    first ``total`` elements in x's dtype (``grad_compress._quantize``
-    and ``_dequantize``: no pad, widening, slice or cast around them)."""
+    number of blocks; the arrived chunks fold and requantize in one
+    kernel; the gathered blocks dequantize straight into the first
+    ``total`` elements in x's dtype (``grad_compress._quantize`` and
+    ``_dequantize``: no pad, widening, slice or cast around them)."""
     n = coll.size(axis)
     total = x.numel()
     nb = -(-total // (n * BLOCK))                   # blocks per rank chunk
@@ -47,9 +48,8 @@ def _int8_allreduce(x: torch.Tensor, coll, axis: str) -> torch.Tensor:
     # reduce-scatter hop: rank j receives every rank's chunk j
     q_x = coll.all_to_all(q, axis).reshape(n, nb, BLOCK)
     s_x = coll.all_to_all(scale, axis).reshape(n, nb, 1)
-    own = kops.int8_dequant_accumulate(q_x, s_x)
-    # all-gather hop: the summed chunks, requantized
-    q2, s2 = kops.int8_quantize_blocks(own)
+    # this rank's chunk of the sum, requantized for the all-gather hop
+    q2, s2 = kops.int8_dequant_requantize(q_x, s_x)
     q_full = coll.all_gather(q2, axis, 0)
     s_full = coll.all_gather(s2, axis, 0)
     return _dequantize(q_full, s_full, 1, total, x.dtype).reshape(x.shape)

@@ -420,10 +420,11 @@ def _act_allreduces(bundle) -> int:
 
 def act_int8_launch_plan(bundle) -> Dict[str, int]:
     """How many times one step calls each int8 kernel in the activation
-    all-reduces: each quantizes twice, dequant-accumulates once and
-    dequantizes once. Microbatches multiply."""
+    all-reduces: each quantizes once, dequant-accumulates (and
+    requantizes, in the same kernel) once and dequantizes once.
+    Microbatches multiply."""
     n = _act_allreduces(bundle) * max(bundle.run.microbatch, 1)
-    return {"quantize": 2 * n, "dequantize": n, "dequant_accumulate": n}
+    return {"quantize": n, "dequantize": n, "dequant_accumulate": n}
 
 
 def int8_launch_plan(bundle) -> Dict[str, int]:
@@ -437,7 +438,7 @@ def int8_launch_plan(bundle) -> Dict[str, int]:
     regathers. The activation all-reduces add theirs
     (``act_int8_launch_plan``). Microbatches multiply."""
     n = _act_allreduces(bundle)
-    out = {"quantize": 2 * n, "dequantize": n, "dequant_accumulate": n}
+    out = {"quantize": n, "dequantize": n, "dequant_accumulate": n}
     run = bundle.run
     leaf_level = async_reduce_enabled(run, bundle.strategy,
                                       bundle.mesh_shape)

@@ -56,13 +56,25 @@ def _dequantize(q: torch.Tensor, s: torch.Tensor, n_chunks: int,
     return vals.to(dtype)
 
 
+def _accumulate(q: torch.Tensor, s: torch.Tensor, chunk_elems: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """qgZ's arrival: the n sources' blocks (q int8 [n, nb, BLOCK], s
+    float32 [n, nb, 1]) folded in order, the first ``chunk_elems``
+    elements as a flat tensor of ``dtype``. The kernel writes float32
+    and bfloat16 itself; any other dtype is cast from fp32."""
+    out_dtype = dtype if dtype in OUT_DTYPES else torch.float32
+    vals = kops.int8_dequant_accumulate(q, s, chunk_elems=chunk_elems,
+                                        out_dtype=out_dtype)
+    return vals.to(dtype)
+
+
 def int8_psum_scatter(g: torch.Tensor, coll, axis: str,
                       dim: int) -> torch.Tensor:
     """Reduce-scatter of ``g`` over ``axis`` along ``dim``, carried in
     int8: split into n chunks along dim, quantize each (the kernel pads
     each to whole blocks), all-to-all the chunks so rank j receives
     every rank's chunk j, then fold them with the dequant-accumulate
-    loop. Returns this rank's block of the sum, in g's dtype."""
+    loop, which writes this rank's block of the sum in g's dtype."""
     return QuantizedReducePending(g, coll, axis, dim).wait()
 
 
@@ -70,8 +82,9 @@ class QuantizedReducePending:
     """A qgZ reduce-scatter in flight (``int8_psum_scatter`` issued as
     async work): the chunks were quantized at issue and their blocks and
     scales are in the all-to-all; ``wait()`` folds them with the
-    dequant-accumulate loop. The same bytes and kernel calls as
-    ``int8_psum_scatter``."""
+    dequant-accumulate loop straight into the block's elements in g's
+    dtype (``_accumulate``: no slice or cast around the kernel). The
+    same bytes and kernel calls as ``int8_psum_scatter``."""
 
     def __init__(self, g: torch.Tensor, coll, axis: str, dim: int):
         self.n = n = coll.mesh.mesh_shape.size(axis)
@@ -96,11 +109,10 @@ class QuantizedReducePending:
         if self.parts is not None:
             q_x, s_x = (p.wait() for p in self.parts)
             self.parts = None
-            summed = kops.int8_dequant_accumulate(
-                q_x.reshape(self.n, self.nb, BLOCK),
-                s_x.reshape(self.n, self.nb, 1)).reshape(-1)
-            out = summed[:self.chunk_elems].reshape(self.shape)
-            self.value = out.movedim(0, self.dim).to(self.dtype)
+            vals = _accumulate(q_x.reshape(self.n, self.nb, BLOCK),
+                               s_x.reshape(self.n, self.nb, 1),
+                               self.chunk_elems, self.dtype)
+            self.value = vals.reshape(self.shape).movedim(0, self.dim)
         return self.value
 
 

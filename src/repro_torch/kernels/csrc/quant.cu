@@ -5,7 +5,8 @@
 // Replaces the JAX package's Pallas kernels in src/repro/kernels/quant.py:
 //   int8_quantize_blocks_*    <- quantize_blocks     (_quantize_kernel)
 //   int8_dequantize_blocks_*  <- dequantize_blocks   (_dequantize_kernel)
-//   int8_dequant_accumulate   <- dequant_accumulate  (_dequant_acc_kernel)
+//   int8_dequant_accumulate_*, <- dequant_accumulate (_dequant_acc_kernel)
+//   int8_dequant_requantize
 //
 // The chunked layout (quantize and dequantize). A dense tensor holds
 // n_chunks chunks of chunk_elems elements each, back to back. Chunk c is
@@ -16,13 +17,19 @@
 // dtype, and no caller pads, widens, slices or casts around it. One
 // chunk of whole blocks is the plain [nb, 256] grid.
 //
+// dequant_accumulate writes the first chunk_elems elements of its fold
+// (one chunk; the rest of the last block is not written) in f32 or bf16,
+// or, for the int8 TP all-reduce, requantizes the fold in registers into
+// int8 blocks and scales: what quantize would make of the f32 fold.
+//
 // Bound: bytes. Each kernel does a handful of flops per element, far below
 // the card's ~295 flops per byte, so its least time is bytes / 3.35e12:
 //   quantize            reads n_chunks * chunk_elems * 4 (f32) or * 2
 //                       (bf16), writes nb*256 (int8) + nb*4 (scales)
 //   dequantize          reads nb*256 + nb*4, writes n_chunks * chunk_elems
 //                       * 4 (f32) or * 2 (bf16)
-//   dequant_accumulate  reads n*(nb*256 + nb*4), writes nb*256*4
+//   dequant_accumulate  reads n*(nb*256 + nb*4), writes chunk_elems * 4
+//                       (f32) or * 2 (bf16), or nb*256 + nb*4 (requantized)
 // A byte-bound elementwise pass needs coalesced 16-byte accesses and
 // enough of them in flight, nothing more: no TMA (a tile staged through
 // shared memory adds a trip and saves none) and no wgmma (no product).
@@ -47,14 +54,26 @@
 //     dense output in the caller's dtype, 4-value vector stores where
 //     the 4 lie inside the chunk and the chunk starts aligned to the
 //     vector, scalar stores otherwise; chunk padding is not written.
+//   * dequant_accumulate: one warp per block, lane l holding elements
+//     [4l, 4l + 4) and [128 + 4l, 128 + 4l + 4) (the f32 quantize's
+//     lanes), so each of a source's two 4-byte loads of the warp reads
+//     128 contiguous bytes and each store writes 512 (f32), 256 (bf16) or
+//     128 (int8) contiguous bytes; the requantize takes the block's max
+//     with shuffles, as quantize does. n = 2 (the `pod` and `model`
+//     axes of the paths the smoke drives) has an instance with both
+//     sources' loads issued before the first fold; any other n a loop,
+//     a source at a time. (8 contiguous elements a lane would put 32
+//     bytes between the lanes' f32 stores: a store instruction of the
+//     warp covering 1 KB to write 512 bytes.) A block whole inside the
+//     chunk stores vectors; the chunk's last block masked scalars.
 //   * rows and blocks a chunk are 32-bit (a 64-bit division by the
 //     blocks a chunk costs a subroutine call a block), one chunk divides
 //     nothing, and a layout of whole blocks on an aligned tensor (the
 //     plain [nb, 256] grid) launches the kernels without their chunk
 //     logic (kChunked false).
 // The TPU kernels' 8-row sublane tiles and sequential grid are not carried
-// over; dequant_accumulate folds the n sources in a register loop instead
-// of a grid axis.
+// over; dequant_accumulate folds the n sources in registers instead of
+// along a grid axis.
 //
 // Bit-exactness against the plain versions (kernels/ref.py) hangs on the
 // rounding of every operation, so each is spelled out:
@@ -98,6 +117,17 @@ __device__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// A block's scale from its max |x|, and one value's int8 code: the
+// quantize kernel's arithmetic, shared by the requantizing accumulate.
+__device__ __forceinline__ float block_scale(float amax) {
+  return fmaxf(__fmul_rn(amax, kInvQmax), kScaleEps);
+}
+
+__device__ __forceinline__ int8_t quantize1(float v, float scale) {
+  const int k = __float2int_rn(__fdiv_rn(v, scale));
+  return static_cast<int8_t>(max(-127, min(127, k)));
 }
 
 // Where block `row` of the grid lies: its chunk's first element in the
@@ -225,14 +255,10 @@ quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   for (int r = 0; r < kQRows; ++r) {
     const unsigned row = row0 + r;
     if (row >= nb) break;                // uniform across the warp
-    const float scale = fmaxf(__fmul_rn(amax[r], kInvQmax), kScaleEps);
+    const float scale = block_scale(amax[r]);
     union { int8_t b[kPerLane]; uint32_t u[2]; uint2 u2; } out;
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      int k = __float2int_rn(__fdiv_rn(v[r][i], scale));
-      k = max(-127, min(127, k));
-      out.b[i] = static_cast<int8_t>(k);
-    }
+    for (int i = 0; i < kPerLane; ++i) out.b[i] = quantize1(v[r][i], scale);
     int8_t* qb = q + static_cast<long long>(row) * kBlock;
     if constexpr (sizeof(T) == 4) {
       reinterpret_cast<uint32_t*>(qb)[lane] = out.u[0];
@@ -317,45 +343,91 @@ dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
   }
 }
 
-// The reduce-scatter inner loop: fold the n sources in order, in registers.
-__device__ __forceinline__ void load8(const int8_t* p, float v[kPerLane]) {
-  const uint2 raw = reinterpret_cast<const uint2*>(p)[0];
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+// The reduce-scatter inner loop. Source j's 4 int8 values `w` times its
+// block's scale, added to the lane's sums: each product and each sum
+// rounded on its own.
+__device__ __forceinline__ void fold4(float acc[4], uint32_t w, float scale) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&w);
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) v[i] = static_cast<float>(b[i]);
+  for (int i = 0; i < 4; ++i)
+    acc[i] = __fadd_rn(acc[i], __fmul_rn(static_cast<float>(b[i]), scale));
 }
 
-__device__ __forceinline__ void store8(float* p, const float v[kPerLane]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+// The n sources' values of block `row` folded in order 0..n-1 into the
+// lane's 8 sums (elements [4l, 4l + 4) in acc[0..3], [128 + 4l, ...) in
+// acc[4..7]). kN > 0: n == kN, every source's loads issued before the
+// first fold; kN == 0: any n, a source at a time.
+template <int kN>
+__device__ __forceinline__ void fold_sources(const int8_t* __restrict__ q,
+                                             const float* __restrict__ s,
+                                             int n, unsigned nb,
+                                             unsigned row, int lane,
+                                             float acc[kPerLane]) {
+  const long long stride = static_cast<long long>(nb) * kBlock;
+  if constexpr (kN == 0) {
+    for (int j = 0; j < n; ++j)
+      fold_sources<1>(q + j * stride, s + static_cast<long long>(j) * nb, 1,
+                      nb, row, lane, acc);
+  } else {
+    const int8_t* at = q + static_cast<long long>(row) * kBlock + 4 * lane;
+    uint32_t lo[kN], hi[kN];
+    float scale[kN];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      lo[j] = *reinterpret_cast<const uint32_t*>(at + j * stride);
+      hi[j] = *reinterpret_cast<const uint32_t*>(at + j * stride + 128);
+      scale[j] = s[static_cast<long long>(j) * nb + row];
+    }
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      fold4(acc, lo[j], scale[j]);
+      fold4(acc + 4, hi[j], scale[j]);
+    }
+  }
 }
 
+// One warp per block. Out float / __nv_bfloat16: the fold's first
+// chunk_elems elements, dense (kChunked false: all nb * 256 of them).
+// Out int8_t: the fold requantized into q_out [nb, 256] and s_out [nb].
+template <int kN, typename Out, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 dequant_accumulate_kernel(const int8_t* __restrict__ q,
-                          const float* __restrict__ s,
-                          float* __restrict__ out, int n, long long nb) {
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads
-                      + threadIdx.x;
-  const long long row = t / kLanesPerBlock;
-  if (row >= nb) return;
-  const long long off = t * kPerLane;
-  const long long src_stride = nb * kBlock;
+                          const float* __restrict__ s, Out* __restrict__ out,
+                          float* __restrict__ s_out, int n, unsigned nb,
+                          long long chunk_elems) {
+  const unsigned row = blockIdx.x * kWarpsPerCta + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (row >= nb) return;               // whole warps exit together
   float acc[kPerLane];
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
-  for (int src = 0; src < n; ++src) {
-    const float scale = s[src * nb + row];
-    float v[kPerLane];
-    load8(q + src * src_stride + off, v);
+  fold_sources<kN>(q, s, n, nb, row, lane, acc);
+  const long long e0 = static_cast<long long>(row) * kBlock + 4 * lane;
+  if constexpr (sizeof(Out) == 1) {
+    float amax = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i)
-      acc[i] = __fadd_rn(acc[i], __fmul_rn(v[i], scale));
+    for (int i = 0; i < kPerLane; ++i) amax = fmaxf(amax, fabsf(acc[i]));
+#pragma unroll
+    for (int m = kWarp / 2; m > 0; m >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, m));
+    const float scale = block_scale(amax);
+    union { int8_t b[kPerLane]; uint32_t u[2]; } code;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) code.b[i] = quantize1(acc[i], scale);
+    *reinterpret_cast<uint32_t*>(out + e0) = code.u[0];
+    *reinterpret_cast<uint32_t*>(out + e0 + 128) = code.u[1];
+    if (lane == 0) s_out[row] = scale;
+  } else if (!kChunked
+             || static_cast<long long>(row + 1) * kBlock <= chunk_elems) {
+    store4(out + e0, acc);             // the block lies whole in the chunk
+    store4(out + e0 + 128, acc + 4);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (e0 + i < chunk_elems) store1(out + e0 + i, acc[i]);
+      if (e0 + 128 + i < chunk_elems) store1(out + e0 + 128 + i, acc[4 + i]);
+    }
   }
-  store8(out + off, acc);
-}
-
-unsigned grid_for(long long threads) {
-  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
 // The chunk logic only where the layout needs it: every chunk whole
@@ -398,6 +470,34 @@ int dequantize(const void* q, const void* s, void* out, long long n_chunks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance for n sources (n = 2 unrolled, any other n the loop); the
+// chunk logic only where the output is not the whole grid (never for the
+// requantize, which writes whole blocks).
+template <int kN, typename Out>
+auto acc_kernel(bool part) {
+  if constexpr (sizeof(Out) == 1)
+    return dequant_accumulate_kernel<kN, Out, false>;
+  else
+    return part ? dequant_accumulate_kernel<kN, Out, true>
+                : dequant_accumulate_kernel<kN, Out, false>;
+}
+
+// The fold of n sources of nb blocks; chunk_elems <= nb * 256 (the whole
+// grid, or for the requantize, nb * 256).
+template <typename Out>
+int dequant_accumulate(const void* q, const void* s, void* out, void* s_out,
+                       int n, long long nb, long long chunk_elems,
+                       void* stream) {
+  const bool part = chunk_elems != nb * kBlock;
+  auto kernel = n == 2 ? acc_kernel<2, Out>(part) : acc_kernel<0, Out>(part);
+  kernel<<<ctas_for_rows(nb, 1), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(s),
+      static_cast<Out*>(out), static_cast<float*>(s_out), n,
+      static_cast<unsigned>(nb), chunk_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -432,13 +532,27 @@ int int8_dequantize_blocks_bf16(const void* q, const void* s, void* out,
                                    stream);
 }
 
-int int8_dequant_accumulate(const void* q, const void* s, void* out, int n,
-                            long long nb, void* stream) {
-  dequant_accumulate_kernel<<<grid_for(nb * kLanesPerBlock), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      static_cast<float*>(out), n, nb);
-  return static_cast<int>(cudaGetLastError());
+// q: [n, nb, 256] (4-byte aligned); s: [n, nb]; out: the first
+// chunk_elems (<= nb * 256) elements of the fold, dense.
+int int8_dequant_accumulate_f32(const void* q, const void* s, void* out,
+                                int n, long long nb, long long chunk_elems,
+                                void* stream) {
+  return dequant_accumulate<float>(q, s, out, nullptr, n, nb, chunk_elems,
+                                   stream);
+}
+
+int int8_dequant_accumulate_bf16(const void* q, const void* s, void* out,
+                                 int n, long long nb, long long chunk_elems,
+                                 void* stream) {
+  return dequant_accumulate<__nv_bfloat16>(q, s, out, nullptr, n, nb,
+                                           chunk_elems, stream);
+}
+
+// The fold requantized: q_out [nb, 256], s_out [nb].
+int int8_dequant_requantize(const void* q, const void* s, void* q_out,
+                            void* s_out, int n, long long nb, void* stream) {
+  return dequant_accumulate<int8_t>(q, s, q_out, s_out, n, nb, nb * kBlock,
+                                    stream);
 }
 
 }  // extern "C"

@@ -83,13 +83,34 @@ def int8_dequantize_blocks(q: torch.Tensor, s: torch.Tensor, *,
     return out
 
 
-def int8_dequant_accumulate(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """(q int8 [n, nb, BLOCK], s float32 [n, nb, 1]) -> float32 [nb,
-    BLOCK], the n sources folded in order."""
+def int8_dequant_accumulate(q: torch.Tensor, s: torch.Tensor, *,
+                            chunk_elems: Optional[int] = None,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """(q int8 [n, nb, BLOCK], s float32 [n, nb, 1]) -> the n sources
+    folded in order in fp32, its first chunk_elems elements in out_dtype
+    (float32 or bfloat16; ``quant.acc_layout``: [nb, BLOCK] by default,
+    else [chunk_elems])."""
     int8_dequant_accumulate.calls += 1
+    layout = dict(chunk_elems=chunk_elems, out_dtype=out_dtype)
     if not _kernel_device(q, "int8 dequant-accumulate"):
-        return ref.int8_dequant_acc_plain(q, s)
-    out = quant.dequant_accumulate(q, s)
+        return ref.int8_dequant_acc_plain(q, s, **layout)
+    out = quant.dequant_accumulate(q, s, **layout)
+    int8_dequant_accumulate.launches += 1
+    return out
+
+
+def int8_dequant_requantize(q: torch.Tensor, s: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q int8 [n, nb, BLOCK], s float32 [n, nb, 1]) -> (q int8 [nb,
+    BLOCK], scale float32 [nb, 1]): the fp32 fold of
+    ``int8_dequant_accumulate`` quantized again in the same launch, as
+    ``int8_quantize_blocks`` would. Its kernel is the dequant-accumulate
+    kernel's, so its call and launch count on that dispatcher."""
+    int8_dequant_accumulate.calls += 1
+    if not _kernel_device(q, "int8 dequant-requantize"):
+        return ref.int8_dequant_requant_plain(q, s)
+    out = quant.dequant_requantize(q, s)
     int8_dequant_accumulate.launches += 1
     return out
 

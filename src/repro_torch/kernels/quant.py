@@ -1,7 +1,8 @@
 """Wrappers of the hand-written int8 block-quantization kernels
 (``csrc/quant.cu``; replace the JAX package's Pallas kernels in
 ``kernels/quant.py``: ``quantize_blocks``, ``dequantize_blocks``,
-``dequant_accumulate``).
+``dequant_accumulate``; ``dequant_requantize`` is the last one's kernel
+with its fold quantized again in the same launch).
 
 Every int8 transport of the train step shares one block layout: a tensor
 is flattened, cut into chunks (one per rank of the collective, or one),
@@ -10,7 +11,9 @@ each block carries one fp32 scale ``max(max|x| * INV_QMAX, SCALE_EPS)``.
 Quantize and dequantize take that chunked layout themselves
 (``chunk_layout``): they read and write the callers' dense tensors in
 the callers' dtype, and do the padding, the widening, the slicing and
-the cast in their own pass.
+the cast in their own pass. Dequant-accumulate writes its fold's first
+``chunk_elems`` elements in the caller's dtype (``acc_layout``);
+dequant-requantize quantizes the fold into int8 blocks instead.
 
 The wrappers check what the kernels take, allocate the outputs and
 launch on PyTorch's current stream. They never fall back: a tensor the
@@ -47,9 +50,14 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ll, ll, ll, stream]
         fn.restype = ctypes.c_int
-    lib.int8_dequant_accumulate.argtypes = [ptr, ptr, ptr, ctypes.c_int, ll,
-                                            stream]
-    lib.int8_dequant_accumulate.restype = ctypes.c_int
+    for name in ("int8_dequant_accumulate_f32",
+                 "int8_dequant_accumulate_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ll, ll, stream]
+        fn.restype = ctypes.c_int
+    lib.int8_dequant_requantize.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int,
+                                            ll, stream]
+    lib.int8_dequant_requantize.restype = ctypes.c_int
     return lib
 
 
@@ -108,6 +116,22 @@ def dequant_layout(nb: int, n_chunks: int = 1,
         raise ValueError(f"chunk_elems={chunk_elems} does not fit the "
                          f"{bpc} blocks of a chunk")
     return chunk_elems, bpc, (n_chunks * chunk_elems,)
+
+
+def acc_layout(q_shape, chunk_elems: Optional[int] = None,
+               out_dtype: torch.dtype = torch.float32
+               ) -> Tuple[int, int, int, Tuple[int, ...]]:
+    """(n, nb, chunk_elems, output shape) of a dequant-accumulate of q
+    [n, nb, BLOCK]: the fold's first ``chunk_elems`` elements in
+    ``out_dtype`` (``dequant_layout`` of one chunk: [nb, BLOCK] by
+    default, else [chunk_elems]). Raises on what the kernel does not
+    take."""
+    if len(q_shape) != 3 or q_shape[2] != BLOCK or 0 in q_shape[:2]:
+        raise ValueError(f"q must be [n>0, nb>0, {BLOCK}], is "
+                         f"{tuple(q_shape)}")
+    n, nb = q_shape[0], q_shape[1]
+    chunk_elems, _, shape = dequant_layout(nb, 1, chunk_elems, out_dtype)
+    return n, nb, chunk_elems, shape
 
 
 def _check(name: str, t: torch.Tensor, dtypes, shape, device,
@@ -182,16 +206,40 @@ def dequantize_blocks(q: torch.Tensor, s: torch.Tensor, *, n_chunks: int = 1,
     return out
 
 
-def dequant_accumulate(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """(q int8 [n, nb, BLOCK], s float32 [n, nb, 1]) -> float32 [nb,
-    BLOCK]: the n dequantized sources summed in order 0..n-1."""
-    if q.dim() != 3 or q.shape[2] != BLOCK or 0 in q.shape[:2]:
-        raise ValueError(f"q must be [n>0, nb>0, {BLOCK}], is "
-                         f"{tuple(q.shape)}")
-    n, nb = q.shape[0], q.shape[1]
+def _check_sources(q: torch.Tensor, s: torch.Tensor, n: int,
+                   nb: int) -> None:
     _check("q", q, (torch.int8,), (n, nb, BLOCK), None)
     _check("s", s, (torch.float32,), (n, nb, 1), q.device, align=4)
-    out = torch.empty((nb, BLOCK), dtype=torch.float32, device=q.device)
-    _launch(_lib().int8_dequant_accumulate, q.data_ptr(), s.data_ptr(),
-            out.data_ptr(), n, nb, device=q.device)
+
+
+def dequant_accumulate(q: torch.Tensor, s: torch.Tensor, *,
+                       chunk_elems: Optional[int] = None,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """(q int8 [n, nb, BLOCK], s float32 [n, nb, 1]) -> the n dequantized
+    sources summed in order 0..n-1 in fp32, written as its first
+    ``chunk_elems`` elements in ``out_dtype`` (float32 or bfloat16;
+    ``acc_layout``: [nb, BLOCK] by default, else [chunk_elems])."""
+    n, nb, chunk_elems, shape = acc_layout(q.shape, chunk_elems, out_dtype)
+    _check_sources(q, s, n, nb)
+    out = torch.empty(shape, dtype=out_dtype, device=q.device)
+    lib = _lib()
+    fn = (lib.int8_dequant_accumulate_f32 if out_dtype == torch.float32
+          else lib.int8_dequant_accumulate_bf16)
+    _launch(fn, q.data_ptr(), s.data_ptr(), out.data_ptr(), n, nb,
+            chunk_elems, device=q.device)
     return out
+
+
+def dequant_requantize(q: torch.Tensor, s: torch.Tensor):
+    """(q int8 [n, nb, BLOCK], s float32 [n, nb, 1]) -> (q int8 [nb,
+    BLOCK], s float32 [nb, 1]): ``dequant_accumulate``'s fp32 fold
+    quantized in registers in the same launch, what ``quantize_blocks``
+    makes of it."""
+    n, nb, _, _ = acc_layout(q.shape)
+    _check_sources(q, s, n, nb)
+    q2 = torch.empty((nb, BLOCK), dtype=torch.int8, device=q.device)
+    s2 = torch.empty((nb, 1), dtype=torch.float32, device=q.device)
+    _launch(_lib().int8_dequant_requantize, q.data_ptr(), s.data_ptr(),
+            q2.data_ptr(), s2.data_ptr(), n, nb, device=q.device)
+    return q2, s2

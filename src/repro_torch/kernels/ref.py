@@ -9,7 +9,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.quant import (BLOCK, INV_QMAX, SCALE_EPS,
-                                      chunk_layout, dequant_layout)
+                                      acc_layout, chunk_layout,
+                                      dequant_layout)
 
 NEG_INF = -1e30
 
@@ -100,15 +101,29 @@ def int8_dequantize_blocks_plain(q: torch.Tensor, s: torch.Tensor, *,
     return vals.reshape(shape).to(out_dtype)
 
 
-def int8_dequant_acc_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def int8_dequant_acc_plain(q: torch.Tensor, s: torch.Tensor, *,
+                           chunk_elems: Optional[int] = None,
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
     """The reduce-scatter inner loop: the n dequantized source chunks
     summed in source order, each product and each sum rounded on its own
-    (two PyTorch ops, never contracted into an FMA).
-    q: [n, nb, BLOCK] int8, s: [n, nb, 1] float32 -> float32 [nb, BLOCK]."""
-    acc = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
-    for i in range(q.shape[0]):
+    (two PyTorch ops, never contracted into an FMA). q: [n, nb, BLOCK]
+    int8, s: [n, nb, 1] float32 -> the fold's first ``chunk_elems``
+    elements cast to ``out_dtype`` (``quant.acc_layout``: [nb, BLOCK] by
+    default, else [chunk_elems])."""
+    n, nb, chunk_elems, shape = acc_layout(q.shape, chunk_elems, out_dtype)
+    acc = torch.zeros((nb, BLOCK), dtype=torch.float32, device=q.device)
+    for i in range(n):
         acc = acc + q[i].float() * s[i]
-    return acc
+    return acc.reshape(-1)[:chunk_elems].reshape(shape).to(out_dtype)
+
+
+def int8_dequant_requant_plain(q: torch.Tensor, s: torch.Tensor):
+    """The int8 TP all-reduce's fold requantized: the fp32
+    ``int8_dequant_acc_plain`` of q [n, nb, BLOCK], s [n, nb, 1] through
+    ``int8_quantize_blocks_plain`` -> (q int8 [nb, BLOCK], s float32
+    [nb, 1])."""
+    return int8_quantize_blocks_plain(int8_dequant_acc_plain(q, s))
 
 
 def matmul_chunk_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -413,7 +413,7 @@ def test_launch_plans_walk_both_stacks(pid):
                                                matmul_chunk_launch_plan)
     tp, kw, act, mm = PLANS[pid]
     pb = _port_bundle(MESHES[tp], **kw)
-    assert act_int8_launch_plan(pb) == {"quantize": 2 * act,
+    assert act_int8_launch_plan(pb) == {"quantize": act,
                                         "dequantize": act,
                                         "dequant_accumulate": act}
     assert matmul_chunk_launch_plan(pb) == mm

@@ -12,7 +12,11 @@ mode, on the same numpy inputs:
   * dequant-accumulate bit-exact at power-of-two scales (every product
     and sum exact), and within ``tests/test_quant.py``'s rtol/atol 1e-5
     at random scales: the accumulation order is the same, but XLA may
-    contract the multiply and add on the CPU, where PyTorch rounds each.
+    contract the multiply and add on the CPU, where PyTorch rounds each;
+  * its requantizing output (the int8 TP all-reduce's fold, quantized
+    in the same kernel) bit-exact against the JAX package's
+    dequant-accumulate followed by its quantize, all-zero blocks and
+    exact half-ties included.
 
 The CUDA kernels themselves run only on the card; here the dispatch is
 checked: a CPU tensor takes the plain version and counts no launch.
@@ -151,6 +155,58 @@ def test_dequant_accumulate_random_scales_close(rng):
     np.testing.assert_array_equal(got, acc)
 
 
+def _jax_requantized(q, s):
+    """The JAX int8 TP all-reduce's fold then requantize
+    (``act_compress._int8_allreduce``), as the oracles and as the
+    interpret-mode Pallas kernels."""
+    qj, sj = jnp.asarray(q), jnp.asarray(s)
+    return [jops.int8_quantize_blocks(
+                jops.int8_dequant_accumulate(qj, sj, impl="jnp"),
+                impl="jnp"),
+            jops.int8_quantize_blocks(
+                jops.int8_dequant_accumulate(qj, sj, impl="pallas",
+                                             interpret=True),
+                impl="pallas", interpret=True)]
+
+
+@pytest.mark.parametrize("n,nb", [(2, 5), (3, 1), (4, 8), (2, 17)])
+def test_dequant_accumulate_requantize_equals_jax(n, nb, rng):
+    """The requantizing output equals the JAX fold followed by its
+    quantize bit for bit at power-of-two scales (the fold exact), and
+    the port's own plain composition at random ones."""
+    q = rng.integers(-127, 128, (n, nb, BLOCK)).astype(np.int8)
+    s = (2.0 ** rng.integers(-8, 2, (n, nb, 1))).astype(np.float32)
+    got = ops.int8_dequant_requantize(_t(q), _t(s))
+    assert got[0].shape == (nb, BLOCK) and got[1].shape == (nb, 1)
+    assert got[0].dtype == torch.int8 and got[1].dtype == torch.float32
+    for want in _jax_requantized(q, s):
+        _assert_quant_equal(got, want)
+    s = (np.abs(rng.normal(0, 0.05, (n, nb, 1))) + 1e-4).astype(np.float32)
+    got = ref.int8_dequant_requant_plain(_t(q), _t(s))
+    want = ref.int8_quantize_blocks_plain(
+        ref.int8_dequant_acc_plain(_t(q), _t(s)))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_dequant_accumulate_requantize_zero_blocks_and_ties():
+    """A block whose sources are all zero requantizes to q 0, s 1e-12;
+    a fold of max |x| 127 has scale 1.0, and its k + 0.5 values (1 at
+    scale 0.5 added to integers) round half to even."""
+    q = np.zeros((2, 3, BLOCK), np.int8)
+    s = np.ones((2, 3, 1), np.float32)
+    q[0, 1, :7] = [0, 1, 2, -1, -2, 126, 127]
+    q[1, 1, :7] = [1, 1, 1, -1, -1, 1, 0]
+    s[1, 1] = 0.5                      # fold 0.5 1.5 2.5 -1.5 -2.5 126.5 127
+    q[:, 2] = 5
+    got = ops.int8_dequant_requantize(_t(q), _t(s))
+    for want in _jax_requantized(q, s):
+        _assert_quant_equal(got, want)
+    assert torch.all(got[0][0] == 0) and got[1][0, 0] == np.float32(SCALE_EPS)
+    assert got[1][1, 0] == 1.0
+    assert got[0][1, :7].tolist() == [0, 2, 2, -2, -2, 126, 127]
+    assert torch.all(got[0][2] == 127)
+
+
 @pytest.mark.parametrize("shape", [(100,), (256,), (300, 7), (31, 33)])
 def test_quantize_pad_path_matches_jax(shape, rng):
     """Tensors that are not a whole number of blocks take the pad path
@@ -191,6 +247,14 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(rng):
                                    torch.ones(18, 1),
                                    {"n_chunks": 2, "chunk_elems": 2100,
                                     "out_dtype": torch.bfloat16})),
+    ("dequant_accumulate", lambda: (torch.zeros(2, 5, BLOCK,
+                                                dtype=torch.int8),
+                                    torch.ones(2, 5, 1),
+                                    {"chunk_elems": 1050,
+                                     "out_dtype": torch.bfloat16})),
+    ("dequant_requantize", lambda: (torch.zeros(2, 5, BLOCK,
+                                                dtype=torch.int8),
+                                    torch.ones(2, 5, 1))),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(fn, args):
     """The CUDA wrappers never run a plain version: a CPU tensor
@@ -232,3 +296,63 @@ def test_wrappers_and_plain_versions_refuse_bad_layouts(fn, args, match):
               getattr(ops, f"int8_{fn}_blocks")):
         with pytest.raises(ValueError, match=match):
             f(*tensors, **kw)
+
+
+def _acc_args(n=2, nb=4):
+    return torch.zeros(n, nb, BLOCK, dtype=torch.int8), torch.ones(n, nb, 1)
+
+
+@pytest.mark.parametrize("args,kw,match", [
+    (_acc_args, {"chunk_elems": 4 * BLOCK + 1}, "chunk_elems"),
+    (_acc_args, {"chunk_elems": 0}, "chunk_elems"),
+    (_acc_args, {"out_dtype": torch.float16}, "out_dtype"),
+    (_acc_args, {"chunk_elems": 1000, "out_dtype": torch.int8}, "out_dtype"),
+    (_acc_args, {"chunk_elems": -1}, "chunk_elems"),
+    (_acc_args, {"out_dtype": torch.int8}, "out_dtype"),
+    (lambda: (torch.zeros(4, BLOCK, dtype=torch.int8), torch.ones(4, 1)), {},
+     r"\[n>0, nb>0"),
+    (lambda: (torch.zeros(2, 0, BLOCK, dtype=torch.int8),
+              torch.ones(2, 0, 1)), {}, r"\[n>0, nb>0"),
+])
+def test_dequant_accumulate_refuses_bad_layouts(args, kw, match):
+    """A chunk beyond the blocks or empty, an output dtype the kernel
+    does not write, or a q that is not [n, nb, BLOCK] raises in the CUDA
+    wrapper (before the device check), in the plain version and in the
+    dispatcher alike."""
+    from repro_torch.kernels import quant
+    q, s = args()
+    for f in (quant.dequant_accumulate, ref.int8_dequant_acc_plain,
+              ops.int8_dequant_accumulate):
+        with pytest.raises(ValueError, match=match):
+            f(q, s, **kw)
+
+
+@pytest.mark.parametrize("shape", [(4, BLOCK), (2, 0, BLOCK), (0, 3, BLOCK),
+                                   (2, 3, BLOCK + 1)])
+def test_dequant_requantize_refuses_bad_layouts(shape):
+    """A q that is not [n>0, nb>0, BLOCK] raises in the CUDA wrapper
+    (before the device check), in the plain version and in the
+    dispatcher alike."""
+    from repro_torch.kernels import quant
+    q = torch.zeros(shape, dtype=torch.int8)
+    s = torch.ones(shape[:-1] + (1,))
+    for f in (quant.dequant_requantize, ref.int8_dequant_requant_plain,
+              ops.int8_dequant_requantize):
+        with pytest.raises(ValueError, match=r"\[n>0, nb>0"):
+            f(q, s)
+
+
+def test_dequant_requantize_counts_on_the_accumulate(rng):
+    """The requantizing fold is the dequant-accumulate kernel's: its call
+    raises that dispatcher's count (the launch plans' one entry for it),
+    and a CPU tensor launches nothing."""
+    q = _t(rng.integers(-127, 128, (2, 3, BLOCK)).astype(np.int8))
+    s = _t(np.full((2, 3, 1), 0.5, np.float32))
+    acc = ops.INT8_KERNELS["dequant_accumulate"]
+    before = {k: (f.launches, f.calls) for k, f in ops.INT8_KERNELS.items()}
+    ops.int8_dequant_requantize(q, s)
+    assert (acc.launches, acc.calls) == (before["dequant_accumulate"][0],
+                                         before["dequant_accumulate"][1] + 1)
+    for k in ("quantize", "dequantize"):
+        f = ops.INT8_KERNELS[k]
+        assert (f.launches, f.calls) == before[k]

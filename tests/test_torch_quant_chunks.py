@@ -12,12 +12,19 @@ a seed:
     ``int8_psum_scatter``'s per-chunk padding for n), bit for bit;
   * the chunked plain dequantize against the JAX qwZ arrival (dequantize
     to fp32, drop each rank's padding, ``astype``), bit for bit;
+  * the chunked plain dequant-accumulate (fp32 or bf16 written by the
+    kernel, fp16 cast by qgZ's ``_accumulate``) against the JAX qgZ
+    arrival (``int8_psum_scatter``: fold to fp32, slice the chunk,
+    ``astype``), and qgZ itself on a loopback wire against the JAX
+    arrival of the same wire bytes, bit for bit at power-of-two scales
+    (XLA may contract the fold's multiply and add on the CPU);
   * qwZ (``quantized_gather``), qgZ (``int8_psum_scatter``) and the int8
     TP all-reduce (``int8_psum``) on CPU tensors against the padded
-    composition (pad, widen, quantize whole blocks; dequantize to fp32,
-    slice, cast) over the same loopback wire, bit for bit and byte for
-    byte, and with no ``F.pad``, no widening of a bf16 tensor and no
-    slice or cast after the dequantize.
+    composition (pad, widen, quantize whole blocks; dequantize or fold
+    to fp32, slice, cast; requantize the fold in a second pass) over the
+    same loopback wire, bit for bit and byte for byte, and with no
+    ``F.pad``, no widening of a bf16 tensor, no slice or cast after the
+    dequantize or the fold, and no second quantize for the requantize.
 """
 from types import SimpleNamespace
 
@@ -36,6 +43,7 @@ from repro_torch.kernels.quant import BLOCK
 CHUNK_ELEMS = [1, 100, 256, 300, 2100, 4099]
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+ARRIVAL_DTYPES = {**DTYPES, "float16": (torch.float16, jnp.float16)}
 
 
 def _draw(rng, n, dtype):
@@ -112,6 +120,86 @@ def test_chunked_dequantize_equals_jax_arrival(n, chunk_elems, dtype):
                                            out_dtype=tdt),
                 grad_compress._dequantize(qt, st, n, chunk_elems, tdt)):
         assert got.dtype == tdt and got.shape == (n * chunk_elems,)
+        np.testing.assert_array_equal(_np32(got), _np32(want))
+
+
+def _jax_folds(q, s):
+    """The JAX fold of n sources (q [n, nb, BLOCK], s [n, nb, 1]) as the
+    oracle and as the interpret-mode Pallas kernel, flat."""
+    qj, sj = jnp.asarray(q), jnp.asarray(s)
+    return [jops.int8_dequant_accumulate(qj, sj, impl="jnp").reshape(-1),
+            jops.int8_dequant_accumulate(qj, sj, impl="pallas",
+                                         interpret=True).reshape(-1)]
+
+
+@pytest.mark.parametrize("dtype", list(ARRIVAL_DTYPES))
+@pytest.mark.parametrize("chunk_elems", [1, 300, 1050, 2100, 2048, 4096])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_chunked_dequant_accumulate_equals_jax_arrival(n, chunk_elems, dtype):
+    """The fold written as its first ``chunk_elems`` elements in the
+    caller's dtype (the plain version, its dispatcher and qgZ's
+    ``_accumulate``; fp16 only through ``_accumulate``, which casts the
+    fp32 fold) equals the JAX qgZ arrival (fold, ``[:chunk_elems]``,
+    ``astype``) bit for bit, ragged and whole-block chunks alike."""
+    rng = np.random.default_rng(3000 + 100 * n + chunk_elems)
+    nb = -(-chunk_elems // BLOCK)
+    q = rng.integers(-127, 128, (n, nb, BLOCK)).astype(np.int8)
+    s = (2.0 ** rng.integers(-8, 2, (n, nb, 1))).astype(np.float32)
+    tdt, jdt = ARRIVAL_DTYPES[dtype]
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    got = [grad_compress._accumulate(qt, st, chunk_elems, tdt)]
+    if tdt != torch.float16:
+        kw = dict(chunk_elems=chunk_elems, out_dtype=tdt)
+        got += [ref.int8_dequant_acc_plain(qt, st, **kw),
+                ops.int8_dequant_accumulate(qt, st, **kw)]
+    for fold in _jax_folds(q, s):
+        want = fold[:chunk_elems].astype(jdt)
+        for g in got:
+            assert g.dtype == tdt and g.shape == (chunk_elems,)
+            np.testing.assert_array_equal(_np32(g), _np32(want))
+
+
+def _exact_chunks(rng, n, chunk_elems):
+    """[n, chunk_elems] float32 values that quantize exactly: each block
+    of each chunk holds integers of [-127, 127] times a power of two
+    2^k, its first one +-127 * 2^k, so its scale is 2^k (fl(127 *
+    INV_QMAX) is 1) and its codes are the integers. Exact in bf16 and
+    fp16 too."""
+    nb = -(-chunk_elems // BLOCK)
+    ints = rng.integers(-127, 128, (n, nb, BLOCK)).astype(np.float32)
+    ints[:, :, 0] = 127 * rng.choice([-1.0, 1.0], (n, nb))
+    scale = 2.0 ** rng.integers(-6, 3, (n, nb, 1))
+    return (ints * scale).reshape(n, -1)[:, :chunk_elems].astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(ARRIVAL_DTYPES))
+@pytest.mark.parametrize("shape,dim,n", [((2, 1050), 0, 2), ((4, 1050), 0, 2),
+                                         ((3, 2100), 0, 3), ((8, 512), 0, 4),
+                                         ((7, 6, 50), 1, 3), ((4, 256), 0, 4)])
+def test_psum_scatter_equals_jax_arrival(shape, dim, n, dtype):
+    """qgZ (``int8_psum_scatter``) over a loopback wire equals the JAX
+    package's arrival (``int8_psum_scatter``'s fold, slice, reshape,
+    ``moveaxis`` and ``astype``) of the same wire bytes bit for bit, in
+    fp32, bf16 and fp16, ragged chunks (1,050, 2,100, 700 elements) and
+    whole-block ones."""
+    tdt, jdt = ARRIVAL_DTYPES[dtype]
+    moved = list(shape)
+    moved.insert(0, moved.pop(dim))
+    chunk_shape = (moved[0] // n,) + tuple(moved[1:])
+    elems = int(np.prod(chunk_shape))
+    rng = np.random.default_rng(sum(shape) + n)
+    vals = _exact_chunks(rng, n, elems).reshape(moved)
+    g = torch.from_numpy(np.moveaxis(vals, 0, dim).copy()).to(tdt)
+    coll = Loopback(n)
+    got = grad_compress.int8_psum_scatter(g, coll, "pod", dim)
+    q, s = (x.flip(0).numpy() for x in coll.sent)     # what arrived
+    nb = -(-elems // BLOCK)
+    q, s = q.reshape(n, nb, BLOCK), s.reshape(n, nb, 1)
+    assert set(np.unique(s)) <= {2.0 ** k for k in range(-6, 3)}
+    for fold in _jax_folds(q, s):
+        want = jnp.moveaxis(fold[:elems].reshape(chunk_shape), 0,
+                            dim).astype(jdt)
+        assert got.dtype == tdt and tuple(got.shape) == want.shape
         np.testing.assert_array_equal(_np32(got), _np32(want))
 
 
@@ -273,13 +361,17 @@ def test_int8_psum_equals_padded_composition(shape, n, dtype):
 
 @pytest.fixture
 def glue_spy(monkeypatch):
-    """F.pad raises; the quantize and dequantize dispatchers record what
-    they were handed and what they returned."""
+    """F.pad raises; the quantize, dequantize, dequant-accumulate and
+    dequant-requantize dispatchers record what they were handed and what
+    they returned (the accumulate also its keyword arguments)."""
     def no_pad(*a, **k):
         raise AssertionError("a caller padded")
     monkeypatch.setattr(F, "pad", no_pad)
-    seen = {"quantize": [], "dequantize": []}
+    seen = {"quantize": [], "dequantize": [], "dequant_accumulate": [],
+            "dequant_requantize": []}
     quantize, dequantize = ops.int8_quantize_blocks, ops.int8_dequantize_blocks
+    accumulate, requantize = (ops.int8_dequant_accumulate,
+                              ops.int8_dequant_requantize)
 
     def spy_quantize(x, **kw):
         seen["quantize"].append((x.dtype, x.data_ptr()))
@@ -289,26 +381,79 @@ def glue_spy(monkeypatch):
         out = dequantize(q, s, **kw)
         seen["dequantize"].append((out.dtype, out.data_ptr()))
         return out
-    for spy in (spy_quantize, spy_dequantize):   # the counters they raise
-        spy.calls = spy.launches = 0
+
+    def spy_accumulate(q, s, **kw):
+        out = accumulate(q, s, **kw)
+        seen["dequant_accumulate"].append((out.dtype, out.data_ptr(), kw))
+        return out
+
+    def spy_requantize(q, s):
+        out = requantize(q, s)
+        seen["dequant_requantize"].append((q.dtype, out[0].dtype))
+        return out
+    for spy in (spy_quantize, spy_dequantize, spy_accumulate):
+        spy.calls = spy.launches = 0             # the counters they raise
     monkeypatch.setattr(ops, "int8_quantize_blocks", spy_quantize)
     monkeypatch.setattr(ops, "int8_dequantize_blocks", spy_dequantize)
+    monkeypatch.setattr(ops, "int8_dequant_accumulate", spy_accumulate)
+    monkeypatch.setattr(ops, "int8_dequant_requantize", spy_requantize)
     return seen
 
 
 def test_callers_neither_pad_nor_widen_nor_slice_bf16(glue_spy):
     """On a ragged bf16 tensor the three callers hand the kernels the
     caller's own tensor (no pad, no fp32 copy) and return the kernel's
-    output itself (no slice copy, no cast)."""
+    output itself (no slice copy, no cast); the TP all-reduce's fold is
+    requantized in its own kernel (no accumulate, no second quantize)."""
     w = torch.randn(300, 7).bfloat16()                      # 2,100 elements
     out = grad_compress.quantized_gather(w, Loopback(2), "pod", 0)
     assert glue_spy["quantize"] == [(torch.bfloat16, w.data_ptr())]
     assert glue_spy["dequantize"] == [(torch.bfloat16, out.data_ptr())]
     g = torch.randn(2, 1050).bfloat16()
-    grad_compress.int8_psum_scatter(g, Loopback(2), "pod", 0)
+    r = grad_compress.int8_psum_scatter(g, Loopback(2), "pod", 0)
     assert glue_spy["quantize"][1] == (torch.bfloat16, g.data_ptr())
+    assert glue_spy["dequant_accumulate"][0][:2] == (torch.bfloat16,
+                                                     r.data_ptr())
     x = torch.randn(3, 7, 11).bfloat16()
     y = act_compress.int8_psum(x, Loopback(4), "model")
-    assert glue_spy["quantize"][2] == (torch.bfloat16, x.data_ptr())
-    assert glue_spy["quantize"][3][0] == torch.float32      # the requantize
+    assert glue_spy["quantize"][2:] == [(torch.bfloat16, x.data_ptr())]
+    assert len(glue_spy["dequant_accumulate"]) == 1
+    assert glue_spy["dequant_requantize"] == [(torch.int8, torch.int8)]
     assert glue_spy["dequantize"][1] == (torch.bfloat16, y.data_ptr())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dim,n", [((2, 1050), 0, 2),
+                                         ((7, 6, 50), 1, 3),
+                                         ((8, 512), 0, 4)])
+def test_qgz_wait_returns_the_fold_itself(glue_spy, shape, dim, n, dtype):
+    """qgZ's wait hands the accumulate the chunk's elements and the
+    gradient's dtype and returns the dispatcher's own output (the same
+    storage, a view moved back to ``dim``): no fp32 copy, no slice copy,
+    no cast; nothing else is quantized or dequantized."""
+    g = torch.randn(shape).to(dtype)
+    got = grad_compress.int8_psum_scatter(g, Loopback(n), "pod", dim)
+    elems = g.numel() // n
+    (out_dtype, ptr, kw), = glue_spy["dequant_accumulate"]
+    assert kw == {"chunk_elems": elems, "out_dtype": dtype}
+    assert got.dtype == out_dtype == dtype and got.data_ptr() == ptr
+    # the issue reads g in place where its dim needs no move
+    (q_dtype, q_ptr), = glue_spy["quantize"]
+    assert q_dtype == dtype and (dim != 0 or q_ptr == g.data_ptr())
+    assert glue_spy["dequantize"] == glue_spy["dequant_requantize"] == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n", [((3, 7, 11), 4), ((2, 16, 256), 2)])
+def test_int8_allreduce_requantizes_in_the_accumulate(glue_spy, shape, n,
+                                                      dtype):
+    """The int8 TP all-reduce makes one quantize call (the tensor
+    itself), one requantizing fold (``int8_dequant_requantize``, no
+    separate accumulate) and one dequantize into the tensor's dtype,
+    which it returns."""
+    x = torch.randn(shape).to(dtype)
+    y = act_compress.int8_psum(x, Loopback(n), "model")
+    assert glue_spy["quantize"] == [(dtype, x.data_ptr())]
+    assert glue_spy["dequant_accumulate"] == []
+    assert glue_spy["dequant_requantize"] == [(torch.int8, torch.int8)]
+    assert glue_spy["dequantize"] == [(dtype, y.data_ptr())]
