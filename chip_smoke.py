@@ -300,6 +300,25 @@ non-zero:
                 the contiguous steps (the frames, a 64-token prompt,
                 batch 2, 8 decode steps): logits within 0.1, tokens
                 equal up to near-ties.
+ 31. dryrun -- the port's dry run (``repro_torch.launch.dryrun``: one
+                rank's train step on fake CPU tensors over a collective
+                with no wire), in DRYRUN_WORKERS processes started
+                (and warmed up) while the kernels build, idle until the
+                last timed phase is over (beside phases 3-10 they slowed
+                the serve paths' host-bound steps): ``train_4k`` on the
+                production mesh (pod 2, data 16, model 16) for the ten
+                archs under fcdp at the dry run's depth 1 (each cut to
+                DRYRUN_LAYERS, a hybrid to one period, the
+                encoder-decoder to 2 + 2), and qwen2.5-3b whole under
+                zero3, fcdp, zero3 + PEFT and fcdp + PEFT at depth 0,
+                whose bytes per (op, axis) must equal the JAX trace's
+                (JAX_QWEN_TRAIN_4K) and FLOPs lie within 2 % of it;
+                prints each row's pod all-gather and total, FLOPs a chip,
+                peak estimate against the card's memory and dominant
+                roofline term. Then the dry run of phase 5's fcdp arm at
+                its own config, mesh and shape: its bytes must equal the
+                arm's measured bytes a step; its peak estimate over the
+                arm's measured step peak is printed (``peak_ratio``).
 
 Each parity phase runs its card and its CPU job side by side.
 
@@ -395,6 +414,32 @@ JAMBA_PARITY = dict(depth=2, batch=2, prompt=128, decode=4, logit_tol=0.1)
 # twice the 3.75 steps read on the card, with CPU margins of 1-2 steps
 # at the three tokens routed otherwise (PERF.md, jamba_parity)
 ROUTER_STEPS = 8
+# phase dryrun: its worker processes, the ten archs' depth cut, and the
+# JAX package's trace of qwen2.5-3b's train_4k step at (2, 16, 16), depth
+# 0, the dry run's loss_chunk 2048 and block_io (jax 0.9.0, trace only,
+# as tests/test_torch_dryrun.py's _reference_prod traces it, at 36
+# layers): per (op, axis) bytes a chip and FLOPs a chip
+DRYRUN_WORKERS = 7           # the card's host has 8 cores
+DRYRUN_LAYERS = 2
+DRYRUN_FLOPS_RTOL = 0.02
+JAX_QWEN_TRAIN_4K = {
+    "zero3": ({"all_gather/pod": 28549248.0, "all_gather/data": 856477440.0,
+               "psum/model": 57127157767.5, "psum/data": 86430.0,
+               "psum/pod": 2880.765625, "psum_scatter/data": 464705280.0,
+               "psum_scatter/pod": 15490176.0}, 68878390525952.0),
+    "fcdp": ({"all_gather/pod": 15490176.0, "all_gather/data": 856477440.0,
+              "psum/model": 57127157767.5, "psum/data": 86430.0,
+              "psum/pod": 2880.765625, "psum_scatter/data": 464705280.0,
+              "psum_scatter/pod": 15490176.0}, 68878390525952.0),
+    "zero3_peft": ({"all_gather/pod": 28844160.0,
+                    "all_gather/data": 865324800.0,
+                    "psum/model": 57164759047.5, "psum/data": 829470.0,
+                    "psum/pod": 27648.765625, "psum_scatter/data": 4423680.0,
+                    "psum_scatter/pod": 147456.0}, 54596550524928.0),
+    "fcdp_peft": ({"all_gather/pod": 147456.0, "all_gather/data": 473552640.0,
+                   "psum/model": 57164759047.5, "psum/data": 829470.0,
+                   "psum/pod": 27648.765625, "psum_scatter/data": 4423680.0,
+                   "psum_scatter/pod": 147456.0}, 54596550524928.0)}
 TRAIN_DEPTH = 2            # qwen2.5-3b's 36 layers cut to 2 for the train phase
 TRAIN_SEQ, TRAIN_BATCH = 512, 8
 # train phase tolerances: tests/test_system.py's across modes (fp32
@@ -4725,6 +4770,171 @@ def phase_encdec_parity(got):
     contiguous_parity("encdec_parity", encdec_config(1), ENCDEC_PARITY)
 
 
+# -- phase 31: dryrun ----------------------------------------------------------
+
+def _dryrun_init(src: str) -> None:
+    """A dry-run worker: the port on its path, no card in sight, one
+    thread (fake tensors compute nothing), and the dry run's imports
+    done, with one fake op for those made at first use."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, src)
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import repro_torch.launch.dryrun  # noqa: F401
+    torch.set_num_threads(1)
+    with FakeTensorMode():
+        torch.ones(2, 2) @ torch.ones(2, 2)
+
+
+def _dryrun_job(job):
+    """One dry-run row, in a worker: ("cell", arch, mode, peft, depth,
+    layers) runs ``dryrun_cell`` on the multi-pod production mesh with
+    the arch cut to ``layers`` (None: whole); ("train_fcdp",) phase 5's
+    fcdp arm at its own config, mesh and shape."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as dr
+    if job[0] == "train_fcdp":
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                                  num_layers=TRAIN_DEPTH)
+        tj = _train_job(cfg, TRAIN_SEQ, TRAIN_BATCH, [])
+        run = tj.run.replace(system=dataclasses.replace(tj.run.system,
+                                                        mode="fcdp"))
+        row = dr.dryrun_run(run, tj.mesh)
+    else:
+        _, arch, mode, peft, depth, layers = job
+        cfg = get_config(arch)
+        if layers is not None:
+            kw = {"num_layers": cfg.hybrid_period or layers}
+            if cfg.num_encoder_layers:
+                kw["num_encoder_layers"] = layers
+            cfg = dataclasses.replace(cfg, **kw)
+        row = dr.dryrun_cell(arch, "train_4k", True, mode,
+                             system_overrides={"peft": peft},
+                             prefetch_depth=depth, verbose=False, model=cfg)
+        row["layers"] = cfg.num_layers + cfg.num_encoder_layers
+    rep = row["roofline"]
+    return {"job": list(job), "collective_bytes": row["collective_bytes"],
+            "flops_per_chip": row["flops_per_chip"],
+            "bytes_per_chip": row["bytes_per_chip"],
+            "memory": row["memory"], "layers": row.get("layers"),
+            "prefetch_depth": row["prefetch_depth"],
+            "trace_s": row["trace_s"],
+            "roofline": {k: rep[k] for k in (
+                "compute_s", "memory_s", "collective_s", "ici_s", "dcn_s",
+                "dominant", "step_time_lb_s", "roofline_fraction",
+                "useful_flops_ratio")}}
+
+
+def dryrun_jobs():
+    """Phase dryrun's rows, longest first: qwen2.5-3b whole under the four
+    modes, the ten archs cut, phase 5's fcdp arm."""
+    from repro_torch.configs.registry import ARCH_IDS
+    jobs = [("cell", "qwen2.5-3b", mode, peft, 0, None)
+            for mode, peft in (("zero3", False), ("fcdp", False),
+                               ("zero3", True), ("fcdp", True))]
+    jobs += [("cell", a, "fcdp", False, 1, DRYRUN_LAYERS) for a in ARCH_IDS]
+    return jobs + [("train_fcdp",)]
+
+
+def dryrun_pool():
+    """Phase dryrun's DRYRUN_WORKERS spawned processes (no CUDA context
+    in them), started at once, one empty task each, so they warm up
+    (``_dryrun_init``) while the kernels build and wait idle for the
+    phase; returns (the pool, the empty tasks)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=mp.get_context(
+        "spawn"), initializer=_dryrun_init, initargs=(str(ROOT / "src"),))
+    return pool, [pool.submit(int) for _ in range(DRYRUN_WORKERS)]
+
+
+def start_dryrun(pool):
+    """Phase dryrun's rows on ``dryrun_pool``'s workers: {job: future};
+    the workers exit once the rows are done."""
+    pool, warm = pool
+    for f in warm:
+        f.result()
+    futures = {job: pool.submit(_dryrun_job, job) for job in dryrun_jobs()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def _pod_total(row):
+    return sum(v for k, v in row["collective_bytes"].items()
+               if k.endswith("/pod"))
+
+
+def phase_dryrun(futures, train_fcdp):
+    """Read the dry-run rows: qwen2.5-3b whole against the JAX trace
+    (bytes exact, FLOPs within DRYRUN_FLOPS_RTOL), the paper's two
+    ratios, the ten archs' rows, and phase 5's fcdp arm against its
+    measured bytes (exact) and step peak (the ratio printed)."""
+    import torch
+    t0 = time.perf_counter()
+    rows = {job: f.result(timeout=600) for job, f in futures.items()}
+    wall_s = time.perf_counter() - t0
+    card = torch.cuda.get_device_properties(0).total_memory
+    qwen = {}
+    for mode, peft in (("zero3", False), ("fcdp", False), ("zero3", True),
+                       ("fcdp", True)):
+        rid = mode + ("_peft" if peft else "")
+        r = rows[("cell", "qwen2.5-3b", mode, peft, 0, None)]
+        want, flops = JAX_QWEN_TRAIN_4K[rid]
+        check(r["collective_bytes"] == want,
+              f"qwen2.5-3b {rid}: dry-run bytes {r['collective_bytes']} != "
+              f"the JAX trace's {want}")
+        rel = r["flops_per_chip"] / flops - 1.0
+        check(abs(rel) <= DRYRUN_FLOPS_RTOL,
+              f"qwen2.5-3b {rid}: FLOPs a chip {r['flops_per_chip']} not "
+              f"within {DRYRUN_FLOPS_RTOL} of the JAX trace's {flops}")
+        qwen[rid] = dict(r, flops_rel_to_jax=rel)
+    ag = {k: r["collective_bytes"]["all_gather/pod"] for k, r in qwen.items()}
+    ratios = {"fcdp_over_zero3": ag["fcdp"] / ag["zero3"],
+              "fcdp_peft_over_zero3_peft": ag["fcdp_peft"] / ag["zero3_peft"]}
+    check(ratios["fcdp_over_zero3"] < 0.6
+          and ratios["fcdp_peft_over_zero3_peft"] < 0.01,
+          f"the paper's ratios on the dry run: {ratios}")
+    archs = {}
+    for job, r in rows.items():
+        if job[0] != "cell" or job[5] is None:
+            continue
+        archs[job[1]] = {
+            "layers": r["layers"],
+            "all_gather_pod": r["collective_bytes"].get("all_gather/pod", 0.0),
+            "pod_total": _pod_total(r), "flops_per_chip": r["flops_per_chip"],
+            "peak_est_bytes": r["memory"]["peak_est_bytes"],
+            "host_bytes": r["memory"]["host_bytes"],
+            "peak_over_card": r["memory"]["peak_est_bytes"] / card,
+            "roofline": r["roofline"], "trace_s": r["trace_s"]}
+    check(len(archs) == 10, f"dry-run rows of {sorted(archs)}")
+    dry = rows[("train_fcdp",)]
+    r0 = train_fcdp[0]
+    measured = {k: v for k, v in r0["bytes"][0].items() if v}
+    check(dry["collective_bytes"] == measured,
+          f"phase train's fcdp arm: dry-run bytes {dry['collective_bytes']} "
+          f"!= the measured {measured}")
+    peaks = [max(p for part, (p, _) in r["memory"][0].items()
+                 if part != "start") for r in train_fcdp]
+    ratio = dry["memory"]["peak_est_bytes"] / max(peaks)
+    emit("dryrun", mesh={"pod": 2, "data": 16, "model": 16},
+         workers=DRYRUN_WORKERS, wall_s=wall_s, card_bytes=card,
+         qwen={k: {"all_gather_pod": ag[k], "pod_total": _pod_total(r),
+                   "flops_per_chip": r["flops_per_chip"],
+                   "flops_rel_to_jax": r["flops_rel_to_jax"],
+                   "peak_est_bytes": r["memory"]["peak_est_bytes"],
+                   "host_bytes": r["memory"]["host_bytes"],
+                   "peak_over_card": r["memory"]["peak_est_bytes"] / card,
+                   "roofline": r["roofline"], "trace_s": r["trace_s"]}
+               for k, r in qwen.items()},
+         paper_ratios=ratios, archs=archs,
+         train_fcdp={"bytes_equal": True, "memory": dry["memory"],
+                     "measured_step_peak": peaks, "peak_ratio": ratio,
+                     "peak_ratio_in_0.85_1.15": 0.85 <= ratio <= 1.15,
+                     "trace_s": dry["trace_s"]})
+
+
 def main() -> int:
     try:
         import torch
@@ -4745,6 +4955,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.kernels import _build
 
+    workers = dryrun_pool()
     gpu = gpu_line()
     t0 = time.perf_counter()
     built = _build.build()
@@ -4807,6 +5018,8 @@ def main() -> int:
     encdec_train = phase_encdec_train(encdec_arms, encdec_results)
     phase_encdec_parity({dev: rs[n_fp + n_ap]
                          for dev, rs in family_parity.items()})
+    # after every timed phase: the workers would share the host with it
+    phase_dryrun(start_dryrun(workers), train_fcdp)
 
     def entry(c):
         # the redesigned kernels also carry the variant each shape took,

@@ -82,14 +82,41 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    def param_count(self) -> int:
+        """Analytic total parameter count (``models/registry.py``)."""
+        from repro_torch.models.registry import count_params
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        """The same with a MoE's top_k experts only."""
+        from repro_torch.models.registry import count_params
+        return count_params(self, active_only=True)
+
 
 @dataclass(frozen=True)
 class ShapeCell:
     """One input-shape cell."""
-    name: str
+    name: str               # train_4k | prefill_32k | decode_32k | long_500k
     kind: str               # train | prefill | decode
     seq_len: int
     global_batch: int
+
+
+# the four cells of every arch, as the JAX package defines them
+SHAPE_CELLS: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", "train", 4096, 256),
+    ShapeCell("prefill_32k", "prefill", 32768, 32),
+    ShapeCell("decode_32k", "decode", 32768, 128),
+    ShapeCell("long_500k", "decode", 524288, 1),
+)
+
+
+def shape_cell(name: str) -> ShapeCell:
+    for c in SHAPE_CELLS:
+        if c.name == name:
+            return c
+    raise KeyError(f"unknown shape cell {name!r}; "
+                   f"have {[c.name for c in SHAPE_CELLS]}")
 
 
 @dataclass(frozen=True)

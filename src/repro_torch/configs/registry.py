@@ -2,13 +2,15 @@
 archs of the JAX package, in its order: qwen2.5-3b, gemma-2b,
 granite-3-8b and yi-34b (dense), kimi-k2-1t-a32b and
 llama4-maverick-400b-a17b (moe), chameleon-34b (vlm), rwkv6-3b (ssm),
-seamless-m4t-medium (encdec) and jamba-v0.1-52b (hybrid)."""
+seamless-m4t-medium (encdec) and jamba-v0.1-52b (hybrid), with each
+arch's full config, smoke config and shape-cell applicability
+(long_500k only for sub-quadratic archs)."""
 from __future__ import annotations
 
 import importlib
-from typing import Tuple
+from typing import List, Tuple
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPE_CELLS, ModelConfig, ShapeCell
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
@@ -39,3 +41,22 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _load(arch).SMOKE
+
+
+def cell_supported(cfg: ModelConfig, cell: ShapeCell) -> Tuple[bool, str]:
+    """(supported, reason-if-skipped) for one (arch x shape) cell."""
+    if cell.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skip (pure full-attention arch; 500k decode needs "
+                       "sub-quadratic state)")
+    return True, ""
+
+
+def all_cells() -> List[Tuple[str, str, bool, str]]:
+    """[(arch, cell_name, supported, reason)] for all 40 cells."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for cell in SHAPE_CELLS:
+            ok, why = cell_supported(cfg, cell)
+            out.append((arch, cell.name, ok, why))
+    return out

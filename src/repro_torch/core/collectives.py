@@ -48,6 +48,11 @@ through gloo's all-to-all (``all_to_all_single``), which moves the same
 algorithm over host memory, and its reduce-scatter all-reduces the whole
 input. The reduce-scatter then sums the n blocks that arrived in group
 rank order, in their dtype, so every rank and device adds alike.
+
+``NoWire`` is the same accounting with no wire at all: one rank of a
+mesh that needs no process group, whose every op goes through ``_count``
+and hands back a tensor of the shape the real op gives (the dry run,
+``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -234,6 +239,92 @@ class Collectives:
         works = dist.batch_isend_irecv(ops)
         self._count("ppermute", (axis,), src.numel() * src.element_size())
         return Hop(works, (src, buf), x.device)
+
+
+class NoWireMesh:
+    """The mesh of rank 0 with no process group: ``mesh_shape``, rank
+    0's ``coords``, no backend (every rank's step moves the same bytes)."""
+
+    def __init__(self, mesh_shape):
+        self.mesh_shape, self.rank = mesh_shape, 0
+        self.coords = mesh_shape.coords(0)
+        self.backend = "none"
+
+    def group(self, axes):
+        raise RuntimeError("a no-wire mesh has no process groups")
+
+
+class NoWire(Collectives):
+    """The collectives of one rank with no wire: each op counts its bytes
+    through ``_count`` as ``Collectives`` does and returns at once a
+    tensor of the real op's shape and dtype on the input's device (an
+    all-gather: the input repeated; a reduce-scatter: this rank's block
+    of the input; the others: a copy), so a step runs, and is counted,
+    without its peers. Besides ``counts`` it keeps ``calls``, the calls
+    per (op, axis), and ``hbm_bytes``, the operand and result bytes of
+    every counted call (the reference's HBM model counts collectives)."""
+
+    def __init__(self, mesh_shape):
+        super().__init__(NoWireMesh(mesh_shape))
+        self.calls = defaultdict(int)
+        self.hbm_bytes = 0.0
+
+    def _count(self, op, axes, payload):
+        super()._count(op, axes, payload)
+        for a in axes:
+            if self.size(a) > 1:
+                self.calls[f"{op}/{a}"] += 1
+
+    def _issue(self, op, axes, x, out, payload=None):
+        """Count one call (``payload``: its payload bytes, x's by
+        default) and hand back ``out``."""
+        nbytes = x.numel() * x.element_size()
+        self._count(op, axes, nbytes if payload is None else payload)
+        self.hbm_bytes += float(nbytes + out.numel() * out.element_size())
+        return out
+
+    def all_gather_async(self, x, axis, dim):
+        axes = _as_axes(axis)
+        if not self._live(axes):
+            return _done(x)
+        out = torch.cat([x] * math.prod(self.size(a) for a in axes), dim)
+        return _done(self._issue("all_gather", axes, x, out,
+                                 out.numel() * out.element_size()))
+
+    def reduce_scatter_async(self, x, axis, dim):
+        axes = _as_axes(axis)
+        if not self._live(axes):
+            return _done(x)
+        n = math.prod(self.size(a) for a in axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {n} ranks")
+        out = x.narrow(dim, 0, x.shape[dim] // n).clone()
+        return _done(self._issue("psum_scatter", axes, x, out))
+
+    def all_to_all_async(self, x, axis):
+        axes = _as_axes(axis)
+        if not self._live(axes):
+            return _done(x)
+        return _done(self._issue("all_to_all", axes, x, x.clone()))
+
+    def all_reduce(self, x, axes):
+        axes = _as_axes(axes)
+        if not self._live(axes):
+            return x
+        return self._issue("psum", axes, x, x.clone())
+
+    def all_reduce_max(self, x, axes):
+        return x.clone() if self._live(_as_axes(axes)) else x
+
+    def ppermute(self, x, axis, perm):
+        out = self._issue("ppermute", (axis,), x, x.clone())
+        return Hop([], (out, out), out.device)
+
+
+def _done(t: torch.Tensor) -> "Pending":
+    """A collective that finished when it was issued, with result t."""
+    return Pending(None, (t, t), t.device, None)
 
 
 class Hop:

@@ -80,7 +80,9 @@ class TrainStep:
     cross-step schedule instead. ``gather`` keeps the cache bytes and
     places of the last call, ``gather.scheduler`` its ring's live depth
     and bytes; on a card, ``memory`` keeps the last call's device
-    memory by part (``_mark``)."""
+    memory by part (``_mark``). With ``host_metrics`` False the metrics
+    stay 0-dim tensors, read on the host by nothing in the step (the
+    dry run's fake tensors have no values to read)."""
 
     def __init__(self, bundle, coll):
         run = bundle.run
@@ -97,6 +99,7 @@ class TrainStep:
             bundle.strategy, self.sys, ms, [p for _, p in tree_items(plans)]),
             self.sys.host_offload)
         self.primed = False          # a cross-step carry is outstanding
+        self.host_metrics = True
         self.memory: Dict[str, Tuple[int, int]] = {}
         self.widen = bundle.widen
         self.train_leaves = [(bundle.def_leaves[i], bundle.plan_leaves[i])
@@ -255,13 +258,18 @@ class TrainStep:
             self._mark("accumulate")
         gnorm = self.apply_grads(train, grads, opt_state)
         self._mark("apply")
-        return {"loss": float(ce), "aux_loss": float(aux),
-                "grad_norm": float(gnorm), "tokens": float(tokens)}
+        return self._metrics({"loss": ce, "aux_loss": aux,
+                              "grad_norm": gnorm, "tokens": tokens})
+
+    def _metrics(self, m) -> Dict[str, float]:
+        if not self.host_metrics:
+            return m
+        return {k: float(v) for k, v in m.items()}
 
     # -- the cross-step schedule (stream 3) --------------------------------
     def _xstep_metrics(self, ce, gnorm) -> Dict[str, float]:
-        return {"loss": float(ce / self.nm), "aux_loss": 0.0,
-                "grad_norm": float(gnorm), "tokens": 1.0}
+        return self._metrics({"loss": ce / self.nm, "aux_loss": 0.0,
+                              "grad_norm": gnorm, "tokens": 1.0})
 
     def _need(self, primed: bool) -> None:
         if not self.use_xstep:
@@ -315,7 +323,7 @@ class TrainStep:
             opt_state)
         self._mark("apply")
         self.primed = False
-        return {"grad_norm": float(gnorm)}
+        return self._metrics({"grad_norm": gnorm})
 
 
 # -- the carry's global layout (the checkpoint's carry section) ---------------

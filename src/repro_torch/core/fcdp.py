@@ -283,9 +283,25 @@ class _SavedView:
                                full.storage_offset() + self.offset)
 
 
+def _storage_id(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage while it lives (its address where
+    tensors have none: fake tensors all report 0)."""
+    return t.untyped_storage()._cdata
+
+
 def _key(t: torch.Tensor):
-    return (t.untyped_storage().data_ptr(), t.storage_offset(),
+    return (_storage_id(t), t.storage_offset(),
             tuple(t.shape), tuple(t.stride()), t.dtype, t.device)
+
+
+def pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """The host tier of ``t``: a pinned host copy of a device tensor,
+    ``t`` itself on the CPU."""
+    if t.device.type == "cpu":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 class ParamGather:
@@ -309,6 +325,8 @@ class ParamGather:
         self._views: Optional[dict] = None
         self.cached = defaultdict(int)
         self.cache_places = defaultdict(set)
+        # the host tier's copy of a cache (the dry run counts its own)
+        self.host_copy = pinned_copy
 
     def issue_stage1(self, w: torch.Tensor, plan: GatherPlan) -> Stage1Slot:
         """Start the stage-1 gather of a ring leaf's shard ``w``."""
@@ -349,7 +367,7 @@ class ParamGather:
                 self._rebuilder(w.detach(), stage1.detach(), full.detach(),
                                 plan, cast, placement)))
             self._entries[_key(full)] = entry
-            self._views[(full.untyped_storage().data_ptr(), full.dtype,
+            self._views[(_storage_id(full), full.dtype,
                          full.device)] = entry
         sync = plan.sync_axes + (("model",) if over_model else ())
         if sync and plan.residency.receives_gradient:
@@ -382,11 +400,9 @@ class ParamGather:
 
     def _park(self, t: torch.Tensor, placement: str) -> torch.Tensor:
         """The cache of ``t`` on its tier: ``t`` itself on the device,
-        a pinned host copy on the host (``t`` itself on the CPU)."""
-        if placement == "host" and t.device.type != "cpu":
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            t = host
+        ``host_copy(t)`` on the host."""
+        if placement == "host":
+            t = self.host_copy(t)
         self.cached[placement] += t.numel() * t.element_size()
         self.cache_places[placement].add((t.device.type, t.is_pinned()))
         return t
@@ -411,8 +427,7 @@ class ParamGather:
             return hit[1]
         # a view of a gathered weight: the JAX remat recomputes it from
         # the regathered weight, so it is rebuilt from the same cache
-        hit = self._views.get((t.untyped_storage().data_ptr(), t.dtype,
-                               t.device))
+        hit = self._views.get((_storage_id(t), t.dtype, t.device))
         if hit is None:
             return t
         full, saved = hit

@@ -582,6 +582,8 @@ def register_strategy(cls: Type[ShardingStrategy]) -> Type[ShardingStrategy]:
 for _cls in (Zero3, ZeroPP, FCDP, MiCS, Hierarchical):
     register_strategy(_cls)
 
+DEFAULT_STRATEGY = FCDP.name
+
 
 def strategy_names() -> Tuple[str, ...]:
     return tuple(_REGISTRY)

@@ -165,13 +165,28 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor,
     [B,S,C] fp32. Any S and C on both devices."""
     mamba_scan.calls += 1
     if not _kernel_device(a, "mamba_scan"):
-        return ref.mamba_scan_plain(a, b, h0)
+        return _mamba_scan_plain(a, b, h0)
     out = mamba_scan_fwd(a, b, h0)
     mamba_scan.launches += 1
     return out
 
 
 mamba_scan.launches = mamba_scan.calls = 0
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_plain", mutates_args=())
+def _mamba_scan_plain(a: torch.Tensor, b: torch.Tensor,
+                      h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``ref.mamba_scan_plain`` as one op: on fake tensors (the dry run,
+    ``launch/dryrun.py``) its S steps are one dispatch, its result's
+    shape and dtype (below), not S steps of elementwise ops."""
+    return ref.mamba_scan_plain(a, b, h0)
+
+
+@_mamba_scan_plain.register_fake
+def _(a, b, h0=None):
+    return a.new_empty(a.shape, dtype=torch.promote_types(a.dtype,
+                                                          torch.float32))
 
 
 class _MambaScanTrain(torch.autograd.Function):

@@ -86,6 +86,14 @@ def tp_degree(mesh) -> int:
     return mesh.shape.get("model", 1)
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The production mesh of the JAX package's dry run: (pod 2, data 16,
+    model 16), 512 ranks, or one pod's (data 16, model 16)."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
 def train_mesh_shape(world: int, multi_pod: bool) -> MeshShape:
     """The launcher's mesh over ``world`` ranks, by the JAX package's
     ``make_smoke_mesh`` rule: with ``multi_pod``, (pod 2, data world/2/m,

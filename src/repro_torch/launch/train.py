@@ -37,9 +37,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs.base import (ACTIVATION_POLICIES, ModelConfig,
+from repro_torch.configs.base import (SHAPE_CELLS, ModelConfig,
                                       OptimizerConfig, RunConfig, ShapeCell,
-                                      SystemConfig)
+                                      shape_cell)
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.cache import cache_bytes_per_chip
 from repro_torch.core.collectives import Collectives, pick_backend
@@ -53,10 +53,10 @@ from repro_torch.core.peft import unfreeze_all
 from repro_torch.core.schedule import (async_buffer_bytes,
                                       cross_step_buffer_bytes,
                                       prefetch_buffer_bytes)
-from repro_torch.core.strategy import strategy_names
 from repro_torch.data.pipeline import (DataConfig, ShardedLoader,
                                        SyntheticPackedLM, enc_embed_dim)
 from repro_torch.kernels import ops
+from repro_torch.launch.cli import add_system_args, system_config_from_args
 from repro_torch.launch.mesh import (MeshShape, RankMesh, device_for_rank,
                                      train_mesh_shape)
 from repro_torch.optim.adamw import init_opt_state
@@ -619,25 +619,17 @@ def spawn(job: TrainJob, rdzv_dir: Optional[str] = None,
 # -- the command line -----------------------------------------------------------
 
 def build_run(args) -> RunConfig:
+    """The run of the command line: the smoke config on a cell of
+    ``--seq-len`` x ``--batch`` with ``--smoke``; the full config on the
+    shape cell ``--cell`` without it, or on ``--seq-len`` x ``--batch``
+    when no cell is named."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cell = ShapeCell("train", "train", args.seq_len, args.batch)
-    lora = {}
-    if args.lora_targets:
-        lora["lora_targets"] = tuple(t.strip() for t in
-                                     args.lora_targets.split(",")
-                                     if t.strip())
-    sysc = SystemConfig(mode=args.mode, param_compress=args.param_compress,
-                        grad_compress=args.grad_compress,
-                        fused_matmul=args.fused_matmul,
-                        min_shard_size=8 if args.smoke else 2048,
-                        peft=args.peft, lora_rank=args.lora_rank,
-                        lora_alpha=args.lora_alpha,
-                        mode_overrides=tuple(args.mode_override),
-                        prefetch_depth=args.prefetch_depth,
-                        async_grad_reduce=args.async_grad_reduce,
-                        cross_step_pipeline=args.cross_step_pipeline,
-                        device_cache_fraction=args.device_cache_fraction,
-                        activation_policy=args.activation_policy, **lora)
+    if args.cell is not None:
+        cell = shape_cell(args.cell)
+    else:
+        cell = ShapeCell("train", "train", args.seq_len, args.batch)
+    sysc = system_config_from_args(
+        args, min_shard_size=8 if args.smoke else 2048)
     return RunConfig(model=cfg, shape=cell, system=sysc,
                      microbatch=args.microbatch,
                      optimizer=OptimizerConfig(
@@ -646,10 +638,17 @@ def build_run(args) -> RunConfig:
 
 
 def parser() -> argparse.ArgumentParser:
-    """The command line of ``main``."""
+    """The command line of ``main``; the system knobs are the shared
+    ones of ``launch/cli.py``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--cell", default=None,
+                    choices=[c.name for c in SHAPE_CELLS
+                             if c.kind == "train"],
+                    help="train on this shape cell's sequence length and "
+                         "global batch (not with --smoke; default: "
+                         "--seq-len x --batch)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="a (pod 2, data world/2/m, model m) mesh, m = "
                          "gcd(world/2, 2); without it (data world/m, "
@@ -659,57 +658,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=0)
-    ap.add_argument("--mode", default="fcdp", choices=strategy_names())
-    ap.add_argument("--mode-override", action="append", default=[],
-                    metavar="GLOB=MODE",
-                    help="per-tensor strategy rule matched against dotted "
-                         "parameter paths, first match wins; repeatable "
-                         "(e.g. --mode-override '*lora*=zero3')")
-    ap.add_argument("--peft", action="store_true",
-                    help="FCDP-Comm: freeze the trunk and train LoRA "
-                         "adapters; only they cross 'pod' under fcdp")
-    ap.add_argument("--lora-rank", type=int, default=8,
-                    help="LoRA adapter rank r (with --peft)")
-    ap.add_argument("--lora-alpha", type=float, default=None,
-                    help="the adapter term is scaled by alpha/rank "
-                         "(default: 2*rank, scale 2.0)")
-    ap.add_argument("--lora-targets", default=None, metavar="NAME[,NAME...]",
-                    help="projections to inject adapters next to "
-                         "(default: wq,wk,wv,wo)")
-    ap.add_argument("--param-compress", default="none",
-                    choices=["none", "int8_pod"])
-    ap.add_argument("--grad-compress", default="none",
-                    choices=["none", "int8_pod"])
-    ap.add_argument("--fused-matmul", default="none",
-                    choices=["none", "ag_matmul", "both"],
-                    help="consume the output projections' stage-2 gather in "
-                         "the gather-fused collective matmul")
-    ap.add_argument("--prefetch-depth", type=int, default=0, metavar="N",
-                    help="stage-1 prefetch ring depth: layer i+N's 'pod' "
-                         "gather is issued before layer i's compute (0: "
-                         "the sequential schedule; inert under mics and "
-                         "hier and without a pod axis)")
-    ap.add_argument("--async-grad-reduce", action="store_true",
-                    help="differentiate each microbatch w.r.t. a stage-1 "
-                         "view and retire its 'pod' gradient reduce-scatter "
-                         "one microbatch later (needs --microbatch >= 2; "
-                         "inert under mics and hier and without a pod axis)")
-    ap.add_argument("--cross-step-pipeline", action="store_true",
-                    help="carry the last 'pod' reduce, the clip, AdamW and "
-                         "the widened gather back across the step boundary "
-                         "(needs --async-grad-reduce and --microbatch >= 2)")
-    ap.add_argument("--device-cache-fraction", type=float, default=0.0,
-                    metavar="TAU",
-                    help="FCDP-Cache: the share of the stack's leading "
-                         "layers whose stage-1 caches wait on the device "
-                         "instead of the host (fcdp only; 0: all host)")
-    ap.add_argument("--activation-policy", default="save_all",
-                    choices=ACTIVATION_POLICIES,
-                    help="what a layer keeps for its backward: save_all "
-                         "(autograd's default), block_io (its input; the "
-                         "layer recomputed), offload_acts (= block_io), "
-                         "save_collectives (its input and its 'model' "
-                         "all-reduce outputs)")
+    add_system_args(ap)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(), "repro_ckpt"),
@@ -727,7 +676,11 @@ def main(argv=None):
     """Train under torchrun (``RANK``/``WORLD_SIZE``/``LOCAL_WORLD_SIZE``/
     ``MASTER_ADDR``/``MASTER_PORT`` from its environment). Rank 0 prints one line per
     step and a JSON summary; returns this rank's result."""
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.smoke and args.cell is not None:
+        ap.error("--cell names a full config's cell; --smoke trains "
+                 "--seq-len x --batch")
 
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
@@ -738,6 +691,7 @@ def main(argv=None):
                    runs=[ModeRun(args.mode, args.param_compress,
                                  args.grad_compress, args.steps,
                                  microbatch=args.microbatch,
+                                 loss_chunk=sysc.loss_chunk,
                                  fused_matmul=args.fused_matmul,
                                  peft=sysc.peft, lora_rank=sysc.lora_rank,
                                  lora_alpha=sysc.lora_alpha,

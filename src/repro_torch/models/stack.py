@@ -375,7 +375,7 @@ def apply_stack_train(cfg: ModelConfig, plan: List[Tuple[str, ...]],
             for key, kind, n in names:
                 w = gather(stacked_params[key][kind][n][layer],
                            stacked_plans[key][kind][n],
-                           torch.float32 if n == "norm" else None,
+                           torch.float32 if n in sl.FP32_READ else None,
                            sl.model_summed(stacked_defs[key][kind], n, tpc,
                                            kind),
                            slot.get((key, kind, n)) if slot else None)

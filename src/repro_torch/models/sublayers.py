@@ -233,6 +233,14 @@ def xattn_train(cfg, p, x, enc_out, tpc: TPContext = SERIAL):
     return x + psum_tp_out(y, tpc)
 
 
+# the sublayers' leaves read in fp32 (the norm scales, rwkv's u and
+# ln_x, Mamba's A_log and D_skip): gathered in fp32, so a replicated
+# one's gradient is summed after the cast, in fp32, where the JAX step's
+# typing sums it
+FP32_READ = frozenset({"norm", "q_norm", "k_norm", "ln_x", "u", "A_log",
+                       "D_skip"})
+
+
 def model_summed(defs: Dict[str, ParamDef], name: str,
                  tpc: TPContext, kind: str = "attn") -> bool:
     """Whether the gradient of leaf ``name`` of a ``kind`` sublayer
